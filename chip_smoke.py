@@ -15,18 +15,36 @@ Phases, each printing its own line(s) before the last line:
    alpha in {1.2, 1.5, 2.0};
 4. kernel ota_channel_slab against its plain version at 50 x 175,104,
    pilot statistics on and off, alpha in {1.2, 1.5, 2.0};
-5. reference: small inputs through the round on the card and on the CPU
+5. kernel ota_transmit_slab against its plain version at 50 x 175,104
+   (the last 38 columns zero, as the slab's padding): int8 with host
+   stochastic rounding and round-to-nearest, sign and folded sign, each
+   with and without error feedback; the in-kernel Philox rounding held
+   to one quantization step and to zero bias;
+6. kernel ota_receive_slab against its plain version: R in {1, 3}, the
+   int8 container and the fold / planes sign words, alpha in
+   {1.2, 1.5, 2.0}, pilot statistics on and off;
+7. runtime alpha: adaptive_update_slab with alpha a device tensor against
+   its plain version, and the server half of a tracked round (the MAC
+   with statistics, the EMA, the update) under
+   torch.cuda.set_sync_debug_mode("error"): no read back to the host;
+8. reference: small inputs through the round on the card and on the CPU
    (plain versions), same draws: logistic regression and a small
-   ResNet-tiny agree within their tiers;
-6. main path: ResNet-tiny at full width (channels 16/32/64, 2 blocks
+   ResNet-tiny agree within their tiers; then quantized rounds (int8 +
+   error feedback, folded sign + error feedback) of logistic regression;
+9. main path: ResNet-tiny at full width (channels 16/32/64, 2 blocks
    per stage; 175,066 parameters), 50 clients, batch 8 of 32x32x3,
    adam_ota then adagrad_ota, 5 rounds each, through
    make_slab_round_runner + run_rounds_slab with the port's own draws.
    Every launch counter is set to 0 just before and read just after:
-   each kernel must have launched exactly once per round;
-7. times: CUDA events, median of 50 launches, each after an L2 flush,
-   of each kernel and its plain version at the main path's shapes,
-   beside the least time the card needs to move the bytes;
+   each kernel must have launched exactly once per round. Then three
+   wire runs of adam_ota, 5 rounds each, the counters set to 0 before
+   and read after each: f32 uplink with alpha="auto"; int8 uplink with
+   error feedback and the int8 downlink, alpha="auto"; folded sign with
+   error feedback, static alpha 1.5;
+10. times: CUDA events, median of 50 launches, each after an L2 flush
+   and a device sleep that covers the host's enqueue, of each kernel and
+   its plain version at the main path's shapes, beside the least time
+   the card needs to move the bytes;
 then one JSON line listing the kernels, and the result line.
 
 Exits non-zero, and prints no result, without a CUDA device, without the
@@ -56,6 +74,7 @@ N_CLIENTS = 50
 BATCH = 8
 ROUNDS = 5
 TIMED_LAUNCHES = 50
+SLEEP_CYCLES = 4_000_000   # ~2 ms at the H100's 1.98 GHz boost clock
 
 
 def check(ok: bool, what: str) -> None:
@@ -158,6 +177,219 @@ def phase_kernel_channel(torch, dev, total):
     return worst
 
 
+def _wire_inputs(torch, dev, total, seed):
+    """50 x 175,104 gradients, fading, SR uniforms and a residual carry,
+    the padding tail zero as the round's slab has it."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    grads = torch.randn(N_CLIENTS, D_MAIN, generator=gen, device=dev)
+    h = 0.5 + torch.rand(N_CLIENTS, generator=gen, device=dev)
+    r = torch.rand(D_MAIN, generator=gen, device=dev)
+    ef = 0.01 * torch.randn(D_MAIN, generator=gen, device=dev)
+    grads[:, total:], ef[total:] = 0.0, 0.0
+    return grads, h, r, ef
+
+
+def _check_transmit(torch, got, want, x, what):
+    """Payload equal on >= 99.9 % of entries and within one step on the
+    rest; scales within 1e-6 rel + 1e-6 of their largest; the residual
+    within 1e-6 rel + 1e-6 of max|x| where the payloads agree and within
+    one step where an entry flipped. Returns the largest error."""
+    q, s = got[0].float(), got[1]
+    qw, sw = want[0].float(), want[1]
+    same = q == qw
+    check(float(same.float().mean()) >= 0.999, f"{what}: payload equal on "
+          f"{float(same.float().mean()):.5f} of entries")
+    check(bool(torch.all((q - qw).abs() <= 1.0)), f"{what}: payload off "
+          "by more than one step")
+    err_s = (s - sw).abs()
+    check(bool(torch.all(err_s <= 1e-6 * sw.abs() + 1e-6 * float(
+        sw.abs().max()))), f"{what}: scales err {float(err_s.max())}")
+    worst = float(err_s.max())
+    if len(got) == 3:
+        err = (got[2] - want[2]).abs()
+        tol = 1e-6 * want[2].abs() + 1e-6 * float(x.abs().max())
+        step = sw.repeat_interleave(128)
+        check(bool(torch.all(torch.where(same, err <= tol,
+                                         err <= step * (1 + 1e-6)))),
+              f"{what}: residual err {float(err.max())}")
+        worst = max(worst, float(torch.where(same, err,
+                                             torch.zeros_like(err)).max()))
+    return worst, int((~same).sum())
+
+
+def phase_kernel_transmit(torch, dev, total):
+    from repro_torch.kernels.ota_channel import ota_transmit_slab
+    from repro_torch.kernels.ref import ota_transmit_ref
+
+    grads, h, r, ef = _wire_inputs(torch, dev, total, 4)
+    worst, flips, cases = 0.0, 0, 0
+    modes = [("int8", True, False), ("int8", False, False),
+             ("sign", False, False), ("sign", False, True)]
+    for qmode, stochastic, zero_fold in modes:
+        for use_ef in (False, True):
+            kw = dict(quantize=True, r=r if stochastic else None,
+                      stochastic=stochastic, qmode=qmode, zero_fold=zero_fold,
+                      ef=ef if use_ef else None, return_residual=use_ef)
+            got = ota_transmit_slab(grads, h, **kw)
+            want = ota_transmit_ref(grads, h, **kw)
+            x = ota_transmit_ref(grads, h) + (ef if use_ef else 0.0)
+            torch.cuda.synchronize()
+            what = f"ota_transmit_slab {qmode} sr={stochastic} " \
+                   f"fold={zero_fold} ef={use_ef}"
+            w, f = _check_transmit(torch, got, want, x, what)
+            worst, flips, cases = max(worst, w), flips + f, cases + 1
+            check(bool(torch.all(got[0][total:] == (1 if zero_fold else 0))),
+                  f"{what}: padding payload")
+            if use_ef and not zero_fold:
+                # (under fold the round re-masks the tail afterwards)
+                check(bool(torch.all(got[2][total:] == 0.0)),
+                      f"{what}: padding residual")
+    # In-kernel Philox rounding: another uniform stream, so held to one
+    # step of x/s on every entry and to zero bias over the slab.
+    x = ota_transmit_ref(grads, h) + ef
+    q, s, res = ota_transmit_slab(grads, h, quantize=True, sr_seed=12345,
+                                  ef=ef, return_residual=True)
+    torch.cuda.synchronize()
+    sb = s.repeat_interleave(128)
+    y = x / sb
+    dev_steps = (q.float() - y)[:total]
+    check(bool(torch.all(dev_steps.abs() < 1.0 + 1e-5)),
+          f"in-kernel SR: {float(dev_steps.abs().max())} steps from x/s")
+    frac = (y - torch.floor(y))[:total].double()
+    se = float(torch.sqrt((frac * (1 - frac)).sum())) / total
+    bias = float(dev_steps.double().mean())
+    check(abs(bias) <= 3 * se, f"in-kernel SR bias {bias} vs 3 se "
+          f"{3 * se}")
+    check(bool(torch.all((res - (x - q.float() * sb)).abs()
+                         <= 1e-6 * x.abs().max())), "in-kernel SR residual")
+    check(bool(torch.all(q[total:] == 0)), "in-kernel SR padding")
+    print(f"[kernel ota_transmit_slab] N={N_CLIENTS} d={D_MAIN} {cases} cases "
+          f"(int8 SR/RTN, sign, sign fold x EF on/off): scales and residual "
+          f"max_abs_err={worst:.3e} (tol 1e-6 rel + 1e-6 of scale); payload "
+          f"entries one step apart: {flips} of {cases * D_MAIN} (tol 0.1 %); "
+          f"padding exact; in-kernel SR within one step, mean (q - x/s) = "
+          f"{bias:.3e} vs 3 se {3 * se:.3e}; ok")
+    return worst
+
+
+def phase_kernel_receive(torch, dev, total):
+    from repro_torch.core.channel import CMS_U_BOUND
+    from repro_torch.kernels.ota_channel import (ota_receive_slab,
+                                                 pack_sign_slab)
+    from repro_torch.kernels.ref import ota_receive_ref
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    u = (2 * torch.rand(D_MAIN, generator=gen, device=dev) - 1) * CMS_U_BOUND
+    e = -torch.log(torch.rand(D_MAIN, generator=gen, device=dev))
+    u[total:], e[total:] = 0.0, 1.0
+    worst = worst_stats = 0.0
+    cases = 0
+    for rows in (1, 3):
+        s = torch.rand(rows, D_MAIN // 128, generator=gen, device=dev)
+        q8 = torch.randint(-127, 128, (rows, D_MAIN), generator=gen,
+                           device=dev, dtype=torch.int8)
+        q3 = torch.randint(-1, 2, (rows, D_MAIN), generator=gen, device=dev,
+                           dtype=torch.int8)
+        q8[:, total:], q3[:, total:] = 0, 0
+        payloads = {None: q8,
+                    "fold": pack_sign_slab(torch.where(q3 < 0, -1, 1).to(
+                        torch.int8)),
+                    "planes": pack_sign_slab(q3, planes=True)}
+        for packed, payload in payloads.items():
+            for alpha in (1.2, 1.5, 2.0):
+                for stats in (False, True):
+                    kw = dict(alpha=alpha, scale=0.1, packed=packed,
+                              pilot_stats=stats)
+                    got = ota_receive_slab(payload, s, u, e, **kw)
+                    want = ota_receive_ref(payload, s, u, e, **kw)
+                    torch.cuda.synchronize()
+                    cases += 1
+                    what = f"ota_receive_slab R={rows} {packed} a={alpha}"
+                    if stats:
+                        (got, gs), (want, ws) = got, want
+                        check(float(gs[0]) == float(ws[0]) == total,
+                              f"{what}: stats count {float(gs[0])}")
+                        rel = float(((gs - ws).abs()
+                                     / ws.abs().clamp_min(1)).max())
+                        check(rel <= 1e-5, f"{what}: stats rel err {rel}")
+                        worst_stats = max(worst_stats, rel)
+                    err = (got - want).abs()
+                    check(bool(torch.all(err <= 1e-6 * want.abs() + 1e-6
+                                         * float(want.abs().max()))),
+                          f"{what}: max err {float(err.max())}")
+                    if packed != "fold":
+                        check(bool(torch.all(got[total:] == 0.0)),
+                              f"{what}: padding not 0")
+                    worst = max(worst, float(err.max()))
+    print(f"[kernel ota_receive_slab] d={D_MAIN} {cases} cases (R 1/3 x int8"
+          f"/fold/planes x alpha 1.2/1.5/2.0 x stats on/off): max_abs_err="
+          f"{worst:.3e} (tol 1e-6 rel + 1e-6 of scale); padding exactly 0 on "
+          f"int8 and planes; stats max_rel_err={worst_stats:.3e} (tol 1e-5), "
+          "count exact; ok")
+    return worst
+
+
+def phase_runtime_alpha(torch, dev, total):
+    """The update with alpha a device tensor, and the server half of a
+    tracked round with host syncs made errors."""
+    from repro_torch.core.adaptive import AdaptiveConfig, slab_update_slabs
+    from repro_torch.core.tail_index import effective_alpha, update_alpha_ema
+    from repro_torch.kernels.adaptive_update import adaptive_update_slab
+    from repro_torch.kernels.ota_channel import ota_channel_slab
+    from repro_torch.kernels.ref import adaptive_update_ref
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    g, w = (torch.randn(D_MAIN, generator=gen, device=dev) for _ in range(2))
+    delta = 0.1 * torch.randn(D_MAIN, generator=gen, device=dev)
+    delta[::17] = 0.0
+    nu = 0.01 * torch.rand(D_MAIN, generator=gen, device=dev)
+    nu_max = nu + 0.01 * torch.rand(D_MAIN, generator=gen, device=dev)
+    worst = 0.0
+    for mode in ("adagrad", "adam", "amsgrad", "yogi"):
+        for a in (1.2, 1.5, 1.83, 2.0):
+            kw = dict(lr=0.01, beta1=0.9, beta2=0.3, eps=1e-8, mode=mode,
+                      nu_max=nu_max if mode == "amsgrad" else None,
+                      alpha=torch.tensor(a, device=dev))
+            got = adaptive_update_slab(g, delta, nu, w, **kw)
+            want = adaptive_update_ref(g, delta, nu, w, **kw)
+            torch.cuda.synchronize()
+            for i, (x, y) in enumerate(zip(got, want)):
+                err = (x - y).abs()
+                check(bool(torch.all(err <= 1e-6 * y.abs() + 1e-6 * float(
+                    y.abs().max()))), f"runtime alpha {mode} a={a} output "
+                      f"{i}: max err {float(err.max())}")
+                worst = max(worst, float(err.max()))
+    grads, h, _, _ = _wire_inputs(torch, dev, total, 7)
+    # the CMS draws of a real round: u uniform on the open half-circle,
+    # e ~ Exp(1); the residual is then alpha-stable with alpha = 1.5
+    u = (2 * torch.rand(D_MAIN, generator=gen, device=dev) - 1) * 1.5707
+    e = -torch.log(torch.rand(D_MAIN, generator=gen, device=dev))
+    u[total:], e[total:] = 0.0, 1.0
+    cfg = AdaptiveConfig(optimizer="adam_ota", lr=0.01, alpha="auto")
+    alpha_hat = torch.zeros((), device=dev)
+    state = (delta.clone(), nu.clone())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(3):
+            g_slab, stats = ota_channel_slab(grads, h, u, e, alpha=1.5,
+                                             scale=0.1, pilot_stats=True)
+            alpha_hat = update_alpha_ema(alpha_hat, stats, cfg.alpha_ema)
+            state, w = slab_update_slabs(cfg, g_slab, state, w,
+                                         alpha=effective_alpha(alpha_hat))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(abs(float(alpha_hat) - 1.5) < 0.1, f"alpha_hat {float(alpha_hat)}")
+    check(bool(torch.isfinite(w).all()), "tracked update: w not finite")
+    print(f"[runtime alpha] adaptive_update_slab with a device alpha, 16 "
+          f"cases (4 modes x alpha 1.2/1.5/1.83/2.0): max_abs_err="
+          f"{worst:.3e} (tol 1e-6 rel + 1e-6 of scale); 3 tracked server "
+          f"steps (MAC + stats, EMA, update) under sync_debug_mode='error' "
+          f"with no host sync, alpha_hat={float(alpha_hat):.4f}; ok")
+    return worst
+
+
 def phase_reference(torch, np):
     """The round on the card against the round on the CPU (plain
     versions), same inputs and draws."""
@@ -197,6 +429,138 @@ def phase_reference(torch, np):
           " same draws: " + ", ".join(f"{k} max|dw|={v:.3e}" for k, v in
                                       worst.items())
           + " (tiers 1e-5 logreg, 1e-4 conv); ok")
+
+
+def phase_reference_wire(torch, np):
+    """Quantized rounds on the card against the same rounds on the CPU
+    (plain versions), same draws: logistic regression, 3 rounds."""
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.core.channel import OTAChannelConfig, UplinkConfig
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.fl import FLConfig, make_slab_round_step
+    from repro_torch.core.slab_state import init_train_state
+    from repro_torch.models.vision import logistic_regression
+
+    rng = np.random.default_rng(1)
+    model = logistic_regression(16, 4)
+    params = model.init(seed=2, device="cpu")
+    worst = {}
+    for name, up in (("int8+EF", UplinkConfig(mode="int8",
+                                              error_feedback=True)),
+                     ("sign fold+EF", UplinkConfig(mode="sign",
+                                                   error_feedback=True))):
+        ch = OTAChannelConfig(uplink=up)
+        ad = AdaptiveConfig(optimizer="adam_ota", lr=0.01)
+        fl = FLConfig(n_clients=4)
+        states = {d: init_train_state(ad, params, error_feedback=True,
+                                      device=d) for d in ("cpu", "cuda")}
+        steps = {d: make_slab_round_step(model.loss_fn, ch, ad, fl, device=d)
+                 for d in states}
+        draws = TorchDraws(ch, states["cpu"].spec, 4, seed=5, device="cpu")
+        for t in range(3):
+            batch = {"x": rng.normal(size=(4, 3, 16)).astype(np.float32),
+                     "y": rng.integers(0, 4, (4, 3)).astype(np.int64)}
+            for d in states:
+                states[d], _ = steps[d](states[d], draws(t), batch)
+        err = 0.0
+        for a, b in ((states["cuda"].w, states["cpu"].w),
+                     (states["cuda"].ef, states["cpu"].ef),
+                     *zip(states["cuda"].opt, states["cpu"].opt)):
+            a = a.cpu()
+            check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5)),
+                  f"{name}: card vs CPU differ by {float((a - b).abs().max())}")
+            err = max(err, float((a - b).abs().max()))
+        check(float(states["cuda"].ef.abs().max()) > 0.0, f"{name}: ef zero")
+        worst[name] = err
+    print("[reference] quantized rounds on the card vs on the CPU (plain "
+          "versions), same draws, logreg 3 rounds: "
+          + ", ".join(f"{k} max|d(w, opt, ef)|={v:.3e}"
+                      for k, v in worst.items()) + " (tier 1e-5); ok")
+
+
+WIRE_RUNS = ("f32-auto", "int8-ef-dl8-auto", "sign-fold-ef")
+
+
+def phase_wire_runs(torch, np, dev, counters):
+    """Three runs of the main path on the wire's configurations. Every
+    counter is set to 0 just before each run and read just after."""
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.core.channel import OTAChannelConfig, UplinkConfig
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.fl import (FLConfig, make_slab_round_runner,
+                                     run_rounds_slab)
+    from repro_torch.core.slab_state import init_train_state
+    from repro_torch.data import FederatedBatcher, synthetic_images
+    from repro_torch.models.vision import resnet_tiny
+
+    model = resnet_tiny(10)
+    data = synthetic_images(3000, 32, 3, 10, seed=0)
+    fl = FLConfig(n_clients=N_CLIENTS)
+    configs = {
+        "f32-auto": (OTAChannelConfig(), "auto",
+                     {"ota_channel_slab", "adaptive_update_slab"}),
+        "int8-ef-dl8-auto": (
+            OTAChannelConfig(uplink=UplinkConfig(mode="int8",
+                                                 error_feedback=True),
+                             downlink="int8"), "auto",
+            {"ota_transmit_slab", "ota_receive_slab",
+             "adaptive_update_slab"}),
+        "sign-fold-ef": (
+            OTAChannelConfig(uplink=UplinkConfig(mode="sign",
+                                                 error_feedback=True,
+                                                 sign_pack="fold")), 1.5,
+            {"ota_transmit_slab", "ota_receive_slab",
+             "adaptive_update_slab"}),
+    }
+    totals = {c.__name__: 0 for c in counters}
+    for name in WIRE_RUNS:
+        ch, alpha, launched = configs[name]
+        ad = AdaptiveConfig(optimizer="adam_ota", lr=0.01, alpha=alpha)
+        ef = ch.uplink.error_feedback
+        state = init_train_state(ad, model.init(seed=0, device=dev),
+                                 error_feedback=ef, device=dev)
+        run = make_slab_round_runner(model.loss_fn, ch, ad, fl, device=dev)
+        draws = TorchDraws(ch, state.spec, N_CLIENTS, seed=1, device=dev)
+        batcher = FederatedBatcher(data, N_CLIENTS, BATCH, seed=1)
+        # one warm-up round outside the counted run
+        run_rounds_slab(run, state, lambda t: draws(1000 + t), batcher, 1)
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        state, hist = run_rounds_slab(run, state, draws, batcher, ROUNDS,
+                                      chunk=ROUNDS)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / ROUNDS
+        counts = {c.__name__: c.launches for c in counters}
+        want = {k: ROUNDS if k in launched else 0 for k in counts}
+        check(counts == want, f"{name}: launches {counts}, want {want}")
+        for k, v in counts.items():
+            totals[k] += v
+        losses = [x["loss"] for x in hist]
+        check(all(math.isfinite(x) for x in losses), f"{name}: losses "
+              f"{losses}")
+        check(bool(torch.isfinite(state.w).all()), f"{name}: w not finite")
+        check(int(state.step) == ROUNDS, f"{name}: step {int(state.step)}")
+        extra = ""
+        if alpha == "auto":
+            a_hat = float(state.alpha_hat)
+            check(abs(a_hat - ch.alpha) <= 0.1, f"{name}: alpha_hat {a_hat}")
+            extra += f"; alpha_hat {a_hat:.4f} (channel 1.5, tol 0.1)"
+        if ef:
+            check(bool(torch.isfinite(state.ef).all())
+                  and float(state.ef.abs().max()) > 0.0, f"{name}: ef")
+            extra += f"; max|ef| {float(state.ef.abs().max()):.3e}"
+        if ch.uplink.zero_fold:
+            check(bool(torch.all(state.w[state.spec.total:] == 0.0)),
+                  f"{name}: w padding tail not 0")
+            extra += "; w padding tail exactly 0"
+        print(f"[main path] {name}: resnet_tiny full width, {N_CLIENTS} "
+              f"clients x batch {BATCH}, adam_ota, {ROUNDS} rounds: losses "
+              + " ".join(f"{x:.4f}" for x in losses)
+              + f"; {ms:.2f} ms/round (host clock, synchronized); launches "
+              f"{counts}{extra}; ok")
+    return totals
 
 
 def phase_main_path(torch, np, dev, counters):
@@ -264,11 +628,15 @@ def phase_main_path(torch, np, dev, counters):
 def _median_ms(torch, fn, flush):
     """Median of per-launch CUDA-event times, each launch after an L2
     flush (the round finds its operands cold: ~40 MB of other traffic
-    runs between two launches of one kernel)."""
+    runs between two launches of one kernel). A 2 ms device sleep after
+    the flush holds the card while the host enqueues the start event,
+    the call and the end event, so the time is the card's and not the
+    host's enqueue time (a wrapper's Python can outlast the flush)."""
     fn()
     times = []
     for _ in range(TIMED_LAUNCHES):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -314,6 +682,43 @@ def phase_times(torch, dev):
                    flush),
         _median_ms(torch, lambda: ota_channel_ref(grads, h, u, e, **ckw),
                    flush), bytes_c, ops_c)
+    # transmit, int8 SR + EF + residual: reads G, h, r, ef; writes q
+    # (int8), s (one f32 per 128 columns) and the residual; 2 N d for the
+    # faded sum and about 8 an entry for the epilogue.
+    from repro_torch.kernels.ota_channel import (ota_receive_slab,
+                                                 ota_transmit_slab,
+                                                 pack_sign_slab)
+    from repro_torch.kernels.ref import ota_receive_ref, ota_transmit_ref
+    r = torch.rand(d, generator=gen, device=dev)
+    ef = 0.01 * torch.randn(d, generator=gen, device=dev)
+    tkw = dict(quantize=True, r=r, ef=ef, return_residual=True)
+    bytes_t = 4 * n * d + 4 * n + 3 * 4 * d + d + 4 * (d // 128)
+    ops_t = 2 * n * d + 8 * d
+    rows["ota_transmit_slab"] = (
+        _median_ms(torch, lambda: ota_transmit_slab(grads, h, **tkw), flush),
+        _median_ms(torch, lambda: ota_transmit_ref(grads, h, **tkw), flush),
+        bytes_t, ops_t)
+    # receive, R = 1: reads q (int8, or 1 bit a column packed), s, u, e;
+    # writes out; 2 an entry to dequantize and about 12 for the CMS
+    # transform.
+    q, s = ota_transmit_slab(grads, h, quantize=True, r=r)
+    q, s = q[None], s[None]
+    words = pack_sign_slab(torch.where(q < 0, -1, 1).to(torch.int8))
+    rkw = dict(alpha=1.5, scale=0.1)
+    bytes_r = d + 4 * (d // 128) + 3 * 4 * d
+    bytes_f = 4 * (d // 32) + 4 * (d // 128) + 3 * 4 * d
+    ops_r = 14 * d
+    rows["ota_receive_slab"] = (
+        _median_ms(torch, lambda: ota_receive_slab(q, s, u, e, **rkw), flush),
+        _median_ms(torch, lambda: ota_receive_ref(q, s, u, e, **rkw), flush),
+        bytes_r, ops_r)
+    rows["ota_receive_slab fold"] = (
+        _median_ms(torch, lambda: ota_receive_slab(words, s, u, e,
+                                                   packed="fold", **rkw),
+                   flush),
+        _median_ms(torch, lambda: ota_receive_ref(words, s, u, e,
+                                                  packed="fold", **rkw),
+                   flush), bytes_f, ops_r)
     out = {}
     for name, (ms, plain_ms, nbytes, ops) in rows.items():
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
@@ -343,7 +748,9 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
     from repro_torch.kernels.adaptive_update import adaptive_update_slab
-    from repro_torch.kernels.ota_channel import ota_channel_slab
+    from repro_torch.kernels.ota_channel import (ota_channel_slab,
+                                                 ota_receive_slab,
+                                                 ota_transmit_slab)
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -369,30 +776,35 @@ def main() -> int:
 
     err_update = phase_kernel_update(torch, dev)
     err_channel = phase_kernel_channel(torch, dev, spec.total)
+    err_transmit = phase_kernel_transmit(torch, dev, spec.total)
+    err_receive = phase_kernel_receive(torch, dev, spec.total)
+    err_update = max(err_update, phase_runtime_alpha(torch, dev, spec.total))
     phase_reference(torch, np)
+    phase_reference_wire(torch, np)
     counters = (adaptive_update_slab, ota_channel_slab)
     launches = phase_main_path(torch, np, dev, counters)
+    all_counters = counters + (ota_transmit_slab, ota_receive_slab)
+    wire_launches = phase_wire_runs(torch, np, dev, all_counters)
+    for k, v in wire_launches.items():
+        launches[k] = launches.get(k, 0) + v
     times = phase_times(torch, dev)
 
-    src = "src/repro_torch/csrc/"
-    kernels = [
-        dict(name="adaptive_update_slab", route="cuda",
-             source=src + "adaptive_update.cu",
-             replaces="src/repro/kernels/adaptive_update.py:188",
-             launches=launches["adaptive_update_slab"],
-             max_abs_err=err_update, **{k: times["adaptive_update_slab"][k]
-                                        for k in ("ms", "plain_ms",
-                                                  "bound_ms", "bound_by")},
-             library_ms=None),
-        dict(name="ota_channel_slab", route="cuda",
-             source=src + "ota_channel.cu",
-             replaces="src/repro/kernels/ota_channel.py:222",
-             launches=launches["ota_channel_slab"],
-             max_abs_err=err_channel, **{k: times["ota_channel_slab"][k]
-                                         for k in ("ms", "plain_ms",
+    rows = (("adaptive_update_slab", "adaptive_update.cu",
+             "src/repro/kernels/adaptive_update.py:188", err_update),
+            ("ota_channel_slab", "ota_channel.cu",
+             "src/repro/kernels/ota_channel.py:222", err_channel),
+            ("ota_transmit_slab", "ota_transmit.cu",
+             "src/repro/kernels/ota_channel.py:527", err_transmit),
+            ("ota_receive_slab", "ota_receive.cu",
+             "src/repro/kernels/ota_channel.py:679", err_receive))
+    kernels = [dict(name=name, route="cuda",
+                    source="src/repro_torch/csrc/" + source,
+                    replaces=replaces, launches=launches[name],
+                    max_abs_err=err,
+                    **{k: times[name][k] for k in ("ms", "plain_ms",
                                                    "bound_ms", "bound_by")},
-             library_ms=None),
-    ]
+                    library_ms=None)
+               for name, source, replaces, err in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -45,19 +45,27 @@ def train_state_from_numpy(spec: SlabSpec, *, step, w, opt: Sequence,
 
     ``spec`` is the port's layout of the same model
     (``make_slab_spec(params)``); every slab must have its padded length.
+    ``alpha_hat`` is the tracked tail-index EMA and ``ef`` the
+    (spec.shards, padded) error-feedback residual rows (None without
+    error feedback), so a state in the middle of a tracked or quantized
+    run carries over as it stands.
     """
     dev = resolve_device(device)
-    if ef is not None:
-        raise NotImplementedError(
-            "error-feedback residual rows belong to the quantized uplink, "
-            "which is not ported yet: ROADMAP item A8")
     slabs = [tensor_from_numpy(x, dev) for x in (w, *opt)]
     for s in slabs:
         if tuple(s.shape) != (spec.padded,) or s.dtype != torch.float32:
             raise ValueError(f"slabs must be ({spec.padded},) float32, got "
                              f"{tuple(s.shape)} {s.dtype}")
+    ef_t = None
+    if ef is not None:
+        ef_t = tensor_from_numpy(ef, dev)
+        if (tuple(ef_t.shape) != (spec.shards, spec.padded)
+                or ef_t.dtype != torch.float32):
+            raise ValueError(f"ef must be ({spec.shards}, {spec.padded}) "
+                             f"float32, got {tuple(ef_t.shape)} "
+                             f"{ef_t.dtype}")
     return SlabTrainState(
         step=tensor_from_numpy(np.asarray(step, np.int32), dev),
         w=slabs[0], opt=tuple(slabs[1:]),
         alpha_hat=tensor_from_numpy(np.asarray(alpha_hat, np.float32), dev),
-        spec=spec)
+        spec=spec, ef=ef_t)

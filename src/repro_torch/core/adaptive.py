@@ -40,9 +40,9 @@ class AdaptiveConfig:
     """Hyper-parameters of the ADOTA family (paper Sec. IV-B, Sec. VI).
 
     Fields, defaults and checks as in ``repro.core.adaptive.AdaptiveConfig``,
-    without ``backend`` and ``interpret``. ``alpha="auto"`` (the closed
-    tail-index loop) is accepted here and refused by the round until
-    ROADMAP item A7 ports it.
+    without ``backend`` and ``interpret``. ``alpha="auto"`` closes the
+    tail-index loop: the resident round estimates alpha from the pilot
+    statistics and threads it into the update (``core.fl``).
     """
 
     optimizer: str = "adam_ota"   # adagrad_ota | adam_ota | amsgrad_ota |
@@ -70,13 +70,18 @@ class AdaptiveConfig:
         return self.alpha == "auto"
 
     def resolve_alpha(self, alpha):
-        """An explicit override wins; otherwise the static config float."""
+        """The alpha this update uses: an explicit override (a float or
+        the tracked 0-dim tensor) wins; otherwise the static config
+        float. A tracking config with no override is a caller error: the
+        resident round threads the tracked alpha in."""
         if alpha is not None:
             return alpha
         if self.track_alpha:
-            raise NotImplementedError(
-                'AdaptiveConfig.alpha == "auto" (the closed tail-index '
-                'loop) is not ported yet: ROADMAP item A7')
+            raise ValueError(
+                'AdaptiveConfig.alpha == "auto" needs the tracked alpha '
+                'threaded into the update (the slab-resident loops do '
+                'this; the per-round pytree API has no resident alpha_hat '
+                'to carry the EMA across rounds)')
         return self.alpha
 
 
@@ -120,7 +125,9 @@ def slab_update_slabs(cfg: AdaptiveConfig, g_slab: torch.Tensor,
     """ONE fused ``adaptive_update_slab`` launch on raw 1-D slabs.
 
     ``state_slabs`` is in ``state_slab_rows`` order. ``alpha`` optionally
-    overrides ``cfg.alpha``. Returns ``(new_state_slabs, w')``.
+    overrides ``cfg.alpha``: a float, or the tracked 0-dim f32 tensor,
+    which goes to the kernel as it is (mandatory when ``cfg.alpha ==
+    "auto"``). Returns ``(new_state_slabs, w')``.
     """
     mode = _mode(cfg)
     a = 2.0 if mode in ("momentum", "sgd") else cfg.resolve_alpha(alpha)

@@ -28,9 +28,13 @@ import torch
 class UplinkConfig:
     """Payload format of the MAC uplink (see ``repro.core.channel``).
 
-    ``mode`` is "f32" (the analog payload), "int8" or "sign". The port's
-    round runs the f32 uplink only; the quantized wire comes with
-    ROADMAP item A8, and asking for it raises ``NotImplementedError``.
+    ``mode`` is "f32" (the analog payload), "int8" (per-128-block
+    max|x|/127 scales, stochastic or round-to-nearest rounding) or
+    "sign" (1-bit signSGD with per-block mean|x| scales; ``sign_pack``
+    "fold", "planes" or the "int8" container). ``error_feedback`` carries
+    each transmitter's quantization residual into the next round;
+    ``sr_inkernel`` makes the transmit kernel draw its own rounding
+    uniforms on the card.
     """
 
     mode: str = "f32"

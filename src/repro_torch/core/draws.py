@@ -11,18 +11,30 @@ those draws as data instead: ``RoundDraws(h, u, e)``.
 * ``e`` (padded,) f32 — CMS Exp(1) draws floored at ``CMS_E_FLOOR``.
 
 The slab's padding tail holds the CMS fixed point u = 0, e = 1, which
-synthesizes exactly zero interference.
+synthesizes exactly zero interference. The quantized wire adds three
+optional fields, each present only for a configuration that uses it:
+
+* ``r_up`` (padded,) f32 in [0, 1) — stochastic-rounding uniforms of the
+  int8 uplink (``repro.core.ota.uplink_sr_slab_inputs(key, spec)[0]``);
+* ``r_dl`` (padded,) f32 in [0, 1) — stochastic-rounding uniforms of the
+  int8 downlink (``repro.core.ota.downlink_sr_slab_inputs``);
+* ``sr_seed`` int in [0, 2^64) — the key of the transmit kernel's own
+  Philox draws under ``UplinkConfig.sr_inkernel`` (the twin of
+  ``repro.core.channel.sr_kernel_seed``).
 
 ``TorchDraws`` is the port's own provider: a Philox ``torch.Generator``
 on the device (the CPU generator when the caller runs on the CPU),
 reseeded from a mix of ``(seed, round index)`` so round t's draws do not
-depend on how many rounds ran before it. The parity tests feed the round the
+depend on how many rounds ran before it. It draws h, u and e first and the
+wire's fields after them, so a config without a quantized wire gets the
+same h, u and e as it always did. The parity tests feed the round the
 JAX package's own draws through the same seam.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -35,15 +47,35 @@ from repro_torch.device import DeviceLike, resolve_device
 _TINY = torch.finfo(torch.float32).tiny
 
 
+_SR_SALT = 0x5A8    # the JAX package's SR_FOLD separator, reused as a salt
+
+
 @dataclasses.dataclass(frozen=True)
 class RoundDraws:
     h: torch.Tensor
     u: torch.Tensor
     e: torch.Tensor
+    r_up: Optional[torch.Tensor] = None
+    r_dl: Optional[torch.Tensor] = None
+    sr_seed: Optional[int] = None
+
+    def wire(self, name: str, length: int) -> torch.Tensor:
+        """The (length,) wire field ``r_up`` or ``r_dl``; raises when the
+        draws were made for a config that does not use it."""
+        x = getattr(self, name)
+        if x is None or tuple(x.shape) != (length,):
+            raise ValueError(
+                f"this round needs draws.{name} of shape ({length},), got "
+                f"{None if x is None else tuple(x.shape)}; make the draws "
+                "for this channel config (TorchDraws does)")
+        return x
 
     def to(self, device) -> "RoundDraws":
+        def move(t):
+            return None if t is None else t.to(device)
         return RoundDraws(self.h.to(device), self.u.to(device),
-                          self.e.to(device))
+                          self.e.to(device), move(self.r_up),
+                          move(self.r_dl), self.sr_seed)
 
 
 def sample_fading(cfg: OTAChannelConfig, n: int,
@@ -92,6 +124,11 @@ class TorchDraws:
 
     ``draws(t)`` returns the ``RoundDraws`` of absolute round ``t``.
     With the interference off, (u, e) is the fixed point everywhere.
+    ``r_up`` comes for the int8 uplink with stochastic rounding, except
+    on the card under ``sr_inkernel`` (the kernel draws its own, from
+    ``sr_seed``); ``r_dl`` for the int8 downlink; ``sr_seed`` under
+    ``sr_inkernel``, mixed on the host from ``(seed, t)`` so that making
+    it reads nothing back from the card.
     """
 
     def __init__(self, cfg: OTAChannelConfig, spec: SlabSpec, n_clients: int,
@@ -107,11 +144,24 @@ class TorchDraws:
         if not 0 <= t < 2**32 or not 0 <= self.seed < 2**31:
             raise ValueError("round index must be in [0, 2^32) and seed in "
                              "[0, 2^31)")
-        self.generator.manual_seed(_mix64((self.seed << 32) | int(t)))
+        mixed = _mix64((self.seed << 32) | int(t))
+        self.generator.manual_seed(mixed)
         h = sample_fading(self.cfg, self.n_clients, self.generator)
+        padded = self.spec.padded
         if self.cfg.interference:
             u, e = cms_slab_inputs(self.spec, self.generator)
         else:
-            u = torch.zeros((self.spec.padded,), device=self.device)
-            e = torch.ones((self.spec.padded,), device=self.device)
-        return RoundDraws(h, u, e)
+            u = torch.zeros((padded,), device=self.device)
+            e = torch.ones((padded,), device=self.device)
+        up = self.cfg.uplink
+        sr = up.mode == "int8" and up.stochastic_rounding
+        r_up = r_dl = sr_seed = None
+        if sr and not (up.sr_inkernel and self.device.type == "cuda"):
+            r_up = torch.rand((padded,), generator=self.generator,
+                              device=self.device)
+        if self.cfg.downlink == "int8":
+            r_dl = torch.rand((padded,), generator=self.generator,
+                              device=self.device)
+        if sr and up.sr_inkernel:
+            sr_seed = _mix64(mixed ^ _SR_SALT)
+        return RoundDraws(h, u, e, r_up, r_dl, sr_seed)

@@ -3,14 +3,22 @@
 PyTorch counterpart of the slab-resident path of ``repro.core.fl``. Each
 round:
 
-    1. broadcasts the weight slab as a parameter dict (views of the slab);
+    1. broadcasts the weight slab as a parameter dict (views of the slab;
+       under ``downlink="int8"`` the int8-quantized reconstruction the
+       clients see, while the server keeps the f32 master);
     2. computes every client's gradient with
        ``torch.func.vmap(torch.func.grad_and_value(loss_fn))``
        (the twin of ``jax.vmap(jax.value_and_grad)``), or a FedAvg-style
        pseudo-gradient from k local SGD steps;
-    3. runs ONE fused ``ota_channel_slab`` launch (the MAC);
-    4. runs ONE fused ``adaptive_update_slab`` launch (the server update)
-       on the resident state slabs.
+    3. runs the MAC: ONE fused ``ota_channel_slab`` launch on the f32
+       uplink, or ONE ``ota_transmit_slab`` and ONE ``ota_receive_slab``
+       launch on a quantized uplink (with the error-feedback residual
+       carried in ``SlabTrainState.ef``);
+    4. under ``alpha="auto"`` folds the MAC's pilot statistics into the
+       resident ``alpha_hat`` (``core.tail_index``), on the device;
+    5. runs ONE fused ``adaptive_update_slab`` launch (the server update)
+       on the resident state slabs, with the tracked alpha as a device
+       operand.
 
 The round takes its random draws as ``RoundDraws`` instead of a PRNG key
 (``repro_torch.core.draws``). ``make_slab_round_runner`` drives R rounds
@@ -35,9 +43,10 @@ from repro_torch.core.adaptive import (AdaptiveConfig, slab_update_slabs,
                                        state_slab_rows)
 from repro_torch.core.channel import OTAChannelConfig
 from repro_torch.core.draws import RoundDraws
-from repro_torch.core.ota import ota_aggregate_slab
+from repro_torch.core.ota import downlink_quantize_slab, ota_aggregate_slab
 from repro_torch.core.slab import slab_to_tree, tree_map, tree_to_slab
 from repro_torch.core.slab_state import SlabTrainState
+from repro_torch.core.tail_index import effective_alpha, update_alpha_ema
 from repro_torch.device import DeviceLike, resolve_device
 
 PyTree = Any
@@ -140,22 +149,10 @@ def _check_covered(channel_cfg: OTAChannelConfig,
     if backend is not None:
         raise ValueError(f"backend={backend!r}: the port has no backend "
                          "switch; the device decides")
-    if channel_cfg.uplink.quantized:
-        raise NotImplementedError(
-            f"uplink={channel_cfg.uplink.mode!r} (quantized wire) is not "
-            "ported yet: ROADMAP item A8")
-    if channel_cfg.downlink != "f32":
-        raise NotImplementedError(
-            f"downlink={channel_cfg.downlink!r} (quantized broadcast) is "
-            "not ported yet: ROADMAP item A8")
     if channel_cfg.comm_buckets > 1:
         raise NotImplementedError(
             "comm_buckets > 1 (bucketed MAC collectives of the sharded "
             "engine) is not ported yet: ROADMAP item A12")
-    if adaptive_cfg.track_alpha:
-        raise NotImplementedError(
-            'alpha="auto" (the closed tail-index loop) is not ported yet: '
-            "ROADMAP item A7")
     if fl_cfg.dynamic_round or batch_gen is not None:
         raise NotImplementedError(
             "client_chunk / sample_rate < 1 / client_weights / batch_gen "
@@ -179,43 +176,76 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
     _check_covered(channel_cfg, adaptive_cfg, fl_cfg, backend, batch_gen)
     dev = resolve_device(device)
     client_fn = vmap(_client_update(loss_fn, fl_cfg), in_dims=(None, 0))
-    alpha_metric = float(adaptive_cfg.alpha)
+    track = adaptive_cfg.track_alpha
+    use_ef = channel_cfg.uplink.error_feedback
+    dl_int8 = channel_cfg.downlink == "int8"
     n_metric = float(fl_cfg.n_clients)
+    static_alpha = None if track else float(adaptive_cfg.alpha)
+
+    def broadcast_slab(state: SlabTrainState, draws: RoundDraws):
+        """The weight slab the CLIENTS see: the f32 master, or its int8
+        reconstruction under the int8 downlink."""
+        if not dl_int8:
+            return state.w
+        return downlink_quantize_slab(state.w,
+                                      draws.wire("r_dl", state.spec.padded))
 
     def step(state: SlabTrainState, draws: RoundDraws, client_batches):
         if state.w.device != dev:
             raise ValueError(f"state lives on {state.w.device}, the round "
                              f"on {dev}")
+        if use_ef and state.ef is None:
+            raise ValueError(
+                "UplinkConfig.error_feedback=True but the SlabTrainState "
+                "carries no residual rows; build it with "
+                "init_train_state(..., error_feedback=True)")
         spec = state.spec
+        draws = draws.to(dev)
         batches = tree_map(lambda x: torch.as_tensor(x, device=dev),
                            client_batches)
         # Model broadcast: the one pytree the round materialises.
-        params = slab_to_tree(spec, state.w)
+        params = slab_to_tree(spec, broadcast_slab(state, draws))
         grads, losses = client_fn(params, batches)
-        # Kernel launch 1: fused fading reduction + interference.
-        g_slab, h, grads_slab, _, _ = ota_aggregate_slab(
-            draws.to(dev), channel_cfg, grads, spec)
+        # The MAC: one channel launch (f32) or transmit + receive
+        # (quantized; the carried residual joins the transmit quantizer
+        # and the fresh one comes back from the same launch).
+        g_slab, h, grads_slab, stats, ef_new = ota_aggregate_slab(
+            draws, channel_cfg, grads, spec, pilot_stats=track,
+            ef=state.ef[0] if use_ef else None)
+        if track:
+            alpha_hat = update_alpha_ema(state.alpha_hat, stats,
+                                         adaptive_cfg.alpha_ema)
+            alpha_arg = effective_alpha(alpha_hat)
+            alpha_metric = alpha_hat
+        else:
+            alpha_hat = state.alpha_hat
+            alpha_arg = None
+            alpha_metric = torch.tensor(static_alpha, dtype=torch.float32,
+                                        device=dev)
         w_in = state.w
         if any(dt != torch.float32 for dt in spec.dtypes):
             # Non-f32 leaves round-trip through their storage dtype each
-            # round, as in the JAX package.
-            w_in = tree_to_slab(spec, params)
-        # Kernel launch 2: fused server update on the resident slabs.
+            # round, as in the JAX package; under the int8 downlink the
+            # cast applies to the master, never to the broadcast.
+            w_in = tree_to_slab(spec, params if not dl_int8
+                                else slab_to_tree(spec, state.w))
+        # The server update on the resident slabs (a tracked alpha goes
+        # in as a device operand).
         new_opt, w_new = slab_update_slabs(adaptive_cfg, g_slab, state.opt,
-                                           w_in)
+                                           w_in, alpha=alpha_arg)
         metrics = RoundMetrics(
             loss=torch.mean(losses),
             grad_norm=torch.sqrt(torch.sum(torch.square(
                 torch.mean(grads_slab, dim=0)))),
             noisy_grad_norm=torch.sqrt(torch.sum(torch.square(g_slab))),
             fading_mean=torch.mean(h),
-            alpha_hat=torch.tensor(alpha_metric, dtype=torch.float32,
-                                   device=dev),
+            alpha_hat=alpha_metric,
             n_participants=torch.tensor(n_metric, dtype=torch.float32,
                                         device=dev),
         )
-        return SlabTrainState(state.step + 1, w_new, new_opt,
-                              state.alpha_hat, spec, state.ef), metrics
+        return SlabTrainState(state.step + 1, w_new, new_opt, alpha_hat,
+                              spec, ef_new[None] if use_ef else state.ef
+                              ), metrics
 
     return step
 

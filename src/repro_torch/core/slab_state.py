@@ -30,8 +30,9 @@ class SlabTrainState:
     optimizer-state slabs in ``state_slab_rows(cfg)`` order; ``step`` the
     int32 round counter (0-dim tensor); ``alpha_hat`` the f32 tail-index
     EMA (0.0 = not yet seeded; static-alpha configs keep 0.0); ``ef`` the
-    error-feedback residual rows, None while the quantized uplink is not
-    ported.
+    (spec.shards, spec.padded) f32 error-feedback residual rows, one per
+    transmitter (the single-device round carries row 0), None without
+    error feedback.
     """
 
     step: torch.Tensor
@@ -47,12 +48,10 @@ def init_train_state(cfg: AdaptiveConfig, params: PyTree,
                      error_feedback: bool = False,
                      device: DeviceLike = None) -> SlabTrainState:
     """Fresh resident state on ``device``: params packed once, optimizer
-    slabs zero, ``alpha_hat`` at the unseeded sentinel 0.0."""
+    slabs zero, ``alpha_hat`` at the unseeded sentinel 0.0, and with
+    ``error_feedback=True`` zero (spec.shards, padded) residual rows, as
+    ``repro.core.slab_state.init_train_state`` makes them."""
     dev = resolve_device(device)
-    if error_feedback:
-        raise NotImplementedError(
-            "error-feedback residual rows belong to the quantized uplink, "
-            "which is not ported yet: ROADMAP item A8")
     if spec is None:
         spec = make_slab_spec(params, shards=shards)
     n_rows = len(state_slab_rows(cfg))
@@ -61,4 +60,7 @@ def init_train_state(cfg: AdaptiveConfig, params: PyTree,
         w=tree_to_slab(spec, params).to(dev),
         opt=tuple(zeros_slab(spec, device=dev) for _ in range(n_rows)),
         alpha_hat=torch.zeros((), dtype=torch.float32, device=dev),
-        spec=spec)
+        spec=spec,
+        ef=(torch.zeros((spec.shards, spec.padded), dtype=torch.float32,
+                        device=dev)
+            if error_feedback else None))

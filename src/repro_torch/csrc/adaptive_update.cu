@@ -29,6 +29,13 @@
 // types are template parameters, the constants (1-b1, 1-b2, 1/alpha) are
 // computed in double on the host and passed as float, the build uses
 // precise powf (no fast math) and no mul+add contraction (--fmad=false).
+//
+// Runtime alpha: the closed alpha loop keeps its estimate on the card as
+// a 0-dim f32 tensor. Its address arrives as `alpha_dev`; each thread
+// reads it once and computes 1/alpha in f32 (IEEE division), as the JAX
+// kernel does with its traced (1, 1) alpha operand and as the plain
+// version does with a tensor alpha. No value crosses back to the host.
+// A null `alpha_dev` keeps the host-float path unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -136,7 +143,12 @@ adaptive_update_kernel(const TG* __restrict__ g, const float* __restrict__ d_in,
                        const float* __restrict__ m_in,
                        const TW* __restrict__ w_in, float* __restrict__ d_out,
                        float* __restrict__ v_out, float* __restrict__ m_out,
-                       TW* __restrict__ w_out, int64_t n, int vec, Params p) {
+                       TW* __restrict__ w_out, int64_t n, int vec, Params p,
+                       const float* __restrict__ alpha_dev) {
+  if (alpha_dev != nullptr) {
+    p.alpha = *alpha_dev;
+    p.inv_alpha = 1.0f / p.alpha;
+  }
   const int64_t stride = (int64_t)gridDim.x * blockDim.x * 4;
   for (int64_t base = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
        base < n; base += stride) {
@@ -180,7 +192,8 @@ constexpr int kThreads = 256;
 template <int MODE, typename TG, typename TW>
 void launch(const void* g, const void* d_in, const void* v_in, const void* m_in,
             const void* w_in, void* d_out, void* v_out, void* m_out, void* w_out,
-            int64_t n, int vec, const Params& p, cudaStream_t stream) {
+            int64_t n, int vec, const Params& p, const float* alpha_dev,
+            cudaStream_t stream) {
   int64_t blocks = (n + (int64_t)kThreads * 4 - 1) / ((int64_t)kThreads * 4);
   if (blocks > 65535) blocks = 65535;  // grid-stride loop covers the rest
   adaptive_update_kernel<MODE, TG, TW><<<(unsigned)blocks, kThreads, 0, stream>>>(
@@ -188,22 +201,23 @@ void launch(const void* g, const void* d_in, const void* v_in, const void* m_in,
       static_cast<const float*>(v_in), static_cast<const float*>(m_in),
       static_cast<const TW*>(w_in), static_cast<float*>(d_out),
       static_cast<float*>(v_out), static_cast<float*>(m_out),
-      static_cast<TW*>(w_out), n, vec, p);
+      static_cast<TW*>(w_out), n, vec, p, alpha_dev);
 }
 
 template <int MODE>
 int dispatch_types(int g_dtype, int w_dtype, const void* g, const void* d_in,
                    const void* v_in, const void* m_in, const void* w_in,
                    void* d_out, void* v_out, void* m_out, void* w_out,
-                   int64_t n, int vec, const Params& p, cudaStream_t s) {
+                   int64_t n, int vec, const Params& p, const float* a_dev,
+                   cudaStream_t s) {
   if (g_dtype == F32 && w_dtype == F32)
-    launch<MODE, float, float>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, s);
+    launch<MODE, float, float>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a_dev, s);
   else if (g_dtype == F32 && w_dtype == BF16)
-    launch<MODE, float, __nv_bfloat16>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, s);
+    launch<MODE, float, __nv_bfloat16>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a_dev, s);
   else if (g_dtype == BF16 && w_dtype == F32)
-    launch<MODE, __nv_bfloat16, float>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, s);
+    launch<MODE, __nv_bfloat16, float>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a_dev, s);
   else if (g_dtype == BF16 && w_dtype == BF16)
-    launch<MODE, __nv_bfloat16, __nv_bfloat16>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, s);
+    launch<MODE, __nv_bfloat16, __nv_bfloat16>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a_dev, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -216,17 +230,18 @@ extern "C" int repro_adaptive_update(
     const void* d_in, const void* v_in, const void* m_in, const void* w_in,
     void* d_out, void* v_out, void* m_out, void* w_out, long long n, float lr,
     float beta1, float gain, float beta2, float one_minus_beta2, float alpha,
-    float inv_alpha, float eps, void* stream) {
+    float inv_alpha, float eps, const void* alpha_dev, void* stream) {
   if (n <= 0) return 0;
   const Params p{lr, beta1, gain, beta2, one_minus_beta2, alpha, inv_alpha, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* a = static_cast<const float*>(alpha_dev);
   switch (mode) {
-    case ADAGRAD: return dispatch_types<ADAGRAD>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, s);
-    case ADAM: return dispatch_types<ADAM>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, s);
-    case AMSGRAD: return dispatch_types<AMSGRAD>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, s);
-    case YOGI: return dispatch_types<YOGI>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, s);
-    case MOMENTUM: return dispatch_types<MOMENTUM>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, s);
-    case SGD: return dispatch_types<SGD>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, s);
+    case ADAGRAD: return dispatch_types<ADAGRAD>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a, s);
+    case ADAM: return dispatch_types<ADAM>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a, s);
+    case AMSGRAD: return dispatch_types<AMSGRAD>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a, s);
+    case YOGI: return dispatch_types<YOGI>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a, s);
+    case MOMENTUM: return dispatch_types<MOMENTUM>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a, s);
+    case SGD: return dispatch_types<SGD>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -31,24 +31,16 @@
 // the same from run to run.
 
 #include <cuda_runtime.h>
-#include <float.h>
 #include <stdint.h>
+
+#include "ota_common.cuh"
 
 namespace {
 
+using ota::Cms;
+using ota::kMaxWarps;
+
 constexpr int kHChunk = 1024;
-constexpr int kMaxWarps = 32;
-
-struct Cms {
-  float alpha, inv_alpha, one_minus_alpha, exponent, u_bound, e_floor;
-};
-
-__device__ __forceinline__ float cms(float u, float e, const Cms& c) {
-  u = fminf(fmaxf(u, -c.u_bound), c.u_bound);
-  e = fmaxf(e, c.e_floor);
-  return sinf(c.alpha * u) / powf(cosf(u), c.inv_alpha) *
-         powf(cosf(c.one_minus_alpha * u) / e, c.exponent);
-}
 
 template <int VEC, bool STATS>
 __global__ void ota_channel_kernel(const float* __restrict__ G,
@@ -96,50 +88,12 @@ __global__ void ota_channel_kernel(const float* __restrict__ G,
   float cnt = 0.f, s1 = 0.f, s2 = 0.f;
   for (int j = 0; j < width; ++j) {
     const int64_t col = col0 + j;
-    const float xi = cms(u[col], e[col], c);
+    const float xi = ota::cms(u[col], e[col], c);
     out[col] = acc[j] / n_total + scale * xi;
-    if (STATS) {
-      const float r = fabsf(scale * xi);
-      if (r > 0.f) {
-        const float lr = logf(fmaxf(r, FLT_MIN));
-        cnt += 1.f;
-        s1 += lr;
-        s2 += lr * lr;
-      }
-    }
+    if (STATS) ota::stats_add(scale * xi, cnt, s1, s2);
   }
 
-  if (STATS) {
-    __shared__ float red[3][kMaxWarps];
-    for (int off = 16; off > 0; off >>= 1) {
-      cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-      s1 += __shfl_down_sync(0xffffffffu, s1, off);
-      s2 += __shfl_down_sync(0xffffffffu, s2, off);
-    }
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int n_warps = (blockDim.x + 31) / 32;
-    if (lane == 0) {
-      red[0][warp] = cnt;
-      red[1][warp] = s1;
-      red[2][warp] = s2;
-    }
-    __syncthreads();
-    if (warp == 0) {
-      cnt = lane < n_warps ? red[0][lane] : 0.f;
-      s1 = lane < n_warps ? red[1][lane] : 0.f;
-      s2 = lane < n_warps ? red[2][lane] : 0.f;
-      for (int off = 16; off > 0; off >>= 1) {
-        cnt += __shfl_down_sync(0xffffffffu, cnt, off);
-        s1 += __shfl_down_sync(0xffffffffu, s1, off);
-        s2 += __shfl_down_sync(0xffffffffu, s2, off);
-      }
-      if (lane == 0) {
-        stats_rows[3 * (int64_t)blockIdx.x + 0] = cnt;
-        stats_rows[3 * (int64_t)blockIdx.x + 1] = s1;
-        stats_rows[3 * (int64_t)blockIdx.x + 2] = s2;
-      }
-    }
-  }
+  if (STATS) ota::stats_block_reduce(cnt, s1, s2, stats_rows);
 }
 
 template <int VEC, bool STATS>

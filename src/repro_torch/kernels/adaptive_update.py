@@ -58,9 +58,11 @@ def adaptive_update_slab(g: torch.Tensor, delta: Optional[torch.Tensor],
     g/w may be bf16 or f32; delta/nu/nu_max are f32 state (pass None for
     modes that do not carry them). For ``momentum``, ``beta1`` is the
     server momentum coefficient (g enters with gain 1). ``alpha`` is a
-    float or a 0-dim tensor. Returns the updated slabs in ``(delta',
-    nu', nu_max', w')`` order, dropping the entries the mode does not
-    own; ``w'`` is always last.
+    float or a 0-dim f32 tensor on g's device (the tracked tail index):
+    the kernel then reads it from device memory and computes 1/alpha in
+    f32, so nothing is read back to the host. Returns the updated slabs
+    in ``(delta', nu', nu_max', w')`` order, dropping the entries the
+    mode does not own; ``w'`` is always last.
     """
     if mode not in MODES:
         raise ValueError(f"unknown update mode {mode!r}; options: {MODES}")
@@ -95,7 +97,17 @@ def adaptive_update_slab(g: torch.Tensor, delta: Optional[torch.Tensor],
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    a = float(alpha) if mode in _ALPHA_MODES else 2.0
+    alpha_dev = None
+    a = 2.0
+    if mode in _ALPHA_MODES and isinstance(alpha, torch.Tensor):
+        if (alpha.device != g.device or alpha.dim() != 0
+                or alpha.dtype != torch.float32):
+            raise ValueError(f"a tensor alpha must be a 0-dim float32 "
+                             f"tensor on {g.device}, got {alpha.dtype} "
+                             f"{tuple(alpha.shape)} on {alpha.device}")
+        alpha_dev = alpha.contiguous()
+    elif mode in _ALPHA_MODES:
+        a = float(alpha)
     gain = 1.0 if mode == "momentum" else 1.0 - beta1
     lib = build.load_library()
     with torch.cuda.device(g.device):
@@ -107,7 +119,7 @@ def adaptive_update_slab(g: torch.Tensor, delta: Optional[torch.Tensor],
             ptr(state["nu_max"] if "nu_max" in names else None), ptr(w),
             ptr(outs.get("delta")), ptr(outs.get("nu")),
             ptr(outs.get("nu_max")), ptr(w_out), n, lr, beta1, gain, beta2,
-            1.0 - beta2, a, 1.0 / a, eps, stream)
+            1.0 - beta2, a, 1.0 / a, eps, ptr(alpha_dev), stream)
     build.check(code, "adaptive_update_slab")
     adaptive_update_slab.launches += 1
     return tuple(outs[k] for k in names) + (w_out,)

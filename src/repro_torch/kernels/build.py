@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
-Each source under ``src/repro_torch/csrc/`` is compiled by its own
-``nvcc`` process for ``sm_90a`` (all started together), and the objects
+Each source under ``src/repro_torch/csrc/`` (``SOURCES``; the shared
+header ``ota_common.cuh`` is included by two of them) is compiled by its
+own ``nvcc`` process for ``sm_90a`` (all started together), and the objects
 are linked into one shared library with a plain C interface under
 ``<repo>/build/kernels/``. The library's name carries a hash of the
-sources and flags, so an edited source is rebuilt at its first use and
+sources, headers and flags, so an edited source is rebuilt at its first use and
 an unchanged one is loaded as built. Nothing is built at import time:
 ``load_library()`` builds on first call.
 
@@ -28,7 +29,9 @@ from typing import List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("adaptive_update.cu", "ota_channel.cu")
+SOURCES = ("adaptive_update.cu", "ota_channel.cu", "ota_transmit.cu",
+           "ota_receive.cu")
+HEADERS = ("ota_common.cuh",)
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "--fmad=false",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -47,7 +50,7 @@ def find_nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -100,11 +103,17 @@ def load_library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
     lib.repro_adaptive_update.argtypes = ([i] * 4 + [vp] * 9 + [ll] + [f] * 8
-                                          + [vp])
+                                          + [vp, vp])
     lib.repro_adaptive_update.restype = i
     lib.repro_ota_channel.argtypes = ([i, i] + [vp] * 6 + [i, ll, f, f]
                                       + [f] * 6 + [i, i, vp])
     lib.repro_ota_channel.restype = i
+    lib.repro_ota_transmit.argtypes = ([i] + [vp] * 7
+                                       + [ctypes.c_ulonglong, i, ll, f, vp])
+    lib.repro_ota_transmit.restype = i
+    lib.repro_ota_receive.argtypes = ([i, i] + [vp] * 6 + [i, ll, f]
+                                      + [f] * 6 + [i, vp])
+    lib.repro_ota_receive.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,11 +1,17 @@
 """Plain PyTorch versions of the port's kernels.
 
 Counterparts of ``repro.kernels.ref`` (``adaptive_update_ref``,
-``ota_channel_ref``) and of ``repro.core.tail_index.log_moment_stats``.
-They are the CPU path of the kernel wrappers, the versions the tests
-hold against the JAX package, and the versions ``chip_smoke.py`` holds
-each CUDA kernel against on the card. The expressions are written out
-op for op as in the JAX oracles.
+``ota_channel_ref``, ``ota_transmit_ref``, ``ota_receive_ref``) and of
+the sign-wire packing of ``repro.kernels.ota_channel`` (``sign_words``,
+``pack_sign_slab``, ``unpack_sign_slab``). ``log_moment_stats`` lives in
+``core.tail_index`` and is re-exported here. They are the CPU path of
+the kernel wrappers, the versions the tests hold against the JAX
+package, and the versions ``chip_smoke.py`` holds each CUDA kernel
+against on the card. The expressions are written out op for op as in
+the JAX oracles.
+
+Packed sign words are uint32, as in the JAX package; the bit arithmetic
+runs on their int32 view (PyTorch has no shifts or sums on uint32).
 """
 
 from __future__ import annotations
@@ -14,9 +20,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.channel import CMS_E_FLOOR, CMS_U_BOUND
+from repro_torch.core.channel import CMS_E_FLOOR, CMS_U_BOUND, cms_transform
+from repro_torch.core.tail_index import log_moment_stats
 
-_TINY = torch.finfo(torch.float32).tiny
+LANE = 128       # per-block scale width of the quantized wire
+INT8_MAX = 127.0
 
 
 def adaptive_update_ref(g: torch.Tensor, delta, nu, w: torch.Tensor, *,
@@ -61,17 +69,6 @@ def adaptive_update_ref(g: torch.Tensor, delta, nu, w: torch.Tensor, *,
     return delta, nu, w_new
 
 
-def log_moment_stats(residual: torch.Tensor) -> torch.Tensor:
-    """``[count, sum log|r|, sum log^2|r|]`` over the NONZERO entries of
-    a pilot residual (``repro.core.tail_index.log_moment_stats``). The
-    zero mask drops the slab's padding tail and the disabled channel."""
-    r = torch.abs(residual.float().reshape(-1))
-    m = r > 0.0
-    logr = torch.where(m, torch.log(torch.clamp_min(r, _TINY)),
-                       torch.zeros_like(r))
-    return torch.stack([m.float().sum(), logr.sum(), (logr * logr).sum()])
-
-
 def ota_channel_ref(grads: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
                     e: torch.Tensor, *, alpha: float, scale: float,
                     n_total: Optional[int] = None,
@@ -92,6 +89,169 @@ def ota_channel_ref(grads: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
     e = torch.clamp_min(e, CMS_E_FLOOR)
     xi = (torch.sin(a * u) / torch.cos(u) ** (1.0 / a)
           * (torch.cos((1.0 - a) * u) / e) ** ((1.0 - a) / a))
+    out = agg + scale * xi
+    if pilot_stats:
+        return out, log_moment_stats(scale * xi)
+    return out
+
+
+def ota_transmit_ref(grads: torch.Tensor, h: torch.Tensor, *,
+                     n_total: Optional[int] = None, quantize: bool = False,
+                     r: Optional[torch.Tensor] = None,
+                     stochastic: bool = True, qmode: str = "int8",
+                     zero_fold: bool = False,
+                     ef: Optional[torch.Tensor] = None,
+                     return_residual: bool = False,
+                     acc: Optional[torch.Tensor] = None,
+                     row_chunk: Optional[int] = None):
+    """Transmit stage: the faded partial sum ``(1/n_total) sum_n h[n]
+    grads[n]``, optionally quantized per 128-block.
+
+    ``qmode="int8"``: scale max|x|/127 (1 for an all-zero block),
+    payload ``floor(x/s + r)`` (stochastic, ``r`` the (d,) uniforms) or
+    ``round(x/s)`` half to even, clipped to +-127. ``qmode="sign"``:
+    payload sign(x), scale mean|x| (1 for an all-zero block);
+    ``zero_fold=True`` folds zeros to +1 and keeps scale 0 for an
+    all-zero block. ``ef`` joins the partial before the quantizer;
+    ``return_residual=True`` appends ``x - q * s``.
+
+    Returns (d,) f32, or ``(payload int8 (d,), scales f32 (d // 128,)
+    [, residual f32 (d,)])`` when ``quantize=True``. Agreement with a
+    kernel that sums in another order is one quantization step per
+    entry (a one-ulp change of x can flip a rounding decision), as in
+    the JAX oracle. The streamed client axis (``acc=``, ``row_chunk=``)
+    is not ported yet.
+    """
+    if acc is not None or row_chunk is not None:
+        raise NotImplementedError(
+            "the streamed transmit (acc= / row_chunk=) is not ported yet: "
+            "ROADMAP item A9")
+    n, d = grads.shape
+    if n_total is None:
+        n_total = n
+    h2 = h.reshape(n, 1).float()
+    agg = torch.sum(h2 * grads.float(), dim=0) / n_total
+    if not quantize:
+        return agg
+    if d % LANE != 0:
+        raise ValueError(f"quantized transmit needs d % {LANE} == 0, got {d}")
+    if qmode not in ("int8", "sign"):
+        raise ValueError(f'unknown qmode {qmode!r}; options: "int8", "sign"')
+    if zero_fold and qmode != "sign":
+        raise ValueError("zero_fold is a sign-quantizer variant; "
+                         f"qmode is {qmode!r}")
+    if ef is not None:
+        agg = agg + ef.float()
+    a = agg.reshape(d // LANE, LANE)
+    if qmode == "sign":
+        meanabs = torch.mean(torch.abs(a), dim=1, keepdim=True)
+        if zero_fold:
+            s = meanabs
+            q = torch.where(a < 0.0, -1, 1).to(torch.int8)
+        else:
+            s = torch.where(meanabs > 0.0, meanabs, torch.ones_like(meanabs))
+            q = torch.sign(a).to(torch.int8)
+    else:
+        maxabs = torch.amax(torch.abs(a), dim=1, keepdim=True)
+        s = torch.where(maxabs > 0.0, maxabs / INT8_MAX,
+                        torch.ones_like(maxabs))
+        y = a / s
+        if stochastic:
+            if r is None or tuple(r.shape) != (d,):
+                raise ValueError("stochastic rounding needs r of shape "
+                                 f"({d},), got "
+                                 f"{None if r is None else tuple(r.shape)}")
+            y = torch.floor(y + r.float().reshape(d // LANE, LANE))
+        else:
+            y = torch.round(y)
+        q = torch.clamp(y, -INT8_MAX, INT8_MAX).to(torch.int8)
+    ret = (q.reshape(-1), s.reshape(-1))
+    if return_residual:
+        resid = a - q.float() * s
+        ret = ret + (resid.reshape(-1),)
+    return ret
+
+
+def sign_words(d: int, *, planes: bool = False) -> int:
+    """Packed word count of a d-coordinate sign payload: d // 32 for the
+    1-bit folded wire, twice that for the sign + nonzero planes."""
+    if d % 32 != 0:
+        raise ValueError(f"packing needs d to be a multiple of 32, got {d}")
+    return (2 if planes else 1) * (d // 32)
+
+
+def _bit_pos(device) -> torch.Tensor:
+    return torch.arange(32, dtype=torch.int32, device=device)
+
+
+def pack_sign_slab(payload: torch.Tensor, *,
+                   planes: bool = False) -> torch.Tensor:
+    """Pack a {-1, 0, +1} int8 sign payload (..., d) into uint32 words
+    (..., sign_words(d, planes)). Bit j of word w is 1 iff
+    ``payload[32 w + j] < 0``; with ``planes=True`` the nonzero-mask
+    words follow the sign words along the last axis."""
+    d = payload.shape[-1]
+    nw = sign_words(d, planes=False)
+    pos = _bit_pos(payload.device)
+
+    def plane(mask):
+        b = mask.to(torch.int32).reshape(*payload.shape[:-1], nw, 32)
+        # distinct bits never carry, so the int32 sum is the bitwise OR
+        return torch.sum(b << pos, dim=-1, dtype=torch.int32)
+
+    words = plane(payload < 0)
+    if planes:
+        words = torch.cat([words, plane(payload != 0)], dim=-1)
+    return words.view(torch.uint32)
+
+
+def unpack_sign_slab(words: torch.Tensor, d: int, *,
+                     planes: bool = False) -> torch.Tensor:
+    """Inverse of ``pack_sign_slab``: uint32 words back to the (..., d)
+    int8 payload. The 1-bit wire decodes to {-1, +1}; the two-plane wire
+    restores {-1, 0, +1} exactly."""
+    nw = sign_words(d, planes=planes)
+    if words.shape[-1] != nw:
+        raise ValueError(f"expected {nw} packed words for d={d} "
+                         f"(planes={planes}), got {words.shape[-1]}")
+    w32 = words.view(torch.int32)
+    pos = _bit_pos(words.device)
+
+    def bits(w):
+        b = (w[..., None] >> pos) & 1
+        return (b > 0).reshape(*w.shape[:-1], w.shape[-1] * 32)
+
+    one = torch.ones((), dtype=torch.int8, device=words.device)
+    if not planes:
+        return torch.where(bits(w32), -one, one)
+    neg = bits(w32[..., :nw // 2])
+    nz = bits(w32[..., nw // 2:])
+    return torch.where(nz, torch.where(neg, -one, one), 0 * one)
+
+
+def ota_receive_ref(payload: torch.Tensor, scales: torch.Tensor,
+                    u: torch.Tensor, e: torch.Tensor, *, alpha: float,
+                    scale: float, packed: Optional[str] = None,
+                    pilot_stats: bool = False):
+    """Receive stage: dequantize and superpose R payload rows, then add
+    the CMS interference: ``sum_r q[r] * s[r, block] + scale * xi``.
+
+    payload: (R, d) int8, or with ``packed="fold"|"planes"`` the (R,
+    sign_words(d, ...)) uint32 words (d from ``scales``); scales: (R,
+    d // 128) f32; u, e: (d,). Returns (d,) f32, plus the (3,) residual
+    statistics when ``pilot_stats=True``.
+    """
+    if packed is not None:
+        if packed not in ("fold", "planes"):
+            raise ValueError(f'unknown packed wire {packed!r}; '
+                             'options: "fold", "planes"')
+        payload = unpack_sign_slab(payload, scales.shape[1] * LANE,
+                                   planes=(packed == "planes"))
+    rows, d = payload.shape
+    deq = (payload.float().reshape(rows, d // LANE, LANE)
+           * scales[..., None])
+    agg = torch.sum(deq, dim=0).reshape(-1)
+    xi = cms_transform(u, e, alpha)
     out = agg + scale * xi
     if pilot_stats:
         return out, log_moment_stats(scale * xi)

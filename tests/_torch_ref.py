@@ -3,9 +3,12 @@
 Holds the REFERENCE draws provider: it draws a round's (h, u, e) with
 the JAX package's own functions and key splits
 (``kh, kx = jax.random.split(key)`` as ``repro.core.ota.ota_aggregate_slab``
-does; ``sample_fading(kh, ...)``; ``_cms_slab_inputs(kx, spec)``) and
-hands them to the port as ``RoundDraws``. It lives here, beside the
-tests, because the port's package never imports jax.
+does; ``sample_fading(kh, ...)``; ``_cms_slab_inputs(kx, spec)``), and
+for the quantized wire the stochastic-rounding uniforms the JAX round
+draws from the same key (``uplink_sr_slab_inputs(key, spec)[0]``,
+``downlink_sr_slab_inputs(key, spec.padded)``), and hands them to the
+port as ``RoundDraws``. It lives here, beside the tests, because the
+port's package never imports jax.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from repro.core.channel import sample_fading
 from repro.core.fl import FLConfig as JFLConfig
 from repro.core.fl import make_slab_round_step as j_make_step
 from repro.core.slab_state import init_train_state as j_init_train_state
-from repro.core.ota import _cms_slab_inputs
+from repro.core.ota import (_cms_slab_inputs, downlink_sr_slab_inputs,
+                            uplink_sr_slab_inputs)
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.draws import RoundDraws
 from repro_torch.core.fl import make_slab_round_step
@@ -48,7 +52,8 @@ def jax_configs(ch, ad, fl, backend="pallas"):
 
 
 def ref_draws(key, ch, jspec, n: int) -> RoundDraws:
-    """The draws the JAX round makes from ``key``, as tensors."""
+    """The draws the JAX round makes from ``key``, as tensors; the wire's
+    fields only for a config that uses them."""
     kh, kx = jax.random.split(key)
     h = sample_fading(kh, jax_channel_config(ch), (n,))
     if ch.interference:
@@ -56,8 +61,16 @@ def ref_draws(key, ch, jspec, n: int) -> RoundDraws:
     else:
         u = jnp.zeros((jspec.padded,), jnp.float32)
         e = jnp.ones((jspec.padded,), jnp.float32)
-    return RoundDraws(*(torch.from_numpy(np.array(x, np.float32))
-                        for x in (h, u, e)))
+    r_up = r_dl = None
+    if ch.uplink.mode == "int8" and ch.uplink.stochastic_rounding:
+        r_up = uplink_sr_slab_inputs(key, jspec)[0]
+    if ch.downlink == "int8":
+        r_dl = downlink_sr_slab_inputs(key, jspec.padded)
+
+    def t(x):
+        return None if x is None else torch.from_numpy(np.array(x, np.float32))
+
+    return RoundDraws(t(h), t(u), t(e), t(r_up), t(r_dl))
 
 
 def to_np(x) -> np.ndarray:
@@ -82,9 +95,11 @@ def run_both(jmodel, tmodel, params_np, batches, ch, ad, fl, backend):
     same params, batches and draws; return both final states and the
     per-round ``(jax metrics, port metrics)``."""
     jch, jad, jfl = jax_configs(ch, ad, fl, backend)
-    jstate = j_init_train_state(jad, jax.tree.map(jnp.asarray, params_np))
+    ef = ch.uplink.error_feedback
+    jstate = j_init_train_state(jad, jax.tree.map(jnp.asarray, params_np),
+                                error_feedback=ef)
     tstate = init_train_state(ad, params_from_numpy(params_np, "cpu"),
-                              device="cpu")
+                              error_feedback=ef, device="cpu")
     jstep = j_make_step(jmodel.loss_fn, jch, jad, jfl, backend=backend)
     tstep = make_slab_round_step(tmodel.loss_fn, ch, ad, fl, device="cpu")
     out = []
@@ -103,3 +118,8 @@ def assert_states(jstate, tstate, tol):
     for i, (a, b) in enumerate(zip(tstate.opt, jstate.opt)):
         assert_close(a, b, tol, tol, f"opt[{i}]")
     assert int(tstate.step) == int(jstate.step)
+    assert_close(tstate.alpha_hat, jstate.alpha_hat, tol, tol, "alpha_hat")
+    assert (tstate.ef is None) == (jstate.ef is None)
+    if jstate.ef is not None:
+        assert tuple(tstate.ef.shape) == tuple(jstate.ef.shape)
+        assert_close(tstate.ef, jstate.ef, tol, tol, "ef")

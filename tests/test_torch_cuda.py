@@ -10,7 +10,12 @@ Tolerances: the update kernel computes the plain version's f32
 operations in the same order (precise ``powf``, no mul+add contraction),
 so it agrees to 1e-6 relative; a bf16 weight to one bf16 step. The
 channel kernel sums the client rows in another order than the plain
-``einsum``, so it agrees to 1e-6 of the sum's scale.
+``einsum``, so it agrees to 1e-6 of the sum's scale. The transmit
+kernel's payload is held to the wire's contract (equal on >= 99.9 % of
+entries, one quantization step on the rest; scales at 1e-6, the residual
+at 1e-6 of the partial's scale where the payloads agree); its in-kernel
+rounding to one step of x/s and to zero bias. The receive kernel agrees
+to 1e-6 of the output's scale.
 """
 
 import numpy as np
@@ -18,14 +23,19 @@ import pytest
 import torch
 
 from repro_torch.core.adaptive import AdaptiveConfig
-from repro_torch.core.channel import CMS_U_BOUND, OTAChannelConfig
+from repro_torch.core.channel import (CMS_U_BOUND, OTAChannelConfig,
+                                      UplinkConfig)
 from repro_torch.core.draws import TorchDraws
 from repro_torch.core.fl import FLConfig, make_slab_round_step
 from repro_torch.core.slab_state import init_train_state
 from repro_torch.kernels import build
 from repro_torch.kernels.adaptive_update import MODES, adaptive_update_slab
-from repro_torch.kernels.ota_channel import ota_channel_slab
-from repro_torch.kernels.ref import adaptive_update_ref, ota_channel_ref
+from repro_torch.kernels.ota_channel import (ota_channel_slab,
+                                             ota_receive_slab,
+                                             ota_transmit_slab,
+                                             pack_sign_slab)
+from repro_torch.kernels.ref import (adaptive_update_ref, ota_channel_ref,
+                                     ota_receive_ref, ota_transmit_ref)
 from repro_torch.models.vision import logistic_regression
 
 pytestmark = pytest.mark.cuda
@@ -154,3 +164,233 @@ def test_round_on_the_card_matches_the_cpu_round(cuda, optimizer):
     _close(states["cuda"].w.cpu(), states["cpu"].w, 1e-5)
     for a, b_ in zip(states["cuda"].opt, states["cpu"].opt):
         _close(a.cpu(), b_, 1e-5)
+
+
+def _wire_inputs(cuda, n, d, pad=38, seed=3):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    grads = torch.randn(n, d, generator=gen, device=cuda)
+    h = 0.5 + torch.rand(n, generator=gen, device=cuda)
+    r = torch.rand(d, generator=gen, device=cuda)
+    ef = 0.01 * torch.randn(d, generator=gen, device=cuda)
+    grads[:, d - pad:], ef[d - pad:] = 0.0, 0.0
+    grads[:, 128:256], ef[128:256] = 0.0, 0.0        # an all-zero block
+    return grads, h, r, ef
+
+
+@pytest.mark.parametrize("use_ef", [False, True])
+@pytest.mark.parametrize("qmode,stochastic,zero_fold",
+                         [("int8", True, False), ("int8", False, False),
+                          ("sign", False, False), ("sign", False, True)])
+@pytest.mark.parametrize("shape", [(50, 175104), (7, 1024), (1500, 256)])
+def test_transmit_kernel_matches_plain(cuda, shape, qmode, stochastic,
+                                       zero_fold, use_ef):
+    n, d = shape
+    grads, h, r, ef = _wire_inputs(cuda, n, d)
+    kw = dict(quantize=True, r=r if stochastic else None,
+              stochastic=stochastic, qmode=qmode, zero_fold=zero_fold,
+              ef=ef if use_ef else None, return_residual=use_ef)
+    n0 = ota_transmit_slab.launches
+    got = ota_transmit_slab(grads, h, **kw)
+    assert ota_transmit_slab.launches == n0 + 1
+    want = ota_transmit_ref(grads, h, **kw)
+    x = ota_transmit_ref(grads, h) + (ef if use_ef else 0.0)
+    torch.cuda.synchronize()
+    q, qw = got[0].float(), want[0].float()
+    same = q == qw
+    assert float(same.float().mean()) >= 0.999
+    assert torch.all((q - qw).abs() <= 1.0)
+    _close(got[1], want[1])
+    if use_ef:
+        err = (got[2] - want[2]).abs()
+        tol = 1e-6 * want[2].abs() + 1e-6 * float(x.abs().max())
+        step = want[1].repeat_interleave(128) * (1 + 1e-6)
+        assert torch.all(torch.where(same, err <= tol, err <= step))
+    assert torch.all(got[0][d - 38:] == (1 if zero_fold else 0))
+    assert float(got[1][1]) == (0.0 if zero_fold else 1.0)
+
+
+def test_transmit_kernel_in_kernel_rounding(cuda):
+    """Philox draws: one step from x/s everywhere, unbiased over the
+    slab, a different stream for another seed, the same for the same."""
+    grads, h, _, ef = _wire_inputs(cuda, 50, 175104)
+    x = ota_transmit_ref(grads, h) + ef
+    q, s, res = ota_transmit_slab(grads, h, quantize=True, sr_seed=7,
+                                  ef=ef, return_residual=True)
+    q2, _ = ota_transmit_slab(grads, h, quantize=True, sr_seed=7, ef=ef)
+    q3, _ = ota_transmit_slab(grads, h, quantize=True, sr_seed=8, ef=ef)
+    torch.cuda.synchronize()
+    assert torch.equal(q, q2) and not torch.equal(q, q3)
+    sb = s.repeat_interleave(128)
+    y = x / sb
+    steps = (q.float() - y)[:-38]
+    assert torch.all(steps.abs() < 1.0 + 1e-5)
+    frac = (y - torch.floor(y))[:-38].double()
+    se = float(torch.sqrt((frac * (1 - frac)).sum())) / steps.numel()
+    assert abs(float(steps.double().mean())) <= 3 * se
+    # x here is the plain version's sum, an ulp from the kernel's, and
+    # an ulp of x carries into the residual as it is
+    assert torch.all((res - (x - q.float() * sb)).abs()
+                     <= 1e-6 * float(x.abs().max()))
+
+
+@pytest.mark.parametrize("pilot_stats", [False, True])
+@pytest.mark.parametrize("packed", [None, "fold", "planes"])
+@pytest.mark.parametrize("rows", [1, 3])
+@pytest.mark.parametrize("d", [175104, 1024])
+def test_receive_kernel_matches_plain(cuda, d, rows, packed, pilot_stats):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    s = torch.rand(rows, d // 128, generator=gen, device=cuda)
+    u = (2 * torch.rand(d, generator=gen, device=cuda) - 1) * CMS_U_BOUND
+    e = -torch.log(torch.rand(d, generator=gen, device=cuda))
+    u[-38:], e[-38:] = 0.0, 1.0
+    if packed is None:
+        payload = torch.randint(-127, 128, (rows, d), generator=gen,
+                                device=cuda, dtype=torch.int8)
+        payload[:, -38:] = 0
+    else:
+        q = torch.randint(-1, 2, (rows, d), generator=gen, device=cuda,
+                          dtype=torch.int8)
+        q[:, -38:] = 0
+        if packed == "fold":
+            q = torch.where(q < 0, -1, 1).to(torch.int8)
+        payload = pack_sign_slab(q, planes=packed == "planes")
+    for alpha in (1.2, 1.5, 2.0):
+        kw = dict(alpha=alpha, scale=0.1, packed=packed,
+                  pilot_stats=pilot_stats)
+        n0 = ota_receive_slab.launches
+        got = ota_receive_slab(payload, s, u, e, **kw)
+        assert ota_receive_slab.launches == n0 + 1
+        want = ota_receive_ref(payload, s, u, e, **kw)
+        torch.cuda.synchronize()
+        if pilot_stats:
+            (got, gs), (want, ws) = got, want
+            assert float(gs[0]) == float(ws[0]) == d - 38
+            _close(gs, ws, 1e-5)
+        _close(got, want)
+        if packed != "fold":
+            assert torch.all(got[-38:] == 0.0)
+
+
+@pytest.mark.parametrize("mode", ["adagrad", "adam", "amsgrad", "yogi"])
+def test_update_kernel_with_device_alpha_matches_plain(cuda, mode):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    g, w = (torch.randn(5000, generator=gen, device=cuda) for _ in range(2))
+    delta = 0.1 * torch.randn(5000, generator=gen, device=cuda)
+    nu = 0.01 * torch.rand(5000, generator=gen, device=cuda)
+    nu_max = nu + 0.01 * torch.rand(5000, generator=gen, device=cuda)
+    for a in (1.2, 1.5, 1.83, 2.0):
+        kw = dict(lr=0.05, beta1=0.9, beta2=0.3, eps=1e-8, mode=mode,
+                  nu_max=nu_max if mode == "amsgrad" else None)
+        got = adaptive_update_slab(g, delta, nu, w,
+                                   alpha=torch.tensor(a, device=cuda), **kw)
+        want = adaptive_update_ref(g, delta, nu, w,
+                                   alpha=torch.tensor(a, device=cuda), **kw)
+        torch.cuda.synchronize()
+        for x, y in zip(got, want):
+            _close(x, y)
+    with pytest.raises(ValueError, match="0-dim float32"):
+        adaptive_update_slab(g, delta, nu, w, alpha=torch.tensor(1.5), **kw)
+
+
+def test_tracked_server_half_makes_no_host_sync(cuda):
+    from repro_torch.core.adaptive import slab_update_slabs
+    from repro_torch.core.tail_index import effective_alpha, update_alpha_ema
+    grads, h, _, _ = _wire_inputs(cuda, 8, 4096)
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    u = (2 * torch.rand(4096, generator=gen, device=cuda) - 1) * CMS_U_BOUND
+    e = -torch.log(torch.rand(4096, generator=gen, device=cuda))
+    w = torch.randn(4096, generator=gen, device=cuda)
+    state = (torch.zeros_like(w), torch.zeros_like(w))
+    cfg = AdaptiveConfig(alpha="auto")
+    alpha_hat = torch.zeros((), device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g_slab, stats = ota_channel_slab(grads, h, u, e, alpha=1.5,
+                                         scale=0.1, pilot_stats=True)
+        alpha_hat = update_alpha_ema(alpha_hat, stats, cfg.alpha_ema)
+        state, w = slab_update_slabs(cfg, g_slab, state, w,
+                                     alpha=effective_alpha(alpha_hat))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert 1.0 < float(alpha_hat) <= 2.0
+
+
+WIRES = [
+    ("int8-ef", dict(uplink=UplinkConfig(mode="int8", error_feedback=True))),
+    ("int8-rtn", dict(uplink=UplinkConfig(mode="int8",
+                                          stochastic_rounding=False))),
+    ("sign-fold-ef", dict(uplink=UplinkConfig(mode="sign",
+                                              error_feedback=True))),
+    ("sign-planes-ef", dict(uplink=UplinkConfig(
+        mode="sign", error_feedback=True, sign_pack="planes"))),
+    ("sign-int8-dl8", dict(uplink=UplinkConfig(mode="sign",
+                                               sign_pack="int8"),
+                           downlink="int8")),
+]
+
+
+@pytest.mark.parametrize("tracked", [False, True])
+@pytest.mark.parametrize("name,chkw", WIRES, ids=[w[0] for w in WIRES])
+def test_quantized_round_on_the_card_matches_the_cpu_round(cuda, name, chkw,
+                                                           tracked):
+    d, c, n, b = 16, 4, 8, 6
+    model = logistic_regression(d, c)
+    rng = np.random.default_rng(1)
+    params = {"w": torch.from_numpy(0.1 * rng.normal(size=(d, c)).astype(
+        np.float32)), "b": torch.zeros(c)}
+    ch = OTAChannelConfig(**chkw)
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.05,
+                        alpha="auto" if tracked else 1.5)
+    fl = FLConfig(n_clients=n)
+    ef = ch.uplink.error_feedback
+    states = {dev: init_train_state(ad, params, error_feedback=ef,
+                                    device=dev) for dev in ("cpu", "cuda")}
+    steps = {dev: make_slab_round_step(model.loss_fn, ch, ad, fl, device=dev)
+             for dev in states}
+    provider = TorchDraws(ch, states["cpu"].spec, n, seed=2, device="cpu")
+    n0 = (ota_transmit_slab.launches, ota_receive_slab.launches)
+    for t in range(3):
+        batch = {"x": rng.normal(size=(n, b, d)).astype(np.float32),
+                 "y": rng.integers(0, c, (n, b)).astype(np.int64)}
+        draws = provider(t)
+        for dev in states:
+            states[dev], _ = steps[dev](states[dev], draws, batch)
+    assert (ota_transmit_slab.launches - n0[0],
+            ota_receive_slab.launches - n0[1]) == (3, 3)
+    _close(states["cuda"].w.cpu(), states["cpu"].w, 1e-5)
+    for a, b_ in zip(states["cuda"].opt, states["cpu"].opt):
+        _close(a.cpu(), b_, 1e-5)
+    if ef:
+        # the residual x - q s carries an ulp of x (the card's gradients
+        # differ from the CPU's by ulps), so it is held at the wire
+        # matrix's absolute tier, not relative to its own small scale
+        assert torch.allclose(states["cuda"].ef.cpu(), states["cpu"].ef,
+                              rtol=1e-5, atol=1e-5)
+    _close(states["cuda"].alpha_hat.cpu(), states["cpu"].alpha_hat, 1e-5)
+
+
+def test_in_kernel_rounding_round_runs_on_the_card(cuda):
+    """sr_inkernel through the entry points: the card's provider draws
+    the seed and no host uniforms; each round launches the transmit
+    kernel once."""
+    d, c, n = 16, 4, 8
+    model = logistic_regression(d, c)
+    ch = OTAChannelConfig(uplink=UplinkConfig(mode="int8", sr_inkernel=True,
+                                              error_feedback=True))
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.05, alpha="auto")
+    state = init_train_state(ad, model.init(device=cuda), error_feedback=True,
+                             device=cuda)
+    provider = TorchDraws(ch, state.spec, n, seed=3, device=cuda)
+    draws = provider(0)
+    assert draws.r_up is None and isinstance(draws.sr_seed, int)
+    step = make_slab_round_step(model.loss_fn, ch, ad, FLConfig(n_clients=n),
+                                device=cuda)
+    rng = np.random.default_rng(2)
+    n0 = ota_transmit_slab.launches
+    for t in range(3):
+        batch = {"x": rng.normal(size=(n, 6, d)).astype(np.float32),
+                 "y": rng.integers(0, c, (n, 6)).astype(np.int64)}
+        state, m = step(state, provider(t), batch)
+    assert ota_transmit_slab.launches - n0 == 3
+    assert torch.isfinite(state.w).all() and float(state.ef.abs().max()) > 0

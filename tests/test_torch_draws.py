@@ -18,7 +18,8 @@ import torch
 from _torch_ref import ref_draws
 from repro.core import slab as jslab
 from repro_torch.core.channel import (CMS_E_FLOOR, CMS_U_BOUND,
-                                      OTAChannelConfig, cms_transform)
+                                      OTAChannelConfig, UplinkConfig,
+                                      cms_transform)
 from repro_torch.core.draws import TorchDraws
 from repro_torch.core.slab import make_slab_spec
 
@@ -109,3 +110,76 @@ def test_interference_off_is_the_fixed_point(spec):
     d = TorchDraws(OTAChannelConfig(interference=False), spec, 4,
                    device="cpu")(0)
     assert torch.all(d.u == 0.0) and torch.all(d.e == 1.0)
+
+
+WIRES = {
+    "f32": OTAChannelConfig(),
+    "int8": OTAChannelConfig(uplink="int8"),
+    "int8-rtn": OTAChannelConfig(uplink=UplinkConfig(
+        mode="int8", stochastic_rounding=False)),
+    "int8-inkernel": OTAChannelConfig(uplink=UplinkConfig(
+        mode="int8", sr_inkernel=True)),
+    "sign": OTAChannelConfig(uplink="sign"),
+    "dl-int8": OTAChannelConfig(downlink="int8"),
+    "int8-dl-int8": OTAChannelConfig(uplink="int8", downlink="int8"),
+}
+
+
+@pytest.mark.parametrize("wire", sorted(WIRES))
+def test_wire_fields_drawn_only_when_the_config_uses_them(spec, wire):
+    ch = WIRES[wire]
+    d = TorchDraws(ch, spec, 3, seed=2, device="cpu")(1)
+    sr = ch.uplink.mode == "int8" and ch.uplink.stochastic_rounding
+    # on the CPU the round always rounds with the host draw
+    assert (d.r_up is not None) == sr
+    assert (d.r_dl is not None) == (ch.downlink == "int8")
+    assert (d.sr_seed is not None) == ch.uplink.sr_inkernel
+    if d.sr_seed is not None:
+        assert isinstance(d.sr_seed, int) and 0 <= d.sr_seed < 2 ** 64
+    # the reference provider draws the same fields for the same config
+    ref = ref_draws(jax.random.key(0), ch, jslab.make_slab_spec(TREE), 3)
+    for f in ("r_up", "r_dl"):
+        a, b = getattr(d, f), getattr(ref, f)
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.shape == b.shape == (spec.padded,)
+            assert a.dtype == b.dtype == torch.float32
+    moved = d.to("cpu")
+    assert moved.sr_seed == d.sr_seed
+    assert (moved.r_up is None) == (d.r_up is None)
+
+
+def test_wire_field_laws(spec):
+    d = TorchDraws(WIRES["int8-dl-int8"], spec, 3, seed=4, device="cpu")(0)
+    for x in (d.r_up, d.r_dl):
+        assert float(x.min()) >= 0.0 and float(x.max()) < 1.0
+        assert _z(x, 0.5, 1.0 / 12.0) < 5
+        assert abs(float(x.double().var()) - 1.0 / 12.0) < 0.002
+    assert not torch.equal(d.r_up, d.r_dl)
+    k = TorchDraws(WIRES["int8-inkernel"], spec, 3, seed=4, device="cpu")
+    seeds = {k(t).sr_seed for t in range(50)}
+    assert len(seeds) == 50                    # a fresh key every round
+    assert k(7).sr_seed == TorchDraws(WIRES["int8-inkernel"], spec, 3,
+                                      seed=4, device="cpu")(7).sr_seed
+
+
+def test_f32_draws_are_unchanged_by_the_wire(spec):
+    """h, u and e come first, so a quantized wire does not move them, and
+    an f32 config's draws are those the provider made before the wire's
+    fields existed (values pinned from that provider, seed 3, round 2)."""
+    base = TorchDraws(WIRES["f32"], spec, 5, seed=3, device="cpu")(2)
+    for wire in ("int8", "int8-dl-int8", "sign"):
+        d = TorchDraws(WIRES[wire], spec, 5, seed=3, device="cpu")(2)
+        for f in ("h", "u", "e"):
+            assert torch.equal(getattr(d, f), getattr(base, f)), (wire, f)
+    np.testing.assert_array_equal(base.h.numpy(), np.array(
+        [1.6411184072494507, 0.22680427134037018, 0.4743141531944275,
+         1.0096547603607178, 1.0694395303726196], np.float32))
+    np.testing.assert_array_equal(base.u[:3].numpy(), np.array(
+        [-1.1547446250915527, 1.5411531925201416, -0.7170934081077576],
+        np.float32))
+    np.testing.assert_array_equal(base.e[:3].numpy(), np.array(
+        [1.3558493852615356, 1.9337083101272583, 0.7208516001701355],
+        np.float32))
+    assert float(base.u.double().sum()) == 138.6367769241333
+    assert float(base.e.double().sum()) == 90350.23848593148
