@@ -41,10 +41,33 @@ Phases, each printing its own line(s) before the last line:
    and read after each: f32 uplink with alpha="auto"; int8 uplink with
    error feedback and the int8 downlink, alpha="auto"; folded sign with
    error feedback, static alpha 1.5;
-10. times: CUDA events, median of 50 launches, each after an L2 flush
+10. kernel ota_transmit_slab(acc=, row_chunk=), the accumulating
+   transmit of the streamed client axis, against its plain version:
+   row_chunk None / 1 / 7 / N, the carry absent or random, n_total != N,
+   at 50 x 175,104 and 37 x 4,097 (random rows) and at 2000 x 4096 (the
+   million-client path's own gradient rows); the f32 transmit without a
+   carry (the same kernel) too; one chunk with no carry is bitwise the
+   channel kernel's faded sum;
+11. reference: streamed logistic-regression rounds on the card against
+   the same rounds on the CPU: serial, double-buffered, ragged, weighted;
+12. streamed equals resident: ResNet-tiny at full width, 50 clients,
+   chunk 50, 3 rounds of adam_ota, bitwise the resident round's state;
+13. streamed runs S1-S3 of ResNet-tiny at full width: 200 clients,
+   batch 8, sample_rate 0.25, Dirichlet data-size weights, alpha="auto",
+   3 rounds each (S1 chunk 50 serial f32; S2 chunk 50 double-buffered
+   f32; S3 chunk 64, ragged, int8 + EF + int8 downlink), every counter
+   set to 0 before and read after each; then a dead round (an all-zero
+   mask) on S3's state under set_sync_debug_mode("error");
+14. the million-client stream: d = 4096, the quadratic loss of the JAX
+   package's streamed benchmark, batches made from the client index,
+   1,000,000 clients in chunks of 2000, 2 rounds serial and 2
+   double-buffered, with launch counts and peak memory; one more serial
+   round under set_sync_debug_mode("error");
+15. times: CUDA events, median of 50 launches, each after an L2 flush
    and a device sleep that covers the host's enqueue, of each kernel and
    its plain version at the main path's shapes, beside the least time
-   the card needs to move the bytes;
+   the card needs to move the bytes (and, for the accumulating transmit,
+   torch.addmv, the one PyTorch call that computes its function);
 then one JSON line listing the kernels, and the result line.
 
 Exits non-zero, and prints no result, without a CUDA device, without the
@@ -73,6 +96,14 @@ D_MAIN = 175104          # ResNet-tiny's padded slab (175,066 parameters)
 N_CLIENTS = 50
 BATCH = 8
 ROUNDS = 5
+N_STREAM = 200           # the streamed runs S1-S3
+STREAM_ROUNDS = 3
+SAMPLE_RATE = 0.25
+# The JAX package's million-client streamed benchmark
+# (benchmarks/train_loop_bench.py, bench_streamed_loop).
+N_MILLION = 1_000_000
+D_MILLION = 4096
+CHUNK_MILLION = 2000
 TIMED_LAUNCHES = 50
 SLEEP_CYCLES = 4_000_000   # ~2 ms at the H100's 1.98 GHz boost clock
 
@@ -80,6 +111,22 @@ SLEEP_CYCLES = 4_000_000   # ~2 ms at the H100's 1.98 GHz boost clock
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke: {what}")
+
+
+class Counter:
+    """One launch counter of a kernel wrapper (an attribute of it), with
+    the ``launches`` / ``__name__`` interface of a wrapper itself."""
+
+    def __init__(self, fn, attr: str, name: str):
+        self.fn, self.attr, self.__name__ = fn, attr, name
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        setattr(self.fn, self.attr, value)
 
 
 def nvidia_smi() -> str:
@@ -625,6 +672,415 @@ def phase_main_path(torch, np, dev, counters):
     return launches
 
 
+def _quad_loss(p, b):
+    """The JAX package's streamed benchmark loss: each client pulls w
+    towards sin(phase) of its own index."""
+    return (p["w"] - b["phase"].sin()).square().mean()
+
+
+def _phase_batch(draws, idx):
+    """A client's data is a function of its index: nothing of size N is
+    ever materialised."""
+    return {"phase": idx.float() * 1e-3}
+
+
+def _million_rows(torch, dev):
+    """The million-client path's first chunk: its 2000 x 4096 gradient
+    rows (the port's vmap of the quadratic loss at a random w) and its
+    fading draw."""
+    from torch.func import grad, vmap
+
+    from repro_torch.core.channel import OTAChannelConfig
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.slab import make_slab_spec
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    w = {"w": torch.randn(D_MILLION, generator=gen, device=dev)}
+    idx = torch.arange(CHUNK_MILLION, device=dev)
+    g = vmap(grad(_quad_loss), in_dims=(None, 0))(w, _phase_batch(None, idx))
+    draws = TorchDraws(OTAChannelConfig(), make_slab_spec(w), N_MILLION,
+                       seed=2, device=dev)(0)
+    return g["w"].contiguous(), draws.h[:CHUNK_MILLION].contiguous()
+
+
+def phase_kernel_stream(torch, dev, total):
+    """The accumulating transmit (B3b; B3a through it) against its plain
+    version; one chunk with no carry against the channel kernel."""
+    from repro_torch.kernels.ota_channel import (ota_channel_slab,
+                                                 ota_transmit_slab)
+    from repro_torch.kernels.ref import ota_transmit_ref
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    shapes = [(N_CLIENTS, D_MAIN, D_MAIN - total), (37, 4097, 38),
+              (CHUNK_MILLION, D_MILLION, 0)]
+    worst, cases = 0.0, 0
+    for n, d, pad in shapes:
+        if n == CHUNK_MILLION:
+            grads, h = _million_rows(torch, dev)
+        else:
+            grads = torch.randn(n, d, generator=gen, device=dev)
+            h = 0.5 + torch.rand(n, generator=gen, device=dev)
+        acc = torch.randn(d, generator=gen, device=dev)
+        if pad:
+            grads[:, d - pad:], acc[d - pad:] = 0.0, 0.0
+        kws = [dict()] + [dict(n_total=n + 3, acc=a, row_chunk=rc)
+                          for rc in (None, 1, 7, n) for a in (None, acc)]
+        for kw in kws:
+            n0 = ota_transmit_slab.stream_launches
+            got = ota_transmit_slab(grads, h, **kw)
+            want = ota_transmit_ref(grads, h, **kw)
+            torch.cuda.synchronize()
+            check(ota_transmit_slab.stream_launches == n0 + 1,
+                  "stream transmit did not launch its kernel")
+            err = (got - want).abs()
+            scale = float(want.abs().max())
+            what = (f"ota_transmit_slab {n}x{d} carry="
+                    f"{kw.get('acc') is not None} "
+                    f"row_chunk={kw.get('row_chunk')}")
+            check(bool(torch.all(err <= 1e-6 * want.abs() + 1e-6 * scale)),
+                  f"{what}: max err {float(err.max())} (scale {scale})")
+            if pad:
+                check(bool(torch.all(got[d - pad:] == 0.0)),
+                      f"{what}: padding not 0")
+            worst, cases = max(worst, float(err.max())), cases + 1
+    # One chunk and no carry: bitwise the channel kernel's faded sum
+    # (u = 0, e = 1 synthesize no interference).
+    grads = torch.randn(N_CLIENTS, D_MAIN, generator=gen, device=dev)
+    h = 0.5 + torch.rand(N_CLIENTS, generator=gen, device=dev)
+    chan = ota_channel_slab(grads, h, torch.zeros(D_MAIN, device=dev),
+                            torch.ones(D_MAIN, device=dev), alpha=1.5,
+                            scale=0.0)
+    for kw in (dict(), dict(acc=torch.zeros(D_MAIN, device=dev))):
+        check(torch.equal(ota_transmit_slab(grads, h, **kw), chan),
+              "one-chunk stream transmit differs from the channel kernel")
+    print(f"[kernel ota_transmit_slab stream] {cases} cases (50x{D_MAIN} and "
+          f"37x4097 random rows, {CHUNK_MILLION}x{D_MILLION} the million-"
+          f"client path's gradient rows; no carry and no row_chunk (the f32 "
+          f"transmit), then row_chunk None/1/7/N x carry absent/random, "
+          f"n_total = N + 3): max_abs_err={worst:.3e} (tol 1e-6 rel + 1e-6 "
+          f"of scale); padding exact; one chunk with no carry bitwise the "
+          f"channel kernel's faded sum; ok")
+    return worst
+
+
+def phase_reference_stream(torch, np):
+    """Streamed logistic-regression rounds on the card against the same
+    rounds on the CPU (plain versions), same draws."""
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.core.channel import OTAChannelConfig
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.fl import FLConfig, make_slab_round_step
+    from repro_torch.core.slab_state import init_train_state
+    from repro_torch.models.vision import logistic_regression
+
+    n = 10
+    rng = np.random.default_rng(3)
+    model = logistic_regression(16, 4)
+    params = {"w": torch.from_numpy(
+        0.1 * rng.normal(size=(16, 4)).astype(np.float32)),
+        "b": torch.zeros(4)}
+    cases = {
+        "serial chunk 5": dict(client_chunk=5),
+        "double-buffered chunk 5": dict(client_chunk=5, double_buffer=True),
+        "ragged chunk 4": dict(client_chunk=4),
+        "weighted sampled chunk 4": dict(
+            client_chunk=4, sample_rate=0.5,
+            client_weights=tuple(float(i + 1) for i in range(n))),
+    }
+    ch = OTAChannelConfig()
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.05, alpha="auto")
+    batches = [{"x": rng.normal(size=(n, 3, 16)).astype(np.float32),
+                "y": rng.integers(0, 4, (n, 3)).astype(np.int64)}
+               for _ in range(3)]
+    worst = {}
+    for name, kw in cases.items():
+        fl = FLConfig(n_clients=n, **kw)
+        states = {d: init_train_state(ad, params, device=d)
+                  for d in ("cpu", "cuda")}
+        steps = {d: make_slab_round_step(model.loss_fn, ch, ad, fl, device=d)
+                 for d in states}
+        draws = TorchDraws(ch, states["cpu"].spec, n, seed=6, device="cpu",
+                           sample_rate=fl.sample_rate)
+        for t in range(3):
+            for d in states:
+                states[d], _ = steps[d](states[d], draws(t), batches[t])
+        err = 0.0
+        for a, b in ((states["cuda"].w, states["cpu"].w),
+                     (states["cuda"].alpha_hat, states["cpu"].alpha_hat),
+                     *zip(states["cuda"].opt, states["cpu"].opt)):
+            a = a.cpu()
+            check(bool(torch.allclose(a, b, rtol=1e-5, atol=1e-5)),
+                  f"{name}: card vs CPU differ by {float((a - b).abs().max())}")
+            err = max(err, float((a - b).abs().max()))
+        worst[name] = err
+    print("[reference] streamed rounds on the card vs on the CPU (plain "
+          "versions), same draws, logreg 10 clients, alpha auto, 3 rounds: "
+          + ", ".join(f"{k} max|d(w, opt, alpha_hat)|={v:.3e}"
+                      for k, v in worst.items()) + " (tier 1e-5); ok")
+
+
+def phase_stream_equals_resident(torch, np, dev):
+    """chunk = N, full participation, no weights: the streamed round's
+    state is bitwise the resident round's, on the same draws."""
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.core.channel import OTAChannelConfig
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.fl import FLConfig, make_slab_round_step
+    from repro_torch.core.slab_state import init_train_state
+    from repro_torch.data import FederatedBatcher, synthetic_images
+    from repro_torch.models.vision import resnet_tiny
+
+    model = resnet_tiny(10)
+    batcher = FederatedBatcher(synthetic_images(3000, 32, 3, 10, seed=0),
+                               N_CLIENTS, BATCH, seed=3)
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in batcher(t).items()} for t in range(3)]
+    ch = OTAChannelConfig()
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.01)
+    runs = (("resident", FLConfig(n_clients=N_CLIENTS)),
+            ("resident again", FLConfig(n_clients=N_CLIENTS)),
+            ("streamed", FLConfig(n_clients=N_CLIENTS,
+                                  client_chunk=N_CLIENTS)))
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        states = {}
+        for name, fl in runs:
+            state = init_train_state(ad, model.init(seed=0, device=dev),
+                                     device=dev)
+            step = make_slab_round_step(model.loss_fn, ch, ad, fl, device=dev)
+            draws = TorchDraws(ch, state.spec, N_CLIENTS, seed=3, device=dev)
+            for t in range(3):
+                state, _ = step(state, draws(t), batches[t])
+            states[name] = state
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+    def same(a, b):
+        return (torch.equal(a.w, b.w) and torch.equal(a.alpha_hat, b.alpha_hat)
+                and all(torch.equal(x, y) for x, y in zip(a.opt, b.opt)))
+
+    check(same(states["resident"], states["resident again"]),
+          "the resident round is not deterministic run to run")
+    diff = float((states["streamed"].w - states["resident"].w).abs().max())
+    check(same(states["streamed"], states["resident"]),
+          f"streamed (chunk = N) differs from resident: max|dw| {diff}")
+    print(f"[stream == resident] resnet_tiny full width, {N_CLIENTS} clients,"
+          f" chunk {N_CLIENTS}, adam_ota, 3 rounds, cudnn deterministic: w, "
+          f"opt and alpha_hat bitwise equal to the resident round's (and the "
+          f"resident round to itself run to run); ok")
+
+
+STREAM_RUNS = ("S1", "S2", "S3")
+STREAM = "ota_transmit_slab(acc=)"     # the accumulating kernel's counter
+
+
+def phase_streamed_runs(torch, np, dev, counters):
+    """S1-S3 on ResNet-tiny at full width; every counter set to 0 just
+    before each run and read just after. Then a dead round on S3's
+    state under sync_debug_mode("error")."""
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.core.channel import OTAChannelConfig, UplinkConfig
+    from repro_torch.core.draws import RoundDraws, TorchDraws
+    from repro_torch.core.fl import (FLConfig, make_slab_round_runner,
+                                     make_slab_round_step, run_rounds_slab)
+    from repro_torch.core.slab_state import init_train_state
+    from repro_torch.data import FederatedBatcher, synthetic_images
+    from repro_torch.models.vision import resnet_tiny
+
+    model = resnet_tiny(10)
+    # 10,000 images: with 3,000, Dir(0.1) over 200 clients leaves some
+    # client without an example
+    data = synthetic_images(10000, 32, 3, 10, seed=0)
+    # --client-weights datasize: a client's weight is its shard's size
+    weights = tuple(float(len(p)) for p in
+                    FederatedBatcher(data, N_STREAM, BATCH, seed=2).parts)
+    f32_up = OTAChannelConfig()
+    int8_up = OTAChannelConfig(uplink=UplinkConfig(mode="int8",
+                                                   error_feedback=True),
+                               downlink="int8")
+    configs = {
+        "S1": (dict(client_chunk=50), f32_up,
+               {STREAM: 4, "ota_channel_slab": 1, "adaptive_update_slab": 1}),
+        "S2": (dict(client_chunk=50, double_buffer=True), f32_up,
+               {"ota_channel_slab": 1, "adaptive_update_slab": 1}),
+        "S3": (dict(client_chunk=64), int8_up,
+               {STREAM: 4, "ota_transmit_slab": 1, "ota_receive_slab": 1,
+                "adaptive_update_slab": 1}),
+    }
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.01, alpha="auto")
+    totals = {c.__name__: 0 for c in counters}
+    for name in STREAM_RUNS:
+        flkw, ch, per_round = configs[name]
+        fl = FLConfig(n_clients=N_STREAM, sample_rate=SAMPLE_RATE,
+                      client_weights=weights, **flkw)
+        ef = ch.uplink.error_feedback
+        state = init_train_state(ad, model.init(seed=0, device=dev),
+                                 error_feedback=ef, device=dev)
+        run = make_slab_round_runner(model.loss_fn, ch, ad, fl, device=dev)
+        draws = TorchDraws(ch, state.spec, N_STREAM, seed=1, device=dev,
+                           sample_rate=SAMPLE_RATE)
+        batcher = FederatedBatcher(data, N_STREAM, BATCH, seed=2)
+        # one warm-up round outside the counted run
+        run_rounds_slab(run, state, lambda t: draws(1000 + t), batcher, 1)
+        torch.cuda.synchronize()
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        state, hist = run_rounds_slab(run, state, draws, batcher,
+                                      STREAM_ROUNDS, chunk=STREAM_ROUNDS)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / STREAM_ROUNDS
+        counts = {c.__name__: c.launches for c in counters}
+        want = {k: STREAM_ROUNDS * per_round.get(k, 0) for k in counts}
+        check(counts == want, f"{name}: launches {counts}, want {want}")
+        for k, v in counts.items():
+            totals[k] += v
+        losses = [x["loss"] for x in hist]
+        parts = [int(x["n_participants"]) for x in hist]
+        check(all(math.isfinite(x) for x in losses), f"{name}: losses "
+              f"{losses}")
+        check(all(0 < p < N_STREAM for p in parts), f"{name}: participants "
+              f"{parts}")
+        check(bool(torch.isfinite(state.w).all()), f"{name}: w not finite")
+        a_hat = float(state.alpha_hat)
+        check(abs(a_hat - ch.alpha) <= 0.1, f"{name}: alpha_hat {a_hat}")
+        print(f"[streamed] {name}: resnet_tiny full width, {N_STREAM} clients"
+              f" x batch {BATCH}, chunk {fl.client_chunk}"
+              f"{' double-buffered' if fl.double_buffer else ' serial'}, "
+              f"uplink {ch.uplink.mode}{' + EF' if ef else ''} / downlink "
+              f"{ch.downlink}, sample_rate {SAMPLE_RATE}, data-size weights, "
+              f"adam_ota alpha auto, {STREAM_ROUNDS} rounds: losses "
+              + " ".join(f"{x:.4f}" for x in losses)
+              + f"; n_participants {parts}; alpha_hat {a_hat:.4f}; "
+              f"{ms:.2f} ms/round (host clock, synchronized); launches "
+              f"{counts}; ok")
+    # A dead round on S3's state: an all-zero mask through the draws.
+    step = make_slab_round_step(model.loss_fn, ch, ad, fl, device=dev)
+    batch = {k: torch.as_tensor(v, device=dev)
+             for k, v in batcher(99).items()}
+    dead = RoundDraws(**{**draws(99).__dict__,
+                         "mask": torch.zeros(N_STREAM, device=dev)})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, m = step(state, dead, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(torch.equal(new.w, state.w) and torch.equal(new.ef, state.ef)
+          and torch.equal(new.alpha_hat, state.alpha_hat)
+          and all(torch.equal(a, b) for a, b in zip(new.opt, state.opt)),
+          "dead round moved the state")
+    check(int(new.step) == int(state.step) + 1, "dead round: step")
+    check(float(m.n_participants) == 0.0 and math.isfinite(float(m.loss)),
+          f"dead round metrics {float(m.n_participants)} {float(m.loss)}")
+    print(f"[dead round] S3's state (int8 + EF, alpha auto), an all-zero "
+          f"mask, under sync_debug_mode='error': w, opt, alpha_hat and ef "
+          f"bitwise unchanged, step {int(state.step)} -> {int(new.step)}, "
+          f"n_participants 0, loss {float(m.loss)}; ok")
+    return totals
+
+
+def phase_million(torch, dev, counters):
+    """The million-client stream, serial and double-buffered; every
+    counter set to 0 before each run and read after. One more serial
+    round under sync_debug_mode("error")."""
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.core.channel import OTAChannelConfig
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.fl import (FLConfig, make_slab_round_runner,
+                                     make_slab_round_step, run_rounds_slab)
+    from repro_torch.core.slab_state import init_train_state
+
+    ch = OTAChannelConfig(alpha=1.5, xi_scale=0.1)
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.02, alpha=1.5)
+    w0 = {"w": torch.randn(D_MILLION,
+                           generator=torch.Generator().manual_seed(0))}
+    rounds = 2
+    chunks = N_MILLION // CHUNK_MILLION
+    resident_bytes = 4 * N_MILLION * D_MILLION
+    totals = {c.__name__: 0 for c in counters}
+    out = {}
+    for name, dbuf in (("serial", False), ("double-buffered", True)):
+        fl = FLConfig(n_clients=N_MILLION, client_chunk=CHUNK_MILLION,
+                      double_buffer=dbuf)
+        state = init_train_state(ad, w0, device=dev)
+        run = make_slab_round_runner(_quad_loss, ch, ad, fl, device=dev,
+                                     batch_gen=_phase_batch)
+        draws = TorchDraws(ch, state.spec, N_MILLION, seed=2, device=dev)
+        # warm-up outside the counted run: the same chunk shapes over two
+        # chunks of clients
+        small = FLConfig(n_clients=2 * CHUNK_MILLION,
+                         client_chunk=CHUNK_MILLION, double_buffer=dbuf)
+        warm = make_slab_round_runner(_quad_loss, ch, ad, small, device=dev,
+                                      batch_gen=_phase_batch)
+        run_rounds_slab(warm, state, TorchDraws(ch, state.spec,
+                                                2 * CHUNK_MILLION,
+                                                device=dev),
+                        lambda t: None, 1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        state, hist = run_rounds_slab(run, state, draws, lambda t: None,
+                                      rounds, chunk=rounds)
+        torch.cuda.synchronize()
+        sec = (time.perf_counter() - t0) / rounds
+        peak = torch.cuda.max_memory_allocated(dev)
+        counts = {c.__name__: c.launches for c in counters}
+        want = {k: 0 for k in counts}
+        want.update({"ota_channel_slab": rounds,
+                     "adaptive_update_slab": rounds,
+                     STREAM: 0 if dbuf else rounds * chunks})
+        check(counts == want, f"million {name}: launches {counts}, want "
+              f"{want}")
+        for k, v in counts.items():
+            totals[k] += v
+        losses = [x["loss"] for x in hist]
+        check(all(math.isfinite(x) for x in losses), f"million {name}: "
+              f"losses {losses}")
+        check(bool(torch.isfinite(state.w).all()) and int(state.step) ==
+              rounds, f"million {name}: state")
+        check(all(x["n_participants"] == N_MILLION for x in hist),
+              f"million {name}: participants")
+        out[name] = state
+        print(f"[million] {name}: {N_MILLION} clients, d={D_MILLION}, chunk "
+              f"{CHUNK_MILLION} ({chunks} chunks a round), adam_ota lr 0.02 "
+              f"alpha 1.5 xi_scale 0.1, {rounds} rounds: losses "
+              + " ".join(f"{x:.6f}" for x in losses)
+              + f"; {1e3 * sec:.1f} ms/round, {N_MILLION / sec:.0f} clients/s "
+              f"(host clock, synchronized); peak memory allocated "
+              f"{peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB above the "
+              f"state) vs {resident_bytes / 1e9:.1f} GB for a resident "
+              f"({N_MILLION}, {D_MILLION}) f32 stack; launches {counts}; ok")
+    dw = float((out["serial"].w - out["double-buffered"].w).abs().max())
+    check(dw <= 1e-5, f"million: serial vs double-buffered max|dw| {dw}")
+    # one more serial round with host syncs made errors
+    fl = FLConfig(n_clients=N_MILLION, client_chunk=CHUNK_MILLION)
+    step = make_slab_round_step(_quad_loss, ch, ad, fl, device=dev,
+                                batch_gen=_phase_batch)
+    state = out["serial"]
+    d = TorchDraws(ch, state.spec, N_MILLION, seed=2, device=dev)(rounds)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, m = step(state, d, None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(math.isfinite(float(m.loss)) and int(state.step) == rounds + 1,
+          "million: sync-checked round")
+    print(f"[million] serial vs double-buffered after {rounds} rounds: "
+          f"max|dw|={dw:.3e} (tier 1e-5: the fold reassociates each chunk's "
+          f"sum); one more serial round ({chunks} chunks, the finish, the "
+          f"update) under sync_debug_mode='error' with no host sync; ok")
+    return totals
+
+
 def _median_ms(torch, fn, flush):
     """Median of per-launch CUDA-event times, each launch after an L2
     flush (the round finds its operands cold: ~40 MB of other traffic
@@ -719,19 +1175,43 @@ def phase_times(torch, dev):
         _median_ms(torch, lambda: ota_receive_ref(words, s, u, e,
                                                   packed="fold", **rkw),
                    flush), bytes_f, ops_r)
+    # the accumulating transmit, one chunk with a carry, at the streamed
+    # runs' chunk (50 x 175,104) and the million-client chunk (2000 x
+    # 4096): reads G, h, acc and writes out; 2 n d flops for the faded
+    # sum and 2 d for the carry. torch.addmv is the one PyTorch call that
+    # computes the same function (cuBLAS GEMV), the yardstick.
+    library = {}
+    for n_s, d_s in ((N_CLIENTS, D_MAIN), (CHUNK_MILLION, D_MILLION)):
+        gs = torch.randn(n_s, d_s, generator=gen, device=dev)
+        hs = torch.rand(n_s, generator=gen, device=dev)
+        acc = torch.randn(d_s, generator=gen, device=dev)
+        skw = dict(n_total=n_s, acc=acc)
+        name = f"{STREAM} {n_s}x{d_s}"
+        rows[name] = (
+            _median_ms(torch, lambda: ota_transmit_slab(gs, hs, **skw),
+                       flush),
+            _median_ms(torch, lambda: ota_transmit_ref(gs, hs, **skw),
+                       flush),
+            4 * (n_s * d_s + n_s + 2 * d_s), 2 * n_s * d_s + 2 * d_s)
+        library[name] = _median_ms(
+            torch, lambda: torch.addmv(acc, gs.t(), hs, alpha=1.0 / n_s),
+            flush)
     out = {}
     for name, (ms, plain_ms, nbytes, ops) in rows.items():
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
         t_ops = 1e3 * ops / F32_FLOPS_PER_S
         bound = max(t_bytes, t_ops)
+        lib_ms = library.get(name)
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                          bound_by="bytes" if t_bytes >= t_ops else
-                         "operations", bytes=nbytes)
+                         "operations", bytes=nbytes, library_ms=lib_ms)
         print(f"[times] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound:.5f} ms ({out[name]['bound_by']}: {nbytes} B at "
               f"3.35 TB/s; {ops} f32 ops at 67 TFLOP/s), share of bound "
-              f"{bound / ms:.3f}; library_ms null: no single PyTorch call "
-              "computes this function")
+              f"{bound / ms:.3f}; "
+              + (f"library (torch.addmv) {lib_ms:.4f} ms" if lib_ms else
+                 "library_ms null: no single PyTorch call computes this "
+                 "function"))
     return out
 
 
@@ -779,14 +1259,27 @@ def main() -> int:
     err_transmit = phase_kernel_transmit(torch, dev, spec.total)
     err_receive = phase_kernel_receive(torch, dev, spec.total)
     err_update = max(err_update, phase_runtime_alpha(torch, dev, spec.total))
+    err_stream = phase_kernel_stream(torch, dev, spec.total)
     phase_reference(torch, np)
     phase_reference_wire(torch, np)
+    phase_reference_stream(torch, np)
+    phase_stream_equals_resident(torch, np, dev)
     counters = (adaptive_update_slab, ota_channel_slab)
     launches = phase_main_path(torch, np, dev, counters)
-    all_counters = counters + (ota_transmit_slab, ota_receive_slab)
+    all_counters = counters + (ota_transmit_slab, ota_receive_slab,
+                               Counter(ota_transmit_slab, "stream_launches",
+                                       STREAM))
+    launches[STREAM] = 0
     wire_launches = phase_wire_runs(torch, np, dev, all_counters)
-    for k, v in wire_launches.items():
-        launches[k] = launches.get(k, 0) + v
+    stream_launches = phase_streamed_runs(torch, np, dev, all_counters)
+    million_launches = phase_million(torch, dev, all_counters)
+    for part in (wire_launches, stream_launches, million_launches):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    # the accumulating kernel's launches by chunk shape
+    launches[f"{STREAM} {N_CLIENTS}x{D_MAIN}"] = stream_launches[STREAM]
+    launches[f"{STREAM} {CHUNK_MILLION}x{D_MILLION}"] = \
+        million_launches[STREAM]
     times = phase_times(torch, dev)
 
     rows = (("adaptive_update_slab", "adaptive_update.cu",
@@ -796,14 +1289,18 @@ def main() -> int:
             ("ota_transmit_slab", "ota_transmit.cu",
              "src/repro/kernels/ota_channel.py:527", err_transmit),
             ("ota_receive_slab", "ota_receive.cu",
-             "src/repro/kernels/ota_channel.py:679", err_receive))
+             "src/repro/kernels/ota_channel.py:679", err_receive),
+            (f"{STREAM} {N_CLIENTS}x{D_MAIN}", "ota_transmit_stream.cu",
+             "src/repro/kernels/ota_channel.py:447", err_stream),
+            (f"{STREAM} {CHUNK_MILLION}x{D_MILLION}", "ota_transmit_stream.cu",
+             "src/repro/kernels/ota_channel.py:447", err_stream))
     kernels = [dict(name=name, route="cuda",
                     source="src/repro_torch/csrc/" + source,
                     replaces=replaces, launches=launches[name],
                     max_abs_err=err,
                     **{k: times[name][k] for k in ("ms", "plain_ms",
-                                                   "bound_ms", "bound_by")},
-                    library_ms=None)
+                                                   "bound_ms", "bound_by",
+                                                   "library_ms")})
                for name, source, replaces, err in rows]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,12 +22,20 @@ optional fields, each present only for a configuration that uses it:
   Philox draws under ``UplinkConfig.sr_inkernel`` (the twin of
   ``repro.core.channel.sr_kernel_seed``).
 
+The streamed client axis adds one more, present only under partial
+participation (``FLConfig.sample_rate < 1``):
+
+* ``mask`` (N,) f32 in {0, 1} — this round's participation mask
+  (``repro.core.stream.participation_mask(key, N, rate)``); None means
+  every client takes part.
+
 ``TorchDraws`` is the port's own provider: a Philox ``torch.Generator``
 on the device (the CPU generator when the caller runs on the CPU),
 reseeded from a mix of ``(seed, round index)`` so round t's draws do not
-depend on how many rounds ran before it. It draws h, u and e first and the
-wire's fields after them, so a config without a quantized wire gets the
-same h, u and e as it always did. The parity tests feed the round the
+depend on how many rounds ran before it. It draws h, u and e first, the
+wire's fields after them and the participation mask last, so a config
+without a quantized wire or without sampling gets the same h, u and e
+(and wire fields) as it always did. The parity tests feed the round the
 JAX package's own draws through the same seam.
 """
 
@@ -58,6 +66,7 @@ class RoundDraws:
     r_up: Optional[torch.Tensor] = None
     r_dl: Optional[torch.Tensor] = None
     sr_seed: Optional[int] = None
+    mask: Optional[torch.Tensor] = None
 
     def wire(self, name: str, length: int) -> torch.Tensor:
         """The (length,) wire field ``r_up`` or ``r_dl``; raises when the
@@ -75,7 +84,7 @@ class RoundDraws:
             return None if t is None else t.to(device)
         return RoundDraws(self.h.to(device), self.u.to(device),
                           self.e.to(device), move(self.r_up),
-                          move(self.r_dl), self.sr_seed)
+                          move(self.r_dl), self.sr_seed, move(self.mask))
 
 
 def sample_fading(cfg: OTAChannelConfig, n: int,
@@ -108,6 +117,19 @@ def cms_slab_inputs(spec: SlabSpec, generator: torch.Generator):
     return u, e
 
 
+def participation_mask(n_clients: int, sample_rate: float,
+                       generator: torch.Generator) -> torch.Tensor:
+    """(n,) f32 {0, 1} mask, each client in with probability
+    ``sample_rate``, as ``repro.core.stream.participation_mask`` draws
+    it. ``sample_rate >= 1`` gives all-ones and consumes nothing of the
+    generator, so enabling sampling leaves every other draw as it was."""
+    dev = generator.device
+    if sample_rate >= 1.0:
+        return torch.ones((n_clients,), dtype=torch.float32, device=dev)
+    u = torch.rand((n_clients,), generator=generator, device=dev)
+    return (u < sample_rate).to(torch.float32)
+
+
 def _mix64(x: int) -> int:
     """splitmix64's finalizer: a bijection on 64-bit ints whose low 32
     bits depend on every input bit (the CPU generator keeps only the low
@@ -128,14 +150,20 @@ class TorchDraws:
     on the card under ``sr_inkernel`` (the kernel draws its own, from
     ``sr_seed``); ``r_dl`` for the int8 downlink; ``sr_seed`` under
     ``sr_inkernel``, mixed on the host from ``(seed, t)`` so that making
-    it reads nothing back from the card.
+    it reads nothing back from the card; ``mask`` for ``sample_rate < 1``
+    (pass ``FLConfig.sample_rate``), drawn after everything else.
     """
 
     def __init__(self, cfg: OTAChannelConfig, spec: SlabSpec, n_clients: int,
-                 seed: int = 0, device: DeviceLike = None):
+                 seed: int = 0, device: DeviceLike = None,
+                 sample_rate: float = 1.0):
+        if not 0.0 < sample_rate <= 1.0:
+            raise ValueError(f"sample_rate must be in (0, 1], got "
+                             f"{sample_rate}")
         self.cfg = cfg
         self.spec = spec
         self.n_clients = n_clients
+        self.sample_rate = float(sample_rate)
         self.seed = int(seed)
         self.device = resolve_device(device)
         self.generator = torch.Generator(device=self.device)
@@ -164,4 +192,7 @@ class TorchDraws:
                               device=self.device)
         if sr and up.sr_inkernel:
             sr_seed = _mix64(mixed ^ _SR_SALT)
-        return RoundDraws(h, u, e, r_up, r_dl, sr_seed)
+        mask = (participation_mask(self.n_clients, self.sample_rate,
+                                   self.generator)
+                if self.sample_rate < 1.0 else None)
+        return RoundDraws(h, u, e, r_up, r_dl, sr_seed, mask)

@@ -20,12 +20,18 @@ round:
        on the resident state slabs, with the tracked alpha as a device
        operand.
 
+A DYNAMIC round config (``client_chunk``, ``sample_rate < 1`` or
+``client_weights``) takes the streamed uplink of ``core.stream`` in place
+of steps 2-3: the client axis is walked in chunks of O(chunk * d)
+memory, participation and weights fold into the effective fading, and a
+round in which nobody took part leaves the server state as it was.
+
 The round takes its random draws as ``RoundDraws`` instead of a PRNG key
 (``repro_torch.core.draws``). ``make_slab_round_runner`` drives R rounds
 as a host loop (the JAX package scans them), and ``run_rounds_slab`` is
 the host driver over chunks of rounds.
 
-Configurations this slice does not cover raise ``NotImplementedError``
+Configurations the port does not cover yet raise ``NotImplementedError``
 naming the ROADMAP item that brings them; none silently degrades.
 """
 
@@ -46,6 +52,7 @@ from repro_torch.core.draws import RoundDraws
 from repro_torch.core.ota import downlink_quantize_slab, ota_aggregate_slab
 from repro_torch.core.slab import slab_to_tree, tree_map, tree_to_slab
 from repro_torch.core.slab_state import SlabTrainState
+from repro_torch.core.stream import client_weight_array, streamed_round_parts
 from repro_torch.core.tail_index import effective_alpha, update_alpha_ema
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -55,11 +62,13 @@ LossFn = Callable[[PyTree, Any], torch.Tensor]   # (params, batch) -> scalar
 
 @dataclasses.dataclass(frozen=True)
 class FLConfig:
-    """Fields, defaults and checks as in ``repro.core.fl.FLConfig``. The
-    port's round covers the resident configuration; the streamed and
-    participating fields (``client_chunk``, ``sample_rate < 1``,
-    ``client_weights``, ``double_buffer``) are refused by the round
-    until ROADMAP item A9 ports them."""
+    """Fields, defaults and checks as in ``repro.core.fl.FLConfig``.
+
+    ``client_chunk`` streams the client axis in chunks of that many
+    rows; ``sample_rate < 1`` samples the participants each round (the
+    mask comes with the draws); ``client_weights`` weights each client's
+    contribution; ``double_buffer`` issues chunk c's client compute
+    before folding chunk c-1 (needs ``client_chunk``)."""
 
     n_clients: int = 50
     local_steps: int = 1          # k; 1 == Algorithm 1 (one grad per round)
@@ -153,10 +162,10 @@ def _check_covered(channel_cfg: OTAChannelConfig,
         raise NotImplementedError(
             "comm_buckets > 1 (bucketed MAC collectives of the sharded "
             "engine) is not ported yet: ROADMAP item A12")
-    if fl_cfg.dynamic_round or batch_gen is not None:
-        raise NotImplementedError(
-            "client_chunk / sample_rate < 1 / client_weights / batch_gen "
-            "(the streamed client axis) are not ported yet: ROADMAP item A9")
+    if batch_gen is not None and not fl_cfg.dynamic_round:
+        raise ValueError("batch_gen= needs a streamed round config "
+                         "(FLConfig.client_chunk); the resident path "
+                         "consumes materialised client_batches")
     state_slab_rows(adaptive_cfg)    # unknown optimizer names raise here
 
 
@@ -172,6 +181,15 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
     ``local_steps == 1`` and (N, k, ...) otherwise (numpy arrays or
     tensors). Per round the only pytree materialised is the parameter
     view the clients consume; the optimizer state never leaves slab form.
+
+    A dynamic round config (``fl_cfg.dynamic_round``) streams the uplink
+    (``core.stream.streamed_round_parts``). Its draws carry the
+    participation mask under ``sample_rate < 1``. A round in which
+    nobody took part skips the server update: w, the optimizer slabs,
+    ``alpha_hat`` and ``ef`` carry over unchanged (selected on the
+    device, with no read back to the host), only ``step`` advances, and
+    the metrics record ``n_participants == 0``. ``batch_gen(draws, idx)``
+    replaces the materialised batches (pass ``client_batches=None``).
     """
     _check_covered(channel_cfg, adaptive_cfg, fl_cfg, backend, batch_gen)
     dev = resolve_device(device)
@@ -181,6 +199,11 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
     dl_int8 = channel_cfg.downlink == "int8"
     n_metric = float(fl_cfg.n_clients)
     static_alpha = None if track else float(adaptive_cfg.alpha)
+    weights = client_weight_array(fl_cfg, dev)
+
+    def metric(x: float) -> torch.Tensor:
+        # a fill on the device, not a copy from the host (no sync)
+        return torch.full((), x, dtype=torch.float32, device=dev)
 
     def broadcast_slab(state: SlabTrainState, draws: RoundDraws):
         """The weight slab the CLIENTS see: the f32 master, or its int8
@@ -190,7 +213,7 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
         return downlink_quantize_slab(state.w,
                                       draws.wire("r_dl", state.spec.padded))
 
-    def step(state: SlabTrainState, draws: RoundDraws, client_batches):
+    def check_state(state: SlabTrainState) -> None:
         if state.w.device != dev:
             raise ValueError(f"state lives on {state.w.device}, the round "
                              f"on {dev}")
@@ -199,19 +222,11 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
                 "UplinkConfig.error_feedback=True but the SlabTrainState "
                 "carries no residual rows; build it with "
                 "init_train_state(..., error_feedback=True)")
+
+    def server_half(state, params, g_slab, stats):
+        """The tracked alpha's EMA and the server update; returns
+        (alpha_hat, alpha_metric, new_opt, w_new)."""
         spec = state.spec
-        draws = draws.to(dev)
-        batches = tree_map(lambda x: torch.as_tensor(x, device=dev),
-                           client_batches)
-        # Model broadcast: the one pytree the round materialises.
-        params = slab_to_tree(spec, broadcast_slab(state, draws))
-        grads, losses = client_fn(params, batches)
-        # The MAC: one channel launch (f32) or transmit + receive
-        # (quantized; the carried residual joins the transmit quantizer
-        # and the fresh one comes back from the same launch).
-        g_slab, h, grads_slab, stats, ef_new = ota_aggregate_slab(
-            draws, channel_cfg, grads, spec, pilot_stats=track,
-            ef=state.ef[0] if use_ef else None)
         if track:
             alpha_hat = update_alpha_ema(state.alpha_hat, stats,
                                          adaptive_cfg.alpha_ema)
@@ -220,8 +235,7 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
         else:
             alpha_hat = state.alpha_hat
             alpha_arg = None
-            alpha_metric = torch.tensor(static_alpha, dtype=torch.float32,
-                                        device=dev)
+            alpha_metric = metric(static_alpha)
         w_in = state.w
         if any(dt != torch.float32 for dt in spec.dtypes):
             # Non-f32 leaves round-trip through their storage dtype each
@@ -233,6 +247,82 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
         # in as a device operand).
         new_opt, w_new = slab_update_slabs(adaptive_cfg, g_slab, state.opt,
                                            w_in, alpha=alpha_arg)
+        return alpha_hat, alpha_metric, new_opt, w_new
+
+    def to_dev(client_batches):
+        return tree_map(lambda x: torch.as_tensor(x, device=dev),
+                        client_batches)
+
+    if fl_cfg.dynamic_round:
+        can_skip = fl_cfg.dynamic_norm
+
+        def dynamic_step(state: SlabTrainState, draws: RoundDraws,
+                         client_batches=None):
+            check_state(state)
+            spec = state.spec
+            draws = draws.to(dev)
+            params = slab_to_tree(spec, broadcast_slab(state, draws))
+            parts = streamed_round_parts(
+                draws, channel_cfg, fl_cfg, spec, client_fn, params,
+                client_batches=(None if client_batches is None
+                                else to_dev(client_batches)),
+                batch_gen=batch_gen, pilot_stats=track,
+                ef=state.ef[0] if use_ef else None, weights=weights)
+            a_new, alpha_metric, new_opt, w_new = server_half(
+                state, params, parts.g_slab, parts.stats)
+            ef_next = parts.ef_new[None] if use_ef else state.ef
+            alpha_hat = a_new
+            if can_skip:
+                # Dead round: nobody transmitted, so the server state
+                # carries over (only the round counter advances). Only a
+                # dynamic normaliser can give one; with the static 1/N
+                # the selects are left out.
+                ok = parts.norm > 0.0
+                w_new = torch.where(ok, w_new, state.w)
+                new_opt = tuple(torch.where(ok, a, b)
+                                for a, b in zip(new_opt, state.opt))
+                if track:
+                    alpha_hat = torch.where(ok, a_new, state.alpha_hat)
+                    alpha_metric = alpha_hat
+                if use_ef:
+                    # the residual of a transmission that never happened
+                    # must not replace the carried one
+                    ef_next = torch.where(ok, ef_next, state.ef)
+            nf = torch.clamp_min(parts.n_participants, 1.0)
+            metrics = RoundMetrics(
+                loss=parts.loss_sum / nf,
+                grad_norm=torch.sqrt(torch.sum(torch.square(
+                    parts.clean_slab / nf))),
+                noisy_grad_norm=torch.sqrt(torch.sum(torch.square(
+                    parts.g_slab))),
+                fading_mean=torch.mean(parts.h),
+                alpha_hat=alpha_metric,
+                n_participants=parts.n_participants,
+            )
+            return SlabTrainState(state.step + 1, w_new, new_opt, alpha_hat,
+                                  spec, ef_next), metrics
+
+        return dynamic_step
+
+    def step(state: SlabTrainState, draws: RoundDraws, client_batches):
+        check_state(state)
+        spec = state.spec
+        draws = draws.to(dev)
+        if draws.mask is not None:
+            raise ValueError("draws.mask is set but the round config is "
+                             "resident (FLConfig.sample_rate is 1)")
+        batches = to_dev(client_batches)
+        # Model broadcast: the one pytree the round materialises.
+        params = slab_to_tree(spec, broadcast_slab(state, draws))
+        grads, losses = client_fn(params, batches)
+        # The MAC: one channel launch (f32) or transmit + receive
+        # (quantized; the carried residual joins the transmit quantizer
+        # and the fresh one comes back from the same launch).
+        g_slab, h, grads_slab, stats, ef_new = ota_aggregate_slab(
+            draws, channel_cfg, grads, spec, pilot_stats=track,
+            ef=state.ef[0] if use_ef else None)
+        alpha_hat, alpha_metric, new_opt, w_new = server_half(
+            state, params, g_slab, stats)
         metrics = RoundMetrics(
             loss=torch.mean(losses),
             grad_norm=torch.sqrt(torch.sum(torch.square(
@@ -240,8 +330,7 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
             noisy_grad_norm=torch.sqrt(torch.sum(torch.square(g_slab))),
             fading_mean=torch.mean(h),
             alpha_hat=alpha_metric,
-            n_participants=torch.tensor(n_metric, dtype=torch.float32,
-                                        device=dev),
+            n_participants=metric(n_metric),
         )
         return SlabTrainState(state.step + 1, w_new, new_opt, alpha_hat,
                               spec, ef_new[None] if use_ef else state.ef
@@ -258,18 +347,24 @@ def make_slab_round_runner(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
 
     Returns ``run(state, draws, client_batches) -> (state, metrics)``
     with ``draws`` a sequence of R ``RoundDraws`` and ``client_batches``
-    leaves shaped (R, N, ...); metrics come back stacked (R,).
+    leaves shaped (R, N, ...); metrics come back stacked (R,). With
+    ``batch_gen`` (see ``make_slab_round_step``) there are no
+    materialised batches: call ``run(state, draws)``.
     """
     step = make_slab_round_step(loss_fn, channel_cfg, adaptive_cfg, fl_cfg,
                                 device=device, backend=backend,
                                 batch_gen=batch_gen)
 
     def run(state: SlabTrainState, draws: Sequence[RoundDraws],
-            client_batches):
+            client_batches=None):
+        if batch_gen is not None and client_batches is not None:
+            raise ValueError("batch_gen= runner takes no materialised "
+                             "client_batches")
         ms: List[RoundMetrics] = []
         for r in range(len(draws)):
-            state, m = step(state, draws[r],
-                            tree_map(lambda x: x[r], client_batches))
+            batch = (None if batch_gen is not None else
+                     tree_map(lambda x: x[r], client_batches))
+            state, m = step(state, draws[r], batch)
             ms.append(m)
         return state, RoundMetrics(*(torch.stack(f) for f in zip(*ms)))
 
@@ -290,6 +385,34 @@ def _stack(*xs):
     return np.stack(xs)
 
 
+class _DeadRoundAggregator:
+    """One WARNING line per log interval instead of one per dead round,
+    as in the JAX drivers: ``record(t)`` counts a round with no
+    participants, ``flush()`` logs the count and the round span, if
+    any, since the last flush."""
+
+    def __init__(self, log):
+        self._log = log
+        self._count = 0
+        self._first = self._last = 0
+
+    def record(self, t: int) -> None:
+        if self._count == 0:
+            self._first = t
+        self._last = t
+        self._count += 1
+
+    def flush(self) -> None:
+        if not self._count:
+            return
+        span = (f"round {self._first + 1:5d}" if self._first == self._last
+                else f"rounds {self._first + 1}-{self._last + 1}")
+        self._log(f"{span}  WARNING: {self._count} dead round(s) — no "
+                  "participants, server update skipped; consider a higher "
+                  "sample_rate")
+        self._count = 0
+
+
 def run_rounds_slab(run_chunk, state: SlabTrainState,
                     draws_fn: Callable[[int], RoundDraws],
                     batch_fn: Callable[[int], PyTree], n_rounds: int,
@@ -299,19 +422,25 @@ def run_rounds_slab(run_chunk, state: SlabTrainState,
 
     Rounds are dispatched in chunks of up to ``chunk``. Round t takes
     ``draws_fn(t)`` and ``batch_fn(t)``: both keyed by the ABSOLUTE round
-    index, the port's form of the JAX driver's ``key_fn``. Eval (on the
-    parameter dict) happens only at chunk boundaries; chunks are clipped
-    so every ``eval_every`` multiple is one. Returns ``(state, history)``
-    with one dict per round, as the JAX driver returns.
+    index, the port's form of the JAX driver's ``key_fn``. Under
+    ``batch_gen`` ``batch_fn`` returns None. Eval (on the parameter dict)
+    happens only at chunk boundaries; chunks are clipped so every
+    ``eval_every`` multiple is one. Dead rounds (no participants) are
+    logged as one WARNING line per log interval. Returns
+    ``(state, history)`` with one dict per round, as the JAX driver
+    returns.
     """
     history = []
+    dead = _DeadRoundAggregator(log)
     t = 0
     while t < n_rounds:
         r = min(chunk, n_rounds - t)
         if eval_every:
             r = min(r, eval_every - t % eval_every)
         draws = [draws_fn(t + i) for i in range(r)]
-        batches = tree_map(_stack, *[batch_fn(t + i) for i in range(r)])
+        bs = [batch_fn(t + i) for i in range(r)]
+        batches = (None if all(b is None for b in bs)
+                   else tree_map(_stack, *bs))
         state, ms = run_chunk(state, draws, batches)
         cols = {k: getattr(ms, k).tolist() for k in
                 ("loss", "grad_norm", "noisy_grad_norm", "alpha_hat",
@@ -319,11 +448,15 @@ def run_rounds_slab(run_chunk, state: SlabTrainState,
         for i in range(r):
             history.append({"round": t + i,
                             **{k: float(v[i]) for k, v in cols.items()}})
+            if history[-1]["n_participants"] == 0.0:
+                dead.record(t + i)
         t += r
         if eval_fn is not None and eval_every and t % eval_every == 0:
             history[-1].update(eval_fn(slab_to_tree(state.spec, state.w)))
         if log_every:
             for i in range(t - r, t):
                 if (i + 1) % log_every == 0:
+                    dead.flush()
                     _log_round(log, i, history[i])
+    dead.flush()
     return state, history

@@ -94,16 +94,31 @@ def ota_aggregate_slab(draws: RoundDraws, cfg: OTAChannelConfig,
     ``pilot_stats=True`` (else None), and, when ``ef`` (the carried
     (padded,) error-feedback residual) is given, the fresh residual to
     carry into the next round (else None).
-
-    The f32 uplink is one ``ota_channel_slab`` launch. A quantized
-    uplink is a transmit launch and a receive launch; its stochastic
-    rounding takes ``draws.r_up``, or on the card under ``sr_inkernel``
-    the kernel's own draws keyed by ``draws.sr_seed``.
     """
     grads_slab = stack_to_slab(spec, client_grads)
     n = grads_slab.shape[0]
     if draws.h.shape != (n,):
         raise ValueError(f"draws.h must be ({n},), got {tuple(draws.h.shape)}")
+    g_slab, stats, ef_new = mac_slab(draws, cfg, spec, grads_slab, draws.h,
+                                     pilot_stats=pilot_stats, ef=ef)
+    return g_slab, draws.h, grads_slab, stats, ef_new
+
+
+def mac_slab(draws: RoundDraws, cfg: OTAChannelConfig, spec: SlabSpec,
+             grads_slab: torch.Tensor, h: torch.Tensor,
+             pilot_stats: bool = False, ef: Optional[torch.Tensor] = None,
+             n_total: Optional[int] = None):
+    """The uplink of a stacked (R, padded) gradient slab with fading h
+    (R,), normalised by ``n_total`` (default R). Returns ``(g_slab,
+    stats, ef_new)``.
+
+    The f32 uplink is one ``ota_channel_slab`` launch. A quantized
+    uplink is a transmit launch and a receive launch; its stochastic
+    rounding takes ``draws.r_up``, or on the card under ``sr_inkernel``
+    the kernel's own draws keyed by ``draws.sr_seed``. The resident
+    round passes its N client rows; the streamed round its completed
+    partial as one row with h = 1 and ``n_total=1``.
+    """
     u, e, scale = _interference_slab_inputs(draws, cfg, spec)
     stats = None
     up = cfg.uplink
@@ -111,11 +126,12 @@ def ota_aggregate_slab(draws: RoundDraws, cfg: OTAChannelConfig,
         if ef is not None:
             raise ValueError("the f32 uplink has no quantization residual; "
                              "error feedback needs a quantized uplink")
-        g_slab = ota_channel_slab(grads_slab, draws.h, u, e, alpha=cfg.alpha,
-                                  scale=scale, pilot_stats=pilot_stats)
+        g_slab = ota_channel_slab(grads_slab, h, u, e, alpha=cfg.alpha,
+                                  scale=scale, n_total=n_total,
+                                  pilot_stats=pilot_stats)
         if pilot_stats:
             g_slab, stats = g_slab
-        return g_slab, draws.h, grads_slab, stats, None
+        return g_slab, stats, None
 
     stochastic = up.stochastic_rounding and up.mode == "int8"
     # The kernel draws its own rounding uniforms only on the card; the
@@ -131,8 +147,8 @@ def ota_aggregate_slab(draws: RoundDraws, cfg: OTAChannelConfig,
                              "(UplinkConfig.sr_inkernel on the card)")
     elif stochastic:
         r = draws.wire("r_up", spec.padded)
-    tx = ota_transmit_slab(grads_slab, draws.h, quantize=True, r=r,
-                           stochastic=stochastic, qmode=up.mode,
+    tx = ota_transmit_slab(grads_slab, h, n_total=n_total, quantize=True,
+                           r=r, stochastic=stochastic, qmode=up.mode,
                            zero_fold=up.zero_fold, sr_seed=sr_seed, ef=ef,
                            return_residual=ef is not None)
     packed = up.packed_sign
@@ -147,4 +163,4 @@ def ota_aggregate_slab(draws: RoundDraws, cfg: OTAChannelConfig,
     if up.zero_fold:
         g_slab = restore_zero_tail(g_slab, spec)
         ef_new = restore_zero_tail(ef_new, spec)
-    return g_slab, draws.h, grads_slab, stats, ef_new
+    return g_slab, stats, ef_new

@@ -30,7 +30,7 @@ from typing import List
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("adaptive_update.cu", "ota_channel.cu", "ota_transmit.cu",
-           "ota_receive.cu")
+           "ota_transmit_stream.cu", "ota_receive.cu")
 HEADERS = ("ota_common.cuh",)
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "--fmad=false",
@@ -111,6 +111,9 @@ def load_library() -> ctypes.CDLL:
     lib.repro_ota_transmit.argtypes = ([i] + [vp] * 7
                                        + [ctypes.c_ulonglong, i, ll, f, vp])
     lib.repro_ota_transmit.restype = i
+    lib.repro_ota_transmit_stream.argtypes = ([i] + [vp] * 4
+                                              + [i, ll, i, f, i, i, vp])
+    lib.repro_ota_transmit_stream.restype = i
     lib.repro_ota_receive.argtypes = ([i, i] + [vp] * 6 + [i, ll, f]
                                       + [f] * 6 + [i, vp])
     lib.repro_ota_receive.restype = i

@@ -10,6 +10,9 @@ PyTorch counterpart of ``repro.kernels.ota_channel``:
   partial sum (plus the error-feedback residual), quantized on write to
   an int8 or sign payload with one f32 scale per 128-block, and the
   fresh residual;
+* ``ota_transmit_slab(quantize=False)`` — the f32 faded partial sum,
+  optionally accumulated into a running (d,) carry ``acc`` over client
+  row chunks (``row_chunk``): the streamed client axis's transmitter;
 * ``ota_receive_slab`` — the server's front end: dequantizes and sums R
   payload rows (the int8 container, or the packed sign words of
   ``pack_sign_slab``) and adds the CMS interference.
@@ -20,10 +23,11 @@ residuals r = scale * xi (the closed alpha loop's input).
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/ota_channel.cu``, ``csrc/ota_transmit.cu``,
-``csrc/ota_receive.cu``) or raises. On a CPU tensor it runs the plain
-version in ``kernels.ref``. Nothing else selects between the two. The
-f32 transmit (``quantize=False``, the sharded engine's) and the streamed
-transmit (``acc=``, ``row_chunk=``) are not ported yet.
+``csrc/ota_transmit_stream.cu``, ``csrc/ota_receive.cu``) or raises. On
+a CPU tensor it runs the plain version in ``kernels.ref``. Nothing else
+selects between the two. ``ota_transmit_slab`` counts its two kernels
+apart: ``launches`` for the quantize-on-write kernel, ``stream_launches``
+for the f32 (accumulating) one.
 """
 
 from __future__ import annotations
@@ -132,11 +136,19 @@ def ota_transmit_slab(grads: torch.Tensor, h: torch.Tensor, *,
                       return_residual: bool = False,
                       acc: Optional[torch.Tensor] = None,
                       row_chunk: Optional[int] = None):
-    """Transmit stage with the quantize-on-write epilogue.
+    """Transmit stage: the faded partial sum ``(1/n_total) sum_n h[n]
+    grads[n]`` of grads (N, d) stacked client gradients and h (N,)
+    effective fading.
 
-    grads (N, d) stacked client gradients, h (N,) effective fading; d a
-    multiple of 128. Returns ``(payload int8 (d,), scales f32 (d // 128,)
-    [, residual f32 (d,)])`` as ``kernels.ref.ota_transmit_ref`` does:
+    ``quantize=False`` returns the f32 partial (d,). ``acc`` (a (d,) f32
+    carry, the partial of the chunks already sent) and ``row_chunk``
+    (client rows per chunk, default all) make it the streamed
+    transmitter: ``acc + sum_chunks (sum_{n in chunk} h[n] grads[n]) /
+    n_total``, each chunk divided as it lands. Both are f32 only.
+
+    ``quantize=True`` needs d a multiple of 128 and returns
+    ``(payload int8 (d,), scales f32 (d // 128,) [, residual f32 (d,)])``
+    as ``kernels.ref.ota_transmit_ref`` does:
     ``qmode`` "int8" (stochastic rounding with the (d,) uniforms ``r``,
     or round-to-nearest with ``stochastic=False``) or "sign"
     (``zero_fold`` for the 1-bit folded wire); ``ef`` joins the partial
@@ -149,17 +161,18 @@ def ota_transmit_slab(grads: torch.Tensor, h: torch.Tensor, *,
     raises. Its rounding decisions differ from the host-drawn ones by at
     most one quantization step per entry.
     """
-    if acc is not None or row_chunk is not None:
-        raise NotImplementedError(
-            "the streamed transmit (acc= / row_chunk=) is not ported yet: "
-            "ROADMAP item A9")
-    if not quantize:
-        raise NotImplementedError(
-            "the f32 transmit (quantize=False, the sharded engine's "
-            "partial sum) is not ported yet: ROADMAP item A12")
     if grads.dim() != 2:
         raise ValueError(f"grads must be (N, d), got {tuple(grads.shape)}")
     n, d = grads.shape
+    if not quantize:
+        return _transmit_f32(grads, h, n, d, n_total, acc, row_chunk)
+    if acc is not None or row_chunk is not None:
+        raise ValueError(
+            "quantize=True cannot stream/accumulate (acc=/row_chunk=): the "
+            "quantize-on-write epilogue must see the COMPLETED partial sum "
+            "(one quantization step per entry, the wire contract); "
+            "accumulate the f32 partial across chunks first, then quantize "
+            "it with a single-row quantize=True launch")
     if d % LANE != 0:
         raise ValueError(f"quantized transmit needs d to be a multiple of "
                          f"{LANE}, got {d}")
@@ -233,6 +246,45 @@ def ota_transmit_slab(grads: torch.Tensor, h: torch.Tensor, *,
 
 
 ota_transmit_slab.launches = 0
+ota_transmit_slab.stream_launches = 0
+
+
+def _transmit_f32(grads, h, n, d, n_total, acc, row_chunk):
+    """The f32 route of ``ota_transmit_slab``: the accumulating kernel
+    (one row chunk and a zero carry when neither is given)."""
+    if row_chunk is not None and row_chunk < 1:
+        raise ValueError(f"row_chunk must be >= 1, got {row_chunk}")
+    if acc is not None and tuple(acc.shape) != (d,):
+        raise ValueError(f"acc must be the ({d},) running partial sum, got "
+                         f"{tuple(acc.shape)}")
+    if n_total is None:
+        n_total = n
+    if grads.device.type == "cpu":
+        return ota_transmit_ref(grads, h, n_total=n_total, acc=acc,
+                                row_chunk=row_chunk)
+    if grads.device.type != "cuda":
+        raise ValueError(f"ota_transmit_slab takes cuda or cpu tensors, got "
+                         f"{grads.device}")
+    dev = grads.device
+    f32 = torch.float32
+    _check_operand("grads", grads, (n, d), f32, dev, 4)
+    _check_operand("h", h, (n,), f32, dev, 4)
+    if acc is not None:
+        _check_operand("acc", acc, (d,), f32, dev, 4)
+    rc = n if row_chunk is None else min(row_chunk, n)
+    out = torch.empty((d,), dtype=f32, device=dev)
+    vec = 4 if d % 4 == 0 and grads.data_ptr() % 16 == 0 else 1
+    blocks = -(-d // (THREADS * vec))
+    lib = build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        code = lib.repro_ota_transmit_stream(
+            vec, grads.data_ptr(), h.data_ptr(),
+            None if acc is None else acc.data_ptr(), out.data_ptr(), n, d,
+            max(rc, 1), float(n_total), THREADS, blocks, stream)
+    build.check(code, "ota_transmit_slab")
+    ota_transmit_slab.stream_launches += 1
+    return out
 
 
 def ota_receive_slab(payload: torch.Tensor, scales: torch.Tensor,

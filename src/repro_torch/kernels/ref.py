@@ -115,21 +115,38 @@ def ota_transmit_ref(grads: torch.Tensor, h: torch.Tensor, *,
     all-zero block. ``ef`` joins the partial before the quantizer;
     ``return_residual=True`` appends ``x - q * s``.
 
+    ``acc`` / ``row_chunk`` select the streamed client axis: start from
+    the (d,) f32 carry ``acc`` (zeros if None) and fold the client rows
+    in per ``row_chunk``-sized chunk (default: all rows), each chunk's
+    faded partial divided by ``n_total`` as it lands. f32 only, like
+    the kernel.
+
     Returns (d,) f32, or ``(payload int8 (d,), scales f32 (d // 128,)
     [, residual f32 (d,)])`` when ``quantize=True``. Agreement with a
     kernel that sums in another order is one quantization step per
     entry (a one-ulp change of x can flip a rounding decision), as in
-    the JAX oracle. The streamed client axis (``acc=``, ``row_chunk=``)
-    is not ported yet.
+    the JAX oracle.
     """
-    if acc is not None or row_chunk is not None:
-        raise NotImplementedError(
-            "the streamed transmit (acc= / row_chunk=) is not ported yet: "
-            "ROADMAP item A9")
     n, d = grads.shape
     if n_total is None:
         n_total = n
+    streamed = acc is not None or row_chunk is not None
+    if streamed and quantize:
+        raise ValueError("quantize=True cannot stream/accumulate "
+                         "(acc=/row_chunk=); quantize the completed f32 "
+                         "partial in a separate single-row call")
     h2 = h.reshape(n, 1).float()
+    if streamed:
+        rc = n if row_chunk is None else min(row_chunk, n)
+        if rc < 1:
+            raise ValueError(f"row_chunk must be >= 1, got {row_chunk}")
+        gf = grads.float()
+        agg = (torch.zeros((d,), dtype=torch.float32, device=grads.device)
+               if acc is None else acc.float())
+        for s in range(0, n, rc):
+            agg = agg + torch.sum(h2[s:s + rc] * gf[s:s + rc],
+                                  dim=0) / n_total
+        return agg
     agg = torch.sum(h2 * grads.float(), dim=0) / n_total
     if not quantize:
         return agg

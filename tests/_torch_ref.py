@@ -6,8 +6,10 @@ the JAX package's own functions and key splits
 does; ``sample_fading(kh, ...)``; ``_cms_slab_inputs(kx, spec)``), and
 for the quantized wire the stochastic-rounding uniforms the JAX round
 draws from the same key (``uplink_sr_slab_inputs(key, spec)[0]``,
-``downlink_sr_slab_inputs(key, spec.padded)``), and hands them to the
-port as ``RoundDraws``. It lives here, beside the tests, because the
+``downlink_sr_slab_inputs(key, spec.padded)``), and under partial
+participation the mask (``repro.core.stream.participation_mask(key, N,
+rate)``, keyed off the round key itself), and hands them to the port as
+``RoundDraws``. It lives here, beside the tests, because the
 port's package never imports jax.
 """
 
@@ -29,6 +31,7 @@ from repro.core.fl import make_slab_round_step as j_make_step
 from repro.core.slab_state import init_train_state as j_init_train_state
 from repro.core.ota import (_cms_slab_inputs, downlink_sr_slab_inputs,
                             uplink_sr_slab_inputs)
+from repro.core.stream import participation_mask
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.draws import RoundDraws
 from repro_torch.core.fl import make_slab_round_step
@@ -51,9 +54,10 @@ def jax_configs(ch, ad, fl, backend="pallas"):
             JFLConfig(**dataclasses.asdict(fl)))
 
 
-def ref_draws(key, ch, jspec, n: int) -> RoundDraws:
+def ref_draws(key, ch, jspec, n: int, sample_rate: float = 1.0
+              ) -> RoundDraws:
     """The draws the JAX round makes from ``key``, as tensors; the wire's
-    fields only for a config that uses them."""
+    fields and the participation mask only for a config that uses them."""
     kh, kx = jax.random.split(key)
     h = sample_fading(kh, jax_channel_config(ch), (n,))
     if ch.interference:
@@ -70,7 +74,9 @@ def ref_draws(key, ch, jspec, n: int) -> RoundDraws:
     def t(x):
         return None if x is None else torch.from_numpy(np.array(x, np.float32))
 
-    return RoundDraws(t(h), t(u), t(e), t(r_up), t(r_dl))
+    mask = (participation_mask(key, n, sample_rate) if sample_rate < 1.0
+            else None)
+    return RoundDraws(t(h), t(u), t(e), t(r_up), t(r_dl), mask=t(mask))
 
 
 def to_np(x) -> np.ndarray:
@@ -105,7 +111,8 @@ def run_both(jmodel, tmodel, params_np, batches, ch, ad, fl, backend):
     out = []
     for t, batch in enumerate(batches):
         key = jax.random.fold_in(jax.random.key(7), t)
-        draws = ref_draws(key, ch, jstate.spec, fl.n_clients)
+        draws = ref_draws(key, ch, jstate.spec, fl.n_clients,
+                          fl.sample_rate)
         jstate, jm = jstep(jstate, key, jax.tree.map(jnp.asarray, batch))
         tstate, tm = tstep(tstate, draws, batch)
         out.append((jm, tm))

@@ -185,12 +185,6 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(name, monkeypatch):
 # Explicit ids: each case keeps its name as entries come and go.
 REFUSED = [
     pytest.param("A12", dict(ch=dict(comm_buckets=2)), id="A12-ch-3"),
-    pytest.param("A9", dict(fl=dict(client_chunk=2)), id="A9-fl-5"),
-    pytest.param("A9", dict(fl=dict(sample_rate=0.5)), id="A9-fl-6"),
-    pytest.param("A9", dict(fl=dict(client_weights=(1.0, 2.0))),
-                 id="A9-fl-7"),
-    pytest.param("A9", dict(batch_gen=lambda key, idx: None),
-                 id="A9-batch_gen-8"),
     pytest.param("A12", dict(backend="pallas_sharded"), id="A12-backend-9"),
 ]
 
@@ -207,13 +201,27 @@ def test_uncovered_configs_raise_not_implemented(item, kw):
             make(model.loss_fn, ch, ad, fl, device="cpu", **extra)
 
 
-# Refused until the quantized wire (A8) and the closed alpha loop (A7)
-# were ported; each now builds and takes a round on the CPU.
+def _gen_batch(draws, idx):
+    """A batch made from the client rows (the streamed round's
+    ``batch_gen``)."""
+    x = torch.sin(idx.to(torch.float32)[:, None, None]
+                  + torch.arange(12, dtype=torch.float32).reshape(1, 3, 4))
+    return {"x": x, "y": idx[:, None].remainder(3).expand(-1, 3)}
+
+
+# Refused until the quantized wire (A8), the closed alpha loop (A7) and
+# the streamed client axis (A9) were ported; each now builds and takes a
+# round on the CPU.
 NOW_COVERED = [
     pytest.param(dict(ch=dict(uplink="int8")), id="A8-ch-0"),
     pytest.param(dict(ch=dict(uplink="sign")), id="A8-ch-1"),
     pytest.param(dict(ch=dict(downlink="int8")), id="A8-ch-2"),
     pytest.param(dict(ad=dict(alpha="auto")), id="A7-ad-4"),
+    pytest.param(dict(fl=dict(client_chunk=2)), id="A9-fl-5"),
+    pytest.param(dict(fl=dict(sample_rate=0.5)), id="A9-fl-6"),
+    pytest.param(dict(fl=dict(client_weights=(1.0, 2.0))), id="A9-fl-7"),
+    pytest.param(dict(fl=dict(client_chunk=1), batch_gen=_gen_batch),
+                 id="A9-batch_gen-8"),
 ]
 
 
@@ -222,17 +230,23 @@ def test_formerly_refused_configs_take_a_round(kw):
     model = tvision.logistic_regression(4, 3)
     ch = tchannel.OTAChannelConfig(**kw.get("ch", {}))
     ad = tadaptive.AdaptiveConfig(**kw.get("ad", {}))
-    fl = tfl.FLConfig(n_clients=2)
+    fl = tfl.FLConfig(n_clients=2, **kw.get("fl", {}))
+    gen = kw.get("batch_gen")
     state = init_train_state(ad, model.init(device="cpu"), device="cpu")
-    provider = TorchDraws(ch, state.spec, 2, seed=0, device="cpu")
+    provider = TorchDraws(ch, state.spec, 2, seed=0, device="cpu",
+                          sample_rate=fl.sample_rate)
     rng = np.random.default_rng(0)
     batch = {"x": rng.normal(size=(2, 3, 4)).astype(np.float32),
              "y": rng.integers(0, 3, (2, 3)).astype(np.int64)}
-    step = tfl.make_slab_round_step(model.loss_fn, ch, ad, fl, device="cpu")
+    if gen is not None:
+        batch = None
+    step = tfl.make_slab_round_step(model.loss_fn, ch, ad, fl, device="cpu",
+                                    batch_gen=gen)
     s1, m1 = step(state, provider(0), batch)
-    run = tfl.make_slab_round_runner(model.loss_fn, ch, ad, fl, device="cpu")
+    run = tfl.make_slab_round_runner(model.loss_fn, ch, ad, fl, device="cpu",
+                                     batch_gen=gen)
     s2, m2 = run(state, [provider(0)],
-                 {k: v[None] for k, v in batch.items()})
+                 None if gen else {k: v[None] for k, v in batch.items()})
     assert int(s1.step) == int(s2.step) == 1
     assert torch.equal(s1.w, s2.w) and torch.isfinite(s1.w).all()
     assert float(m1.loss) == float(m2.loss[0])

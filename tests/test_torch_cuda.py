@@ -394,3 +394,153 @@ def test_in_kernel_rounding_round_runs_on_the_card(cuda):
         state, m = step(state, provider(t), batch)
     assert ota_transmit_slab.launches - n0 == 3
     assert torch.isfinite(state.w).all() and float(state.ef.abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# The streamed client axis: the accumulating transmit kernel (B3b, and
+# B3a through it) and the streamed round on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("with_acc", [False, True])
+@pytest.mark.parametrize("row_chunk", [None, 1, 7, "N"])
+@pytest.mark.parametrize("shape", [(50, 175104), (37, 4097), (12, 300)])
+def test_stream_transmit_kernel_matches_plain(cuda, shape, row_chunk,
+                                              with_acc):
+    n, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    grads = torch.randn(n, d, generator=gen, device=cuda)
+    h = 0.5 + torch.rand(n, generator=gen, device=cuda)
+    acc = torch.randn(d, generator=gen, device=cuda) if with_acc else None
+    grads[:, d - 38:] = 0.0                 # the slab's padding columns
+    if acc is not None:
+        acc[d - 38:] = 0.0
+    rc = n if row_chunk == "N" else row_chunk
+    kw = dict(n_total=n + 3, acc=acc, row_chunk=rc)
+    n0 = ota_transmit_slab.stream_launches
+    got = ota_transmit_slab(grads, h, **kw)
+    want = ota_transmit_ref(grads, h, **kw)
+    torch.cuda.synchronize()
+    assert ota_transmit_slab.stream_launches - n0 == 1
+    _close(got, want)
+    assert torch.all(got[d - 38:] == 0.0)
+
+
+def test_stream_transmit_one_chunk_is_the_channel_kernels_sum(cuda):
+    """One chunk and a zero carry give the channel kernel's faded sum
+    bitwise (u = 0, e = 1 synthesize no interference): the property the
+    streamed round's chunk >= N parity rests on. Also B3a's case."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    grads = torch.randn(50, 4096, generator=gen, device=cuda)
+    h = 0.5 + torch.rand(50, generator=gen, device=cuda)
+    u, e = torch.zeros(4096, device=cuda), torch.ones(4096, device=cuda)
+    chan = ota_channel_slab(grads, h, u, e, alpha=1.5, scale=0.0)
+    for kw in (dict(), dict(acc=torch.zeros(4096, device=cuda)),
+               dict(row_chunk=50)):
+        assert torch.equal(ota_transmit_slab(grads, h, **kw), chan)
+
+
+def _stream_model_inputs(cuda, n, d=16, c=4, b=6, seed=1):
+    rng = np.random.default_rng(seed)
+    params = {"w": torch.from_numpy(0.1 * rng.normal(size=(d, c)).astype(
+        np.float32)), "b": torch.zeros(c)}
+    batches = [{"x": rng.normal(size=(n, b, d)).astype(np.float32),
+                "y": rng.integers(0, c, (n, b)).astype(np.int64)}
+               for _ in range(3)]
+    return logistic_regression(d, c), params, batches
+
+
+STREAMS = [
+    ("serial", dict(client_chunk=3), UplinkConfig()),
+    ("double", dict(client_chunk=3, double_buffer=True), UplinkConfig()),
+    ("ragged-weighted", dict(client_chunk=3, sample_rate=0.5,
+                             client_weights=tuple(range(1, 9))),
+     UplinkConfig()),
+    ("int8-ef", dict(client_chunk=4, sample_rate=0.5),
+     UplinkConfig(mode="int8", error_feedback=True)),
+]
+
+
+@pytest.mark.parametrize("name,flkw,up", STREAMS,
+                         ids=[s[0] for s in STREAMS])
+def test_streamed_round_on_the_card_matches_the_cpu_round(cuda, name, flkw,
+                                                          up):
+    n = 8
+    model, params, batches = _stream_model_inputs(cuda, n)
+    ch = OTAChannelConfig(uplink=up)
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.05, alpha="auto")
+    fl = FLConfig(n_clients=n, **flkw)
+    ef = up.error_feedback
+    states = {dev: init_train_state(ad, params, error_feedback=ef,
+                                    device=dev) for dev in ("cpu", "cuda")}
+    steps = {dev: make_slab_round_step(model.loss_fn, ch, ad, fl, device=dev)
+             for dev in states}
+    provider = TorchDraws(ch, states["cpu"].spec, n, seed=2, device="cpu",
+                          sample_rate=fl.sample_rate)
+    n0 = ota_transmit_slab.stream_launches
+    for t in range(3):
+        for dev in states:
+            states[dev], _ = steps[dev](states[dev], provider(t), batches[t])
+    chunks = 0 if fl.double_buffer else -(-n // fl.client_chunk)
+    assert ota_transmit_slab.stream_launches - n0 == 3 * chunks
+    for a, b_ in ((states["cuda"].w, states["cpu"].w),
+                  (states["cuda"].alpha_hat, states["cpu"].alpha_hat),
+                  *zip(states["cuda"].opt, states["cpu"].opt)):
+        assert torch.allclose(a.cpu(), b_, rtol=1e-5, atol=1e-5)
+    if ef:
+        assert torch.allclose(states["cuda"].ef.cpu(), states["cpu"].ef,
+                              rtol=1e-5, atol=1e-5)
+
+
+def test_streamed_round_with_one_chunk_is_the_resident_round(cuda):
+    n = 8
+    model, params, batches = _stream_model_inputs(cuda, n)
+    ch = OTAChannelConfig()
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.05)
+    out = []
+    for fl in (FLConfig(n_clients=n), FLConfig(n_clients=n, client_chunk=n)):
+        state = init_train_state(ad, params, device=cuda)
+        step = make_slab_round_step(model.loss_fn, ch, ad, fl, device=cuda)
+        provider = TorchDraws(ch, state.spec, n, seed=4, device=cuda)
+        for t in range(3):
+            state, _ = step(state, provider(t), batches[t])
+        out.append(state)
+    assert torch.equal(out[0].w, out[1].w)
+    assert all(torch.equal(a, b) for a, b in zip(out[0].opt, out[1].opt))
+
+
+def test_streamed_round_reads_nothing_back(cuda):
+    """batch_gen on the card, a dead round from an all-zero mask, and
+    rounds under set_sync_debug_mode("error")."""
+    from repro_torch.core.draws import RoundDraws
+    n, d = 64, 256
+
+    def loss_fn(p, b):
+        return (p["w"] - b["phase"].sin()).square().mean()
+
+    def gen(draws, idx):
+        return {"phase": idx.to(torch.float32) * 1e-3}
+
+    ch = OTAChannelConfig(uplink=UplinkConfig(mode="int8",
+                                              error_feedback=True))
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.02, alpha="auto")
+    fl = FLConfig(n_clients=n, client_chunk=10, sample_rate=0.5)
+    state = init_train_state(ad, {"w": torch.zeros(d)}, error_feedback=True,
+                             device=cuda)
+    step = make_slab_round_step(loss_fn, ch, ad, fl, device=cuda,
+                                batch_gen=gen)
+    provider = TorchDraws(ch, state.spec, n, seed=5, device=cuda,
+                          sample_rate=0.5)
+    state, _ = step(state, provider(0), None)
+    dead = RoundDraws(**{**provider(1).__dict__,
+                         "mask": torch.zeros(n, device=cuda)})
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new, m = step(state, dead, None)
+        live, _ = step(new, provider(2), None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(new.w, state.w) and torch.equal(new.ef, state.ef)
+    assert torch.equal(new.alpha_hat, state.alpha_hat)
+    assert float(m.n_participants) == 0.0 and int(new.step) == 2
+    assert not torch.equal(live.w, new.w)

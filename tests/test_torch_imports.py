@@ -26,7 +26,11 @@ assert not bad, bad
 from repro_torch.kernels.adaptive_update import adaptive_update_slab
 from repro_torch.kernels.ota_channel import ota_channel_slab
 from repro_torch.kernels import build
+from repro_torch.kernels.ota_channel import (ota_receive_slab,
+                                             ota_transmit_slab)
 assert adaptive_update_slab.launches == ota_channel_slab.launches == 0
+assert ota_transmit_slab.launches == ota_receive_slab.launches == 0
+assert ota_transmit_slab.stream_launches == 0
 assert build.load_library.cache_info().currsize == 0
 print("ok", len(sys.modules))
 """
@@ -34,6 +38,7 @@ print("ok", len(sys.modules))
 
 def test_module_list_covers_the_package():
     assert "repro_torch.core.fl" in MODULES
+    assert "repro_torch.core.stream" in MODULES
     assert "repro_torch.kernels.build" in MODULES
     assert len(MODULES) >= 20
 
