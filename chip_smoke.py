@@ -63,11 +63,34 @@ Phases, each printing its own line(s) before the last line:
    1,000,000 clients in chunks of 2000, 2 rounds serial and 2
    double-buffered, with launch counts and peak memory; one more serial
    round under set_sync_debug_mode("error");
-15. times: CUDA events, median of 50 launches, each after an L2 flush
+15. kernel flash_attention against its plain version: the six
+   FLASH_CASES of tests/test_kernels.py in f32 and bf16, then the
+   prefill shapes of Qwen3-14B (1 x 4096, 40 heads, 8 kv heads, D 128,
+   causal) and StarCoder2-15B (1 x 6144, 48 heads, 4 kv heads, D 128,
+   causal, window 4096), every case in f32 (2e-5) and in bf16 (2^-7 |ref|
+   + 2e-5, per element); before any language model is on the card;
+16. serve qwen3-14b: full width and depth (40 layers, 14.8 B parameters,
+   bf16, random from seed 0) through repro_torch.launch.serve.generate,
+   greedy: (a) the serve CLI's defaults, batch 4 x prompt 64, 32 tokens;
+   (b) batch 1 x prompt 4096, 8 tokens. Each shape runs cold (its
+   first run), then warm (the timed run), with the same ids; the flash
+   counter is set to 0 before and read after each run: one launch per
+   layer in the prefill and none in decode; logits finite; then one
+   prefill and one decode step under torch.profiler, each printed with
+   its own host-clock time and the card's busy and idle shares;
+17. serve starcoder2-15b: full width (40 layers, 16.0 B parameters),
+   batch 1 x prompt 6144 (past the 4096 window: the ring cache and the
+   window mask both run), 8 tokens, the same checks;
+18. reference serve: the qwen3 and starcoder2 smoke configs in f32 on the
+   card against the same parameters on the CPU (plain versions):
+   prefill logits, caches and 8 greedy ids;
+19. times: CUDA events, median of 50 launches, each after an L2 flush
    and a device sleep that covers the host's enqueue, of each kernel and
    its plain version at the main path's shapes, beside the least time
-   the card needs to move the bytes (and, for the accumulating transmit,
-   torch.addmv, the one PyTorch call that computes its function);
+   the card needs for the bytes or the operations (and, where one
+   PyTorch call computes the same function, that call: torch.addmv for
+   the accumulating transmit, scaled_dot_product_attention for flash
+   attention);
 then one JSON line listing the kernels, and the result line.
 
 Exits non-zero, and prints no result, without a CUDA device, without the
@@ -87,10 +110,12 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# NVIDIA H100 SXM data sheet: device memory rate and f32 rate outside
-# the tensor cores (at the full 700 W power limit).
+# NVIDIA H100 SXM data sheet: device memory rate, f32 rate outside the
+# tensor cores and the dense bf16 tensor-core rate (at the full 700 W
+# power limit).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 
 D_MAIN = 175104          # ResNet-tiny's padded slab (175,066 parameters)
 N_CLIENTS = 50
@@ -105,6 +130,26 @@ N_MILLION = 1_000_000
 D_MILLION = 4096
 CHUNK_MILLION = 2000
 TIMED_LAUNCHES = 50
+# Flash attention (B5): tests/test_kernels.py's cases, (B, Sq, Sk, H, K,
+# D, causal, window), and the two models' prefill shapes.
+FLASH_CASES = [
+    (1, 32, 32, 2, 2, 16, True, None),
+    (2, 64, 64, 4, 2, 32, True, None),
+    (1, 100, 100, 8, 8, 64, True, 48),
+    (2, 1, 96, 4, 2, 32, False, None),
+    (1, 80, 80, 6, 3, 16, True, 16),
+    (1, 33, 65, 2, 1, 8, False, None),
+]
+FLASH_MODEL_SHAPES = {
+    "qwen3-14b": (1, 4096, 4096, 40, 8, 128, True, None),
+    "starcoder2-15b": (1, 6144, 6144, 48, 4, 128, True, 4096),
+}
+# serve runs: (name, arch, batch, prompt, tokens generated)
+SERVE_RUNS = (("qwen3-14b a", "qwen3-14b", 4, 64, 32),
+              ("qwen3-14b b", "qwen3-14b", 1, 4096, 8),
+              ("starcoder2-15b", "starcoder2-15b", 1, 6144, 8))
+SERVE_PRESET = "full"
+FLASH = "flash_attention"
 SLEEP_CYCLES = 4_000_000   # ~2 ms at the H100's 1.98 GHz boost clock
 
 
@@ -1081,6 +1126,249 @@ def phase_million(torch, dev, counters):
     return totals
 
 
+def _flash_inputs(torch, dev, case, dtype, seed):
+    b, sq, sk, h, kh, d = case[:6]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(s, generator=gen, device=dev).to(dtype)
+            for s in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d))]
+
+
+def phase_kernel_flash(torch, dev):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    # the six FLASH_CASES and the two model shapes, each in f32 and bf16
+    cases = [(c, dt) for c in FLASH_CASES + list(FLASH_MODEL_SHAPES.values())
+             for dt in (torch.float32, torch.bfloat16)]
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_share = 0.0
+    for i, (case, dtype) in enumerate(cases):
+        causal, window = case[6:]
+        q, k, v = _flash_inputs(torch, dev, case, dtype, 100 + i)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        check(got.dtype == dtype and got.shape == q.shape,
+              f"flash_attention {case} {dtype}: {got.dtype} "
+              f"{tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()),
+              f"flash_attention {case} {dtype}: not finite")
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        # f32: another summation order and FMAs, 2e-5 absolute. bf16: both
+        # sides round an f32 result that agrees to ~1e-6, so an element
+        # may differ by one bf16 ulp of its own value, at most 2^-7 |ref|,
+        # plus the f32 tier: per element, so that rows whose outputs are
+        # small (a long causal row averages thousands of keys) are held
+        # as tightly as the short rows with large outputs.
+        if dtype == torch.float32:
+            tol = torch.full_like(diff, 2e-5)
+        else:
+            tol = 2.0 ** -7 * want.float().abs() + 2e-5
+        share = float((diff / tol).max())
+        check(share <= 1.0, f"flash_attention {case} {dtype}: max err {err},"
+              f" {share:.3f} of the per-element tier")
+        worst[dtype] = max(worst[dtype], err)
+        worst_share = max(worst_share, share)
+        if case in FLASH_MODEL_SHAPES.values():
+            name = [n for n, c in FLASH_MODEL_SHAPES.items() if c == case][0]
+            print(f"[kernel flash_attention] {name} prefill shape {case} "
+                  f"{str(dtype)[6:]}: max_abs_err={err:.3e}, worst element "
+                  f"{share:.3f} of its tier; ok")
+        del q, k, v, got, want, diff, tol
+    torch.cuda.empty_cache()
+    print(f"[kernel flash_attention] {len(cases)} cases (6 FLASH_CASES and "
+          f"2 model shapes, each f32 and bf16): max_abs_err f32 "
+          f"{worst[torch.float32]:.3e} (tier 2e-5), bf16 "
+          f"{worst[torch.bfloat16]:.3e} (tier 2^-7 |ref| + 2e-5 an "
+          f"element); worst element {worst_share:.3f} of its tier; ok")
+    return max(worst.values())
+
+
+def _serve_run(torch, model, params, dev, batch, prompt, gen, counter):
+    """One greedy serve shape through the CLI's generate: a cold run (the
+    shape's first), then the timed warm run, each with the flash counter
+    set to 0 just before and read just after; then one more decode step
+    with the counter at 0, and a prefill and a decode step under the
+    profiler. Returns the warm run's numbers and the cold prefill."""
+    from repro_torch.launch.serve import generate
+
+    cfg = model.config
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(1))
+    runs, counts = [], []
+    for _ in ("cold", "warm"):
+        counter.launches = 0
+        runs.append(generate(model, params, tokens, gen))
+        counts.append(counter.launches)
+        check(counts[-1] == cfg.n_layers,
+              f"{cfg.arch} {batch}x{prompt}: {counter.launches} flash "
+              f"launches, want {cfg.n_layers} (one a layer in the prefill, "
+              "none in decode)")
+    cold, r = runs
+    check(torch.equal(cold["ids"], r["ids"]),
+          f"{cfg.arch} {batch}x{prompt}: the warm run's ids differ")
+    counter.launches = 0
+    logits, cache = model.decode_step(params, r["cache"], r["ids"][:, -1:],
+                                      prompt + gen - 1)
+    torch.cuda.synchronize()
+    check(counter.launches == 0, f"{cfg.arch}: decode launched flash "
+          f"{counter.launches} times")
+    check(bool(torch.isfinite(r["prefill_logits"]).all())
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.arch} {batch}x{prompt}: logits not finite")
+    check(tuple(r["ids"].shape) == (batch, gen)
+          and int(r["ids"].min()) >= 0 and int(r["ids"].max()) < cfg.vocab,
+          f"{cfg.arch}: ids {tuple(r['ids'].shape)}")
+    pos = cache["layers"]["kv"]["pos"][0]
+    total = prompt + gen
+    if cfg.window and total > cfg.window:
+        # the ring holds exactly the last `window` positions
+        check(sorted(pos.tolist()) == list(range(total - cfg.window, total)),
+              f"{cfg.arch}: ring positions")
+    ms_tok = 1e3 * r["t_decode"] / max(gen - 1, 1)
+    # where the time goes: one more prefill and one decode step under the
+    # profiler (not counted above), each with its own host clock
+    batch_in = {"tokens": tokens}
+    length = cache["layers"]["kv"]["k"].shape[2]
+    _profile(torch, f"{cfg.arch} {batch}x{prompt} prefill",
+             lambda: model.prefill(params, batch_in, length=length))
+    _profile(torch, f"{cfg.arch} {batch}x{prompt} decode step",
+             lambda: model.decode_step(params, cache, r["ids"][:, -1:],
+                                       prompt + gen - 1))
+    return dict(prefill_ms=1e3 * r["t_prefill"], decode_ms_per_token=ms_tok,
+                tokens_per_s=batch * (gen - 1) / r["t_decode"],
+                prefill_tokens_per_s=batch * prompt / r["t_prefill"],
+                cold_prefill_ms=1e3 * cold["t_prefill"],
+                cold_decode_ms_per_token=1e3 * cold["t_decode"]
+                / max(gen - 1, 1),
+                launches=counts[-1], ids=r["ids"][0, :8].tolist())
+
+
+def _profile(torch, what, fn):
+    """Run fn once under torch.profiler; print the host-clock time, the
+    card's kernel time (sum over CUDA events: one stream, no overlap),
+    hence the card's busy and idle shares, the kernel count and the
+    flash kernel's share. Measures; checks nothing."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    dev_ev = [a for a in prof.key_averages()
+              if a.device_type == DeviceType.CUDA]
+    busy_ms = sum(a.self_device_time_total for a in dev_ev) / 1e3
+    if busy_ms <= 0:
+        print(f"[profile] {what}: host clock {wall_ms:.2f} ms; card time "
+              "not measured (the profiler saw no kernel)")
+        return
+    flash_ms = sum(a.self_device_time_total for a in dev_ev
+                   if "flash_attention" in a.key) / 1e3
+    top = sorted(dev_ev, key=lambda a: -a.self_device_time_total)[:3]
+    print(f"[profile] {what}: host clock {wall_ms:.2f} ms (under the "
+          f"profiler), card busy {busy_ms:.2f} ms ({busy_ms / wall_ms:.1%};"
+          f" idle {1 - busy_ms / wall_ms:.1%}), "
+          f"{sum(a.count for a in dev_ev)} kernels; {FLASH} "
+          f"{flash_ms:.2f} ms ({flash_ms / busy_ms:.1%} of busy); top: "
+          + "; ".join(f"{a.key[:60]} {a.self_device_time_total / 1e3:.2f} ms"
+                      f" x{a.count}" for a in top))
+
+
+def phase_serve(torch, dev, counter, arch):
+    """Serve one architecture at full width: random parameters on the
+    card, then each of its SERVE_RUNS."""
+    import gc
+
+    from repro_torch.configs import preset_config
+    from repro_torch.core.slab import tree_flatten
+    from repro_torch.models.model import build_model
+
+    cfg = preset_config(arch, SERVE_PRESET)
+    model = build_model(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_flatten(params)[0])
+    print(f"[serve {arch}] preset {SERVE_PRESET}: {cfg.n_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
+          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}: "
+          f"{n_params / 1e9:.3f} B parameters ({cfg.param_dtype}) drawn on "
+          f"the card in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    with torch.no_grad():
+        for name, a, batch, prompt, gen in SERVE_RUNS:
+            if a != arch:
+                continue
+            torch.cuda.reset_peak_memory_stats(dev)
+            r = _serve_run(torch, model, params, dev, batch, prompt, gen,
+                           counter)
+            r["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            out[name] = r
+            print(f"[serve {arch}] {name}: batch {batch} x prompt {prompt}, "
+                  f"{gen} tokens greedy, warm run: prefill "
+                  f"{r['prefill_ms']:.1f} ms ({r['prefill_tokens_per_s']:.0f}"
+                  f" tokens/s), decode {r['decode_ms_per_token']:.2f} "
+                  f"ms/token ({r['tokens_per_s']:.1f} tokens/s); cold run "
+                  f"(the shape's first): prefill {r['cold_prefill_ms']:.1f} "
+                  f"ms, decode {r['cold_decode_ms_per_token']:.2f} ms/token;"
+                  f" peak memory {r['peak_gb']:.2f} GB; {FLASH} launches "
+                  f"{r['launches']} in each run's prefill (= {cfg.n_layers} "
+                  f"layers), 0 in decode; ids[0,:8] {r['ids']}, the same in "
+                  "both runs; logits finite; ok")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_reference_serve(torch, dev):
+    """The dense model at smoke width in f32 on the card against the same
+    parameters on the CPU: prefill logits, caches and 8 greedy ids."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.slab import tree_map
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+
+    worst = 0.0
+    for arch, prompt in (("qwen3-14b", 48), ("starcoder2-15b", 80)):
+        cfg = dataclasses.replace(smoke_config(arch), param_dtype="float32")
+        model = build_model(cfg)
+        params = model.init(seed=0, device="cpu")
+        tokens = torch.randint(0, cfg.vocab, (2, prompt),
+                               generator=torch.Generator().manual_seed(1))
+        cpu = generate(model, params, tokens, 8)
+        card = generate(model, tree_map(lambda t: t.to(dev), params),
+                        tokens.to(dev), 8)
+        pairs = [("prefill logits", card["prefill_logits"],
+                  cpu["prefill_logits"])]
+        pairs += [(f"cache {k}", card["cache"]["layers"]["kv"][k],
+                   cpu["cache"]["layers"]["kv"][k]) for k in ("k", "v", "pos")]
+        for what, a, b in pairs:
+            a, b = a.cpu().float(), b.float()
+            scale = max(float(b.abs().max()), 1.0)
+            err = float((a - b).abs().max())
+            check(err <= 1e-4 * scale, f"reference serve {arch} {what}: "
+                  f"max err {err} > 1e-4 x {scale}")
+            worst = max(worst, err / scale)
+        check(torch.equal(card["ids"].cpu(), cpu["ids"]),
+              f"reference serve {arch}: ids {card['ids'].tolist()} vs "
+              f"{cpu['ids'].tolist()}")
+    print(f"[reference serve] qwen3-14b (prompt 48) and starcoder2-15b "
+          f"(prompt 80 > window 64: the ring cache) smoke configs in f32, "
+          f"card vs cpu: prefill logits and caches within {worst:.2e} of "
+          f"scale (tol 1e-4), 8 greedy ids equal; ok")
+
+
 def _median_ms(torch, fn, flush):
     """Median of per-launch CUDA-event times, each launch after an L2
     flush (the round finds its operands cold: ~40 MB of other traffic
@@ -1193,23 +1481,73 @@ def phase_times(torch, dev):
             _median_ms(torch, lambda: ota_transmit_ref(gs, hs, **skw),
                        flush),
             4 * (n_s * d_s + n_s + 2 * d_s), 2 * n_s * d_s + 2 * d_s)
-        library[name] = _median_ms(
+        library[name] = ("torch.addmv", _median_ms(
             torch, lambda: torch.addmv(acc, gs.t(), hs, alpha=1.0 / n_s),
-            flush)
+            flush))
+    del gs, acc
+    # flash attention at the two models' prefill shapes, bf16: reads q,
+    # k, v and writes out once; 4 D flops for each visible (query, key)
+    # pair and head, counted for these masks, at the bf16 tensor-core
+    # rate. scaled_dot_product_attention computes the same function (the
+    # window as a boolean mask): the yardstick, never called by the port.
+    import numpy as np
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    rates = {}
+    for arch, case in FLASH_MODEL_SHAPES.items():
+        b, sq, sk, h, kh, d, causal, window = case
+        q, k, v = _flash_inputs(torch, dev, case, torch.bfloat16, 7)
+        i = np.arange(sq)
+        lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+        hi = np.minimum(sk - 1, i) if causal else np.full_like(i, sk - 1)
+        pairs = int(np.maximum(0, hi - lo + 1).sum())
+        fkw = dict(causal=causal, window=window)
+        name = f"{FLASH} {arch}"
+        rows[name] = (
+            _median_ms(torch, lambda: flash_attention(q, k, v, **fkw), flush),
+            _median_ms(torch, lambda: flash_attention_ref(q, k, v, **fkw),
+                       flush),
+            2 * (2 * q.numel() + 2 * k.numel()), b * pairs * h * 4 * d)
+        rates[name] = (BF16_FLOPS_PER_S, "bf16 flops at 989 TFLOP/s")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if window is None:
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+        else:
+            dpos = (torch.arange(sq, device=dev)[:, None]
+                    - torch.arange(sk, device=dev)[None, :])
+            mask = (dpos >= 0) & (dpos < window)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        diff = float((sdpa().transpose(1, 2).float()
+                      - flash_attention(q, k, v, **fkw).float()).abs().max())
+        library[name] = ("scaled_dot_product_attention",
+                         _median_ms(torch, sdpa, flush))
+        print(f"[times] {name}: {pairs} visible pairs a head; "
+              f"scaled_dot_product_attention differs from the kernel by "
+              f"{diff:.3e} at most")
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
     out = {}
     for name, (ms, plain_ms, nbytes, ops) in rows.items():
+        rate, what = rates.get(name, (F32_FLOPS_PER_S,
+                                      "f32 ops at 67 TFLOP/s"))
         t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-        t_ops = 1e3 * ops / F32_FLOPS_PER_S
+        t_ops = 1e3 * ops / rate
         bound = max(t_bytes, t_ops)
-        lib_ms = library.get(name)
+        lib_name, lib_ms = library.get(name, (None, None))
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                          bound_by="bytes" if t_bytes >= t_ops else
                          "operations", bytes=nbytes, library_ms=lib_ms)
         print(f"[times] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound:.5f} ms ({out[name]['bound_by']}: {nbytes} B at "
-              f"3.35 TB/s; {ops} f32 ops at 67 TFLOP/s), share of bound "
+              f"3.35 TB/s; {ops} {what}), share of bound "
               f"{bound / ms:.3f}; "
-              + (f"library (torch.addmv) {lib_ms:.4f} ms" if lib_ms else
+              + (f"library ({lib_name}) {lib_ms:.4f} ms" if lib_ms else
                  "library_ms null: no single PyTorch call computes this "
                  "function"))
     return out
@@ -1247,7 +1585,9 @@ def main() -> int:
     lib_path = build.build()
     build.load_library()
     print(f"[build] {', '.join(build.SOURCES)} -> {lib_path.name} in "
-          f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(build.NVCC_FLAGS)})")
+          f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(build.NVCC_FLAGS)}"
+          "; " + ", ".join(f"{src} {' '.join(fl) or 'no more'}"
+                           for src, fl in build.SOURCE_FLAGS.items()) + ")")
 
     from repro_torch.core.slab import make_slab_spec
     from repro_torch.models.vision import resnet_tiny
@@ -1260,6 +1600,7 @@ def main() -> int:
     err_receive = phase_kernel_receive(torch, dev, spec.total)
     err_update = max(err_update, phase_runtime_alpha(torch, dev, spec.total))
     err_stream = phase_kernel_stream(torch, dev, spec.total)
+    err_flash = phase_kernel_flash(torch, dev)
     phase_reference(torch, np)
     phase_reference_wire(torch, np)
     phase_reference_stream(torch, np)
@@ -1280,6 +1621,12 @@ def main() -> int:
     launches[f"{STREAM} {N_CLIENTS}x{D_MAIN}"] = stream_launches[STREAM]
     launches[f"{STREAM} {CHUNK_MILLION}x{D_MILLION}"] = \
         million_launches[STREAM]
+    from repro_torch.kernels.flash_attention import flash_attention
+    for arch in FLASH_MODEL_SHAPES:
+        runs = phase_serve(torch, dev, flash_attention, arch)
+        launches[f"{FLASH} {arch}"] = sum(r["launches"]
+                                          for r in runs.values())
+    phase_reference_serve(torch, dev)
     times = phase_times(torch, dev)
 
     rows = (("adaptive_update_slab", "adaptive_update.cu",
@@ -1294,6 +1641,9 @@ def main() -> int:
              "src/repro/kernels/ota_channel.py:447", err_stream),
             (f"{STREAM} {CHUNK_MILLION}x{D_MILLION}", "ota_transmit_stream.cu",
              "src/repro/kernels/ota_channel.py:447", err_stream))
+    rows += tuple((f"{FLASH} {arch}", "flash_attention.cu",
+                   "src/repro/kernels/flash_attention.py:106", err_flash)
+                  for arch in FLASH_MODEL_SHAPES)
     kernels = [dict(name=name, route="cuda",
                     source="src/repro_torch/csrc/" + source,
                     replaces=replaces, launches=launches[name],

@@ -11,17 +11,32 @@ plus the AMSGrad-OTA and Yogi-OTA extensions and the FedAvgM / FedAvg
 baselines. The whole model is updated by ONE ``adaptive_update_slab``
 launch over the resident slabs (``slab_update_slabs``). The per-leaf
 pytree optimizers of the JAX package are not ported: the port's round is
-slab-resident only.
+slab-resident only. ``apply_slab_update`` / ``_make_slab_update`` are the
+pytree-per-round API around that launch (tree in, tree out; what
+``kernels.ops.fused_server_update`` calls).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core.slab import (SlabSpec, make_slab_spec, slab_to_tree,
+                                   tree_to_slab)
 from repro_torch.kernels.adaptive_update import adaptive_update_slab
+
+PyTree = Any
+
+
+class ServerOptState(NamedTuple):
+    """The JAX package's pytree optimizer state: the round counter, the
+    first moment Delta and the alpha-power accumulator v (for amsgrad the
+    dict {"v", "vmax"}); modes that carry neither keep placeholders."""
+    step: torch.Tensor
+    delta: PyTree
+    nu: PyTree
 
 
 def _abs_pow(x: torch.Tensor, alpha) -> torch.Tensor:
@@ -149,3 +164,67 @@ def slab_update_slabs(cfg: AdaptiveConfig, g_slab: torch.Tensor,
     d_s, v_s = state_slabs
     d_n, v_n, w_n = adaptive_update_slab(g_slab, d_s, v_s, w_slab, **kw)
     return (d_n, v_n), w_n
+
+
+def pack_state_slabs(cfg: AdaptiveConfig, spec: SlabSpec,
+                     state: ServerOptState) -> Tuple[torch.Tensor, ...]:
+    """Flatten the optimizer state into f32 slabs, ``state_slab_rows``
+    order (a boundary conversion: the resident round never re-packs)."""
+    rows = state_slab_rows(cfg)
+    amsgrad = "vmax" in rows     # nu is {"v": tree, "vmax": tree} then
+    out = []
+    for name in rows:
+        if name == "delta":
+            out.append(tree_to_slab(spec, state.delta))
+        elif name == "nu":
+            out.append(tree_to_slab(spec,
+                                    state.nu["v"] if amsgrad else state.nu))
+        else:  # vmax
+            out.append(tree_to_slab(spec, state.nu["vmax"]))
+    return tuple(out)
+
+
+def unpack_state_slabs(cfg: AdaptiveConfig, spec: SlabSpec,
+                       state: ServerOptState,
+                       slabs: Tuple[torch.Tensor, ...]) -> ServerOptState:
+    """Inverse of ``pack_state_slabs``: the state pytrees (f32) and the
+    round counter bumped. Modes that carry no delta / nu keep the
+    previous placeholders."""
+    named = dict(zip(state_slab_rows(cfg), slabs))
+    delta = (slab_to_tree(spec, named["delta"], cast=False)
+             if "delta" in named else state.delta)
+    if "vmax" in named:
+        nu = {"v": slab_to_tree(spec, named["nu"], cast=False),
+              "vmax": slab_to_tree(spec, named["vmax"], cast=False)}
+    elif "nu" in named:
+        nu = slab_to_tree(spec, named["nu"], cast=False)
+    else:
+        nu = state.nu
+    return ServerOptState(state.step + 1, delta, nu)
+
+
+def apply_slab_update(cfg: AdaptiveConfig, spec: SlabSpec,
+                      g_slab: torch.Tensor, state: ServerOptState,
+                      params: PyTree, alpha=None
+                      ) -> Tuple[PyTree, ServerOptState]:
+    """Slab-engine server update on pytrees: params and state flattened
+    in, ONE fused ``adaptive_update_slab`` launch over the whole model,
+    and the results restored (params to their dtypes, state to f32).
+    ``g_slab`` is the (spec.padded,) f32 aggregated gradient."""
+    w_s = tree_to_slab(spec, params)
+    new_slabs, w_n = slab_update_slabs(
+        cfg, g_slab, pack_state_slabs(cfg, spec, state), w_s, alpha=alpha)
+    return (slab_to_tree(spec, w_n),
+            unpack_state_slabs(cfg, spec, state, new_slabs))
+
+
+def _make_slab_update(cfg: AdaptiveConfig):
+    """Tree-in / tree-out ``update(g, state, params, alpha=None)`` that
+    routes through ``apply_slab_update``."""
+
+    def update(g, state, params, alpha=None):
+        spec = make_slab_spec(params)
+        return apply_slab_update(cfg, spec, tree_to_slab(spec, g), state,
+                                 params, alpha=alpha)
+
+    return update

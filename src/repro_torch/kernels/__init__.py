@@ -1,7 +1,11 @@
 """Hand-written CUDA kernels of the port and their plain versions.
 
 adaptive_update -- fused Delta/v/w server update (one pass)
-ota_channel     -- fused fading reduction + CMS alpha-stable interference
+ota_channel     -- fused fading reduction + CMS alpha-stable interference,
+                   the quantized wire's transmit / receive pair
+flash_attention -- blocked causal / sliding-window GQA attention
+ops             -- the public wrappers (fused_server_update,
+                   fused_ota_aggregate, causal_flash_attention)
 
 Sources live in ``repro_torch/csrc``; ``build`` compiles them with nvcc
 at first use. ``ref`` holds the plain PyTorch versions.

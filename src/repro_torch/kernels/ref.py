@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels.
 
 Counterparts of ``repro.kernels.ref`` (``adaptive_update_ref``,
-``ota_channel_ref``, ``ota_transmit_ref``, ``ota_receive_ref``) and of
+``ota_channel_ref``, ``ota_transmit_ref``, ``ota_receive_ref``,
+``flash_attention_ref``) and of
 the sign-wire packing of ``repro.kernels.ota_channel`` (``sign_words``,
 ``pack_sign_slab``, ``unpack_sign_slab``). ``log_moment_stats`` lives in
 ``core.tail_index`` and is re-exported here. They are the CPU path of
@@ -16,6 +17,7 @@ runs on their int32 view (PyTorch has no shifts or sums on uint32).
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -273,3 +275,30 @@ def ota_receive_ref(payload: torch.Tensor, scales: torch.Tensor,
     if pilot_stats:
         return out, log_moment_stats(scale * xi)
     return out
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True,
+                        window: Optional[int] = None) -> torch.Tensor:
+    """Masked GQA attention over positions 0..S-1. q: (B,Sq,H,D); k, v:
+    (B,Sk,K,D) with H % K == 0. f32 scores, masked entries set to -1e30
+    (finite, as in the TPU kernel), f32 softmax and ``p @ v``; the
+    output in q's dtype."""
+    b, sq, hn, d = q.shape
+    kheads = k.shape[2]
+    g = hn // kheads
+    qg = q.reshape(b, sq, kheads, g, d).float()
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    scores = scores / math.sqrt(d)
+    qpos = torch.arange(sq, device=q.device)
+    kpos = torch.arange(k.shape[1], device=q.device)
+    dpos = qpos[:, None] - kpos[None, :]
+    ok = torch.ones_like(dpos, dtype=torch.bool)
+    if causal:
+        ok &= dpos >= 0
+    if window is not None:
+        ok &= dpos < window
+    scores = scores.masked_fill(~ok, -1e30)
+    p = torch.softmax(scores, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return o.reshape(b, sq, hn, d).to(q.dtype)

@@ -15,7 +15,9 @@ kernel's payload is held to the wire's contract (equal on >= 99.9 % of
 entries, one quantization step on the rest; scales at 1e-6, the residual
 at 1e-6 of the partial's scale where the payloads agree); its in-kernel
 rounding to one step of x/s and to zero bias. The receive kernel agrees
-to 1e-6 of the output's scale.
+to 1e-6 of the output's scale. The flash-attention kernel sums in
+another order than the plain ``einsum`` and contracts into FMAs: 2e-5 in
+f32, and 1e-2 of the output's scale in bf16 (about one bf16 ulp there).
 """
 
 import numpy as np
@@ -544,3 +546,98 @@ def test_streamed_round_reads_nothing_back(cuda):
     assert torch.equal(new.alpha_hat, state.alpha_hat)
     assert float(m.n_participants) == 0.0 and int(new.step) == 2
     assert not torch.equal(live.w, new.w)
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (B5) and the dense model it serves.
+# ---------------------------------------------------------------------------
+
+FLASH_CASES = [
+    # (B, Sq, Sk, H, K, D, causal, window): tests/test_kernels.py's, then
+    # ragged tiles, D = 128 / 256, windows across several kv tiles
+    (1, 32, 32, 2, 2, 16, True, None),
+    (2, 64, 64, 4, 2, 32, True, None),
+    (1, 100, 100, 8, 8, 64, True, 48),
+    (2, 1, 96, 4, 2, 32, False, None),
+    (1, 80, 80, 6, 3, 16, True, 16),
+    (1, 33, 65, 2, 1, 8, False, None),
+    (2, 257, 257, 8, 2, 128, True, None),
+    (1, 300, 300, 4, 1, 128, True, 100),
+    (1, 130, 130, 2, 2, 256, True, None),
+    (1, 70, 70, 4, 4, 80, False, 20),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES, ids=str)
+def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    b, sq, sk, h, kh, d, causal, window = case
+    gen = torch.Generator(device=cuda).manual_seed(sum(case[:6]))
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+               for s in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d)))
+    n0 = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - n0 == 1
+    assert got.dtype == dtype and got.shape == q.shape
+    err = float((got.float() - want.float()).abs().max())
+    tol = 2e-5 if dtype == torch.float32 else 1e-2 * float(
+        want.float().abs().max())
+    assert err <= tol, err
+
+
+def test_flash_attention_rows_without_keys_stay_finite(cuda):
+    """Non-causal with a window and Sq > Sk + window - 1: rows from
+    Sk + window - 1 on see no key. There the kernel gives a mean over the
+    kv tiles it walks, or 0 where it walks none (ROADMAP section C): finite,
+    and not held to the plain version. Every other row matches it."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ref import flash_attention_ref
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(1, 200, 2, 32, generator=gen, device=cuda)
+    k, v = (torch.randn(1, 40, 1, 32, generator=gen, device=cuda)
+            for _ in range(2))
+    got = flash_attention(q, k, v, causal=False, window=50)
+    want = flash_attention_ref(q, k, v, causal=False, window=50)
+    torch.cuda.synchronize()
+    seen = 40 + 50 - 1
+    assert bool(torch.isfinite(got).all())
+    assert float((got[:, :seen] - want[:, :seen]).abs().max()) <= 2e-5
+
+
+def test_flash_attention_wrapper_refuses_on_the_card(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    q = torch.zeros(1, 8, 4, 16, device=cuda, requires_grad=True)
+    kv = torch.zeros(1, 8, 2, 16, device=cuda)
+    with pytest.raises(ValueError, match="no backward"):
+        flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="one dtype"):
+        flash_attention(q.detach(), kv.bfloat16(), kv)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "starcoder2-15b"])
+def test_dense_model_on_the_card_matches_the_cpu(cuda, arch):
+    """Prefill on the card launches the kernel once a layer, decode never;
+    logits and greedy ids agree with the CPU's plain versions (f32)."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.slab import tree_map
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(smoke_config(arch), param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    s = 80 if cfg.window else 40
+    toks = torch.randint(0, cfg.vocab, (2, s),
+                         generator=torch.Generator().manual_seed(1))
+    cpu = generate(model, params, toks, 8)
+    params_c = tree_map(lambda t: t.to(cuda), params)
+    n0 = flash_attention.launches
+    card = generate(model, params_c, toks.to(cuda), 8)
+    assert flash_attention.launches - n0 == cfg.n_layers   # prefill only
+    _close(card["prefill_logits"].cpu(), cpu["prefill_logits"], 1e-4)
+    assert torch.equal(card["ids"].cpu(), cpu["ids"])

@@ -31,6 +31,8 @@ from repro_torch.kernels.ota_channel import (ota_receive_slab,
 assert adaptive_update_slab.launches == ota_channel_slab.launches == 0
 assert ota_transmit_slab.launches == ota_receive_slab.launches == 0
 assert ota_transmit_slab.stream_launches == 0
+from repro_torch.kernels.flash_attention import flash_attention
+assert flash_attention.launches == 0
 assert build.load_library.cache_info().currsize == 0
 print("ok", len(sys.modules))
 """
@@ -40,7 +42,12 @@ def test_module_list_covers_the_package():
     assert "repro_torch.core.fl" in MODULES
     assert "repro_torch.core.stream" in MODULES
     assert "repro_torch.kernels.build" in MODULES
-    assert len(MODULES) >= 20
+    for name in ("kernels.flash_attention", "kernels.ops", "configs",
+                 "configs.qwen3_14b", "configs.starcoder2_15b",
+                 "models.layers", "models.attention", "models.transformer",
+                 "models.model", "launch.serve"):
+        assert f"repro_torch.{name}" in MODULES
+    assert len(MODULES) >= 40
 
 
 @pytest.mark.parametrize("order", ["forward", "reverse", "kernels_first"])
