@@ -9,7 +9,12 @@ Phases, each printing its own line(s) before the last line:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
    matrix products and convolutions (the reference computes in f32);
-2. build: nvcc builds the kernels from src/repro_torch/csrc;
+2. build: nvcc builds the kernels from src/repro_torch/csrc, each source
+   by its own nvcc, all started together; then the Hopper flash-attention
+   kernel (D = 64 and 128) as compiled: the compiler's report (-Xptxas
+   -v: registers, which must be 168 for setmaxnreg's balance, spills),
+   its dynamic shared memory, and a cuobjdump -sass count that must show
+   wgmma (HGMMA) and TMA loads (UTMALDG);
 3. kernel adaptive_update_slab against its plain version at the main
    path's slab (175,104 entries): six modes, f32 and bf16 g/w,
    alpha in {1.2, 1.5, 2.0};
@@ -67,30 +72,39 @@ Phases, each printing its own line(s) before the last line:
    FLASH_CASES of tests/test_kernels.py in f32 and bf16, then the
    prefill shapes of Qwen3-14B (1 x 4096, 40 heads, 8 kv heads, D 128,
    causal) and StarCoder2-15B (1 x 6144, 48 heads, 4 kv heads, D 128,
-   causal, window 4096), every case in f32 (2e-5) and in bf16 (2^-7 |ref|
-   + 2e-5, per element); before any language model is on the card;
+   causal, window 4096), then two cases with query rows that see no key,
+   each in f32 and bf16 through the variant the wrapper picks (printed,
+   and checked against flash_variant): the Hopper kernel (bf16, D 64 or
+   128) per element at 2^-7 |ref| + 2^-8 attn(q, k, |v|) + 2e-5, the
+   scalar one at 2e-5 in f32 and 2^-7 |ref| + 2e-5 in bf16; before any
+   language model is on the card;
 16. serve qwen3-14b: full width and depth (40 layers, 14.8 B parameters,
    bf16, random from seed 0) through repro_torch.launch.serve.generate,
    greedy: (a) the serve CLI's defaults, batch 4 x prompt 64, 32 tokens;
    (b) batch 1 x prompt 4096, 8 tokens. Each shape runs cold (its
    first run), then warm (the timed run), with the same ids; the flash
-   counter is set to 0 before and read after each run: one launch per
-   layer in the prefill and none in decode; logits finite; then one
-   prefill and one decode step under torch.profiler, each printed with
-   its own host-clock time and the card's busy and idle shares;
+   counters are set to 0 before and read after each run: one launch per
+   layer in the prefill, all of the Hopper variant, and none in decode;
+   logits finite; then one prefill and one decode step under
+   torch.profiler, each printed with its own host-clock time and the
+   card's busy and idle shares;
 17. serve starcoder2-15b: full width (40 layers, 16.0 B parameters),
    batch 1 x prompt 6144 (past the 4096 window: the ring cache and the
    window mask both run), 8 tokens, the same checks;
 18. reference serve: the qwen3 and starcoder2 smoke configs in f32 on the
    card against the same parameters on the CPU (plain versions):
-   prefill logits, caches and 8 greedy ids;
+   prefill logits, caches and 8 greedy ids; the f32 path of the scalar
+   flash kernel, one launch a layer in each prefill, none of the Hopper
+   one;
 19. times: CUDA events, median of 50 launches, each after an L2 flush
    and a device sleep that covers the host's enqueue, of each kernel and
    its plain version at the main path's shapes, beside the least time
    the card needs for the bytes or the operations (and, where one
    PyTorch call computes the same function, that call: torch.addmv for
    the accumulating transmit, scaled_dot_product_attention for flash
-   attention);
+   attention: the Hopper variant at both prefill shapes in bf16, with its
+   TFLOP/s and its ratio to scaled_dot_product_attention, and the scalar
+   one at Qwen3-14B's in f32);
 then one JSON line listing the kernels, and the result line.
 
 Exits non-zero, and prints no result, without a CUDA device, without the
@@ -150,6 +164,12 @@ SERVE_RUNS = (("qwen3-14b a", "qwen3-14b", 4, 64, 32),
               ("starcoder2-15b", "starcoder2-15b", 1, 6144, 8))
 SERVE_PRESET = "full"
 FLASH = "flash_attention"
+# Query rows that see no key (a window, Sq > Sk + window - 1): each
+# variant must give them the plain version's mean of v over all keys.
+FLASH_KEYLESS = [(1, 300, 100, 4, 2, 128, False, 64),
+                 (1, 300, 100, 4, 2, 64, True, 64)]
+HOPPER_KERNEL = "flash_attention_sm90_kernel"
+HOPPER_REGS = 168       # 65,536 / 384 threads, what setmaxnreg rebalances
 SLEEP_CYCLES = 4_000_000   # ~2 ms at the H100's 1.98 GHz boost clock
 
 
@@ -179,6 +199,59 @@ def nvidia_smi() -> str:
                         "--format=csv,noheader"], capture_output=True,
                        text=True, timeout=60, check=True)
     return r.stdout.strip().splitlines()[0]
+
+
+def phase_build_report(build, lib_path):
+    """The Hopper flash-attention kernels as compiled: the compiler's
+    report (-Xptxas -v: registers, stack, spills), their dynamic shared
+    memory, and their SASS, which must hold wgmma (HGMMA) and TMA loads
+    (UTMALDG); a register count other than HOPPER_REGS would unbalance
+    setmaxnreg, so it fails here, before any launch."""
+    import re
+
+    report, fn = {}, None
+    for line in lib_path.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w]+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn and HOPPER_KERNEL in fn and ("registers" in line
+                                             or "spill" in line):
+            report.setdefault(fn, {})[
+                "regs" if "registers" in line else "spill"] = line.split(
+                    ":", 1)[-1].strip()
+    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    ops, fn = {}, None     # SASS instructions by kernel: wgmma, TMA
+    for line in sass.splitlines():   # loads, setmaxnreg, local memory
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            if HOPPER_KERNEL in fn:
+                ops[fn] = dict.fromkeys(("HGMMA", "UTMALDG", "USETMAXREG",
+                                         "LDL", "STL"), 0)
+        elif fn in ops:
+            for op in ops[fn]:
+                ops[fn][op] += f" {op}" in line
+    lib = build.load_library()
+    check(len(report) == 2 and len(ops) == 2,
+          f"{HOPPER_KERNEL}: {len(report)} compiler reports and {len(ops)} "
+          "SASS listings, want 2 each (D = 64, 128)")
+    for fn in sorted(report):
+        d = 128 if "ILi128E" in fn else 64
+        regs = int(re.search(r"Used (\d+) registers",
+                             report[fn]["regs"]).group(1))
+        check(regs == HOPPER_REGS, f"{HOPPER_KERNEL}<{d}>: {regs} registers "
+              f"at entry, want {HOPPER_REGS}")
+        count = ops[fn]
+        check(count["HGMMA"] > 0 and count["UTMALDG"] > 0,
+              f"{HOPPER_KERNEL}<{d}> SASS: {count}")
+        print(f"[build] {HOPPER_KERNEL}<D={d}>: {report[fn]['regs']}; "
+              f"{report[fn].get('spill', '')}; dynamic shared memory "
+              f"{lib.repro_flash_attention_sm90_smem(d)} B; SASS "
+              + ", ".join(f"{op} x{n}" for op, n in count.items()) + "; ok")
 
 
 def phase_kernel_update(torch, dev):
@@ -1133,61 +1206,80 @@ def _flash_inputs(torch, dev, case, dtype, seed):
             for s in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d))]
 
 
-def phase_kernel_flash(torch, dev):
-    from repro_torch.kernels.flash_attention import flash_attention
+def _flash_tier(torch, variant, want, q, k, v, causal, window):
+    """The per-element tolerance a variant's output is held to against the
+    plain version (kernels.flash_attention.flash_tolerance), and its
+    formula for the log."""
+    from repro_torch.kernels.flash_attention import flash_tolerance
     from repro_torch.kernels.ref import flash_attention_ref
 
-    # the six FLASH_CASES and the two model shapes, each in f32 and bf16
-    cases = [(c, dt) for c in FLASH_CASES + list(FLASH_MODEL_SHAPES.values())
+    if variant == "hopper":
+        ref_abs_v = flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                        causal=causal, window=window)
+        return (flash_tolerance(variant, want, ref_abs_v),
+                "2^-7 |ref| + 2^-8 attn(q, k, |v|) + 2e-5")
+    return (flash_tolerance(variant, want),
+            "2e-5" if want.dtype == torch.float32 else "2^-7 |ref| + 2e-5")
+
+
+def phase_kernel_flash(torch, dev):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_variant)
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    # the six FLASH_CASES, the two model shapes and the rows without keys,
+    # each in f32 and bf16, through the variant the wrapper picks
+    labels = ([f"FLASH_CASES[{i}]" for i in range(len(FLASH_CASES))]
+              + [f"{a} prefill shape" for a in FLASH_MODEL_SHAPES]
+              + ["rows without keys"] * len(FLASH_KEYLESS))
+    shapes = FLASH_CASES + list(FLASH_MODEL_SHAPES.values()) + FLASH_KEYLESS
+    cases = [(lab, c, dt) for lab, c in zip(labels, shapes)
              for dt in (torch.float32, torch.bfloat16)]
-    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
-    worst_share = 0.0
-    for i, (case, dtype) in enumerate(cases):
+    worst = {"hopper": (0.0, 0.0), "scalar": (0.0, 0.0)}
+    for i, (label, case, dtype) in enumerate(cases):
         causal, window = case[6:]
+        what = f"flash_attention {label} {case} {str(dtype)[6:]}"
         q, k, v = _flash_inputs(torch, dev, case, dtype, 100 + i)
+        n0 = flash_attention.hopper_launches
         got = flash_attention(q, k, v, causal=causal, window=window)
         want = flash_attention_ref(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
+        variant = "hopper" if flash_attention.hopper_launches > n0 else \
+            "scalar"
+        chosen = flash_variant(dtype, case[5], case[1],
+                               (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                got.data_ptr()))
+        check(variant == chosen, f"{what}: launched {variant}, "
+              f"flash_variant says {chosen}")
         check(got.dtype == dtype and got.shape == q.shape,
-              f"flash_attention {case} {dtype}: {got.dtype} "
-              f"{tuple(got.shape)}")
-        check(bool(torch.isfinite(got).all()),
-              f"flash_attention {case} {dtype}: not finite")
+              f"{what}: {got.dtype} {tuple(got.shape)}")
+        check(bool(torch.isfinite(got).all()), f"{what}: not finite")
         diff = (got.float() - want.float()).abs()
-        err = float(diff.max())
-        # f32: another summation order and FMAs, 2e-5 absolute. bf16: both
-        # sides round an f32 result that agrees to ~1e-6, so an element
-        # may differ by one bf16 ulp of its own value, at most 2^-7 |ref|,
-        # plus the f32 tier: per element, so that rows whose outputs are
-        # small (a long causal row averages thousands of keys) are held
-        # as tightly as the short rows with large outputs.
-        if dtype == torch.float32:
-            tol = torch.full_like(diff, 2e-5)
-        else:
-            tol = 2.0 ** -7 * want.float().abs() + 2e-5
-        share = float((diff / tol).max())
-        check(share <= 1.0, f"flash_attention {case} {dtype}: max err {err},"
-              f" {share:.3f} of the per-element tier")
-        worst[dtype] = max(worst[dtype], err)
-        worst_share = max(worst_share, share)
-        if case in FLASH_MODEL_SHAPES.values():
-            name = [n for n, c in FLASH_MODEL_SHAPES.items() if c == case][0]
-            print(f"[kernel flash_attention] {name} prefill shape {case} "
-                  f"{str(dtype)[6:]}: max_abs_err={err:.3e}, worst element "
-                  f"{share:.3f} of its tier; ok")
+        tol, tier = _flash_tier(torch, variant, want, q, k, v, causal,
+                                window)
+        err, share = float(diff.max()), float((diff / tol).max())
+        check(share <= 1.0, f"{what} ({variant}): max err {err}, "
+              f"{share:.3f} of the per-element tier {tier}")
+        worst[variant] = (max(worst[variant][0], err),
+                          max(worst[variant][1], share))
+        print(f"[kernel flash_attention] {label} {case} {str(dtype)[6:]}: "
+              f"{variant}, max_abs_err={err:.3e}, worst element "
+              f"{share:.3f} of its tier ({tier}); ok")
         del q, k, v, got, want, diff, tol
     torch.cuda.empty_cache()
-    print(f"[kernel flash_attention] {len(cases)} cases (6 FLASH_CASES and "
-          f"2 model shapes, each f32 and bf16): max_abs_err f32 "
-          f"{worst[torch.float32]:.3e} (tier 2e-5), bf16 "
-          f"{worst[torch.bfloat16]:.3e} (tier 2^-7 |ref| + 2e-5 an "
-          f"element); worst element {worst_share:.3f} of its tier; ok")
-    return max(worst.values())
+    print(f"[kernel flash_attention] {len(cases)} cases (6 FLASH_CASES, 2 "
+          f"model shapes and {len(FLASH_KEYLESS)} with rows without keys, "
+          "each f32 and bf16): "
+          + "; ".join(f"{v}: max_abs_err {e:.3e}, worst element {sh:.3f} of "
+                      "its tier" for v, (e, sh) in worst.items()) + "; ok")
+    return {v: e for v, (e, _) in worst.items()}
 
 
-def _serve_run(torch, model, params, dev, batch, prompt, gen, counter):
+def _serve_run(torch, model, params, dev, batch, prompt, gen, counter,
+               hopper):
     """One greedy serve shape through the CLI's generate: a cold run (the
-    shape's first), then the timed warm run, each with the flash counter
+    shape's first), then the timed warm run, each with the flash counters
+    (both variants', ``counter``, and the Hopper variant's, ``hopper``)
     set to 0 just before and read just after; then one more decode step
     with the counter at 0, and a prefill and a decode step under the
     profiler. Returns the warm run's numbers and the cold prefill."""
@@ -1198,13 +1290,14 @@ def _serve_run(torch, model, params, dev, batch, prompt, gen, counter):
                            generator=torch.Generator(device=dev).manual_seed(1))
     runs, counts = [], []
     for _ in ("cold", "warm"):
-        counter.launches = 0
+        counter.launches = hopper.launches = 0
         runs.append(generate(model, params, tokens, gen))
         counts.append(counter.launches)
-        check(counts[-1] == cfg.n_layers,
+        check(counts[-1] == cfg.n_layers == hopper.launches,
               f"{cfg.arch} {batch}x{prompt}: {counter.launches} flash "
-              f"launches, want {cfg.n_layers} (one a layer in the prefill, "
-              "none in decode)")
+              f"launches, {hopper.launches} of the Hopper variant, want "
+              f"{cfg.n_layers} of it (one a layer in the prefill, none in "
+              "decode)")
     cold, r = runs
     check(torch.equal(cold["ids"], r["ids"]),
           f"{cfg.arch} {batch}x{prompt}: the warm run's ids differ")
@@ -1242,7 +1335,8 @@ def _serve_run(torch, model, params, dev, batch, prompt, gen, counter):
                 cold_prefill_ms=1e3 * cold["t_prefill"],
                 cold_decode_ms_per_token=1e3 * cold["t_decode"]
                 / max(gen - 1, 1),
-                launches=counts[-1], ids=r["ids"][0, :8].tolist())
+                launches=counts[-1], hopper_launches=counts[-1],
+                ids=r["ids"][0, :8].tolist())
 
 
 def _profile(torch, what, fn):
@@ -1279,9 +1373,10 @@ def _profile(torch, what, fn):
                       f" x{a.count}" for a in top))
 
 
-def phase_serve(torch, dev, counter, arch):
+def phase_serve(torch, dev, counter, hopper, arch):
     """Serve one architecture at full width: random parameters on the
-    card, then each of its SERVE_RUNS."""
+    card, then each of its SERVE_RUNS (``counter`` counts both flash
+    variants' launches, ``hopper`` the Hopper variant's)."""
     import gc
 
     from repro_torch.configs import preset_config
@@ -1309,7 +1404,7 @@ def phase_serve(torch, dev, counter, arch):
                 continue
             torch.cuda.reset_peak_memory_stats(dev)
             r = _serve_run(torch, model, params, dev, batch, prompt, gen,
-                           counter)
+                           counter, hopper)
             r["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
             out[name] = r
             print(f"[serve {arch}] {name}: batch {batch} x prompt {prompt}, "
@@ -1321,8 +1416,9 @@ def phase_serve(torch, dev, counter, arch):
                   f"ms, decode {r['cold_decode_ms_per_token']:.2f} ms/token;"
                   f" peak memory {r['peak_gb']:.2f} GB; {FLASH} launches "
                   f"{r['launches']} in each run's prefill (= {cfg.n_layers} "
-                  f"layers), 0 in decode; ids[0,:8] {r['ids']}, the same in "
-                  "both runs; logits finite; ok")
+                  f"layers, all of the Hopper variant), 0 in decode; "
+                  f"ids[0,:8] {r['ids']}, the same in both runs; logits "
+                  "finite; ok")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -1331,15 +1427,20 @@ def phase_serve(torch, dev, counter, arch):
 
 def phase_reference_serve(torch, dev):
     """The dense model at smoke width in f32 on the card against the same
-    parameters on the CPU: prefill logits, caches and 8 greedy ids."""
+    parameters on the CPU: prefill logits, caches and 8 greedy ids. The
+    f32 serving path of the scalar flash kernel: its counters are set to 0
+    just before and read just after; returns its launches."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
     from repro_torch.core.slab import tree_map
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import generate
     from repro_torch.models.model import build_model
 
     worst = 0.0
+    layers = 0
+    flash_attention.scalar_launches = flash_attention.hopper_launches = 0
     for arch, prompt in (("qwen3-14b", 48), ("starcoder2-15b", 80)):
         cfg = dataclasses.replace(smoke_config(arch), param_dtype="float32")
         model = build_model(cfg)
@@ -1349,6 +1450,7 @@ def phase_reference_serve(torch, dev):
         cpu = generate(model, params, tokens, 8)
         card = generate(model, tree_map(lambda t: t.to(dev), params),
                         tokens.to(dev), 8)
+        layers += cfg.n_layers
         pairs = [("prefill logits", card["prefill_logits"],
                   cpu["prefill_logits"])]
         pairs += [(f"cache {k}", card["cache"]["layers"]["kv"][k],
@@ -1363,10 +1465,17 @@ def phase_reference_serve(torch, dev):
         check(torch.equal(card["ids"].cpu(), cpu["ids"]),
               f"reference serve {arch}: ids {card['ids'].tolist()} vs "
               f"{cpu['ids'].tolist()}")
+    scalar = flash_attention.scalar_launches
+    check(scalar == layers and flash_attention.hopper_launches == 0,
+          f"reference serve: {scalar} scalar and "
+          f"{flash_attention.hopper_launches} Hopper flash launches, want "
+          f"{layers} scalar (one a layer in each f32 prefill)")
     print(f"[reference serve] qwen3-14b (prompt 48) and starcoder2-15b "
           f"(prompt 80 > window 64: the ring cache) smoke configs in f32, "
           f"card vs cpu: prefill logits and caches within {worst:.2e} of "
-          f"scale (tol 1e-4), 8 greedy ids equal; ok")
+          f"scale (tol 1e-4), 8 greedy ids equal; {FLASH} launches {scalar},"
+          f" all of the scalar variant (one a layer); ok")
+    return scalar
 
 
 def _median_ms(torch, fn, flush):
@@ -1485,31 +1594,38 @@ def phase_times(torch, dev):
             torch, lambda: torch.addmv(acc, gs.t(), hs, alpha=1.0 / n_s),
             flush))
     del gs, acc
-    # flash attention at the two models' prefill shapes, bf16: reads q,
-    # k, v and writes out once; 4 D flops for each visible (query, key)
-    # pair and head, counted for these masks, at the bf16 tensor-core
-    # rate. scaled_dot_product_attention computes the same function (the
-    # window as a boolean mask): the yardstick, never called by the port.
+    # flash attention at the two models' prefill shapes, bf16 (the Hopper
+    # variant): reads q, k, v and writes out once; 4 D flops for each
+    # visible (query, key) pair and head, counted for these masks, at the
+    # bf16 tensor-core rate. Then the scalar variant at Qwen3's shape in
+    # f32 (what an f32 prefill at full width would run), at the f32 rate.
+    # scaled_dot_product_attention computes the same function (the window
+    # as a boolean mask): the yardstick, never called by the port.
     import numpy as np
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
     rates = {}
-    for arch, case in FLASH_MODEL_SHAPES.items():
+    flash_runs = [(f"{FLASH} hopper {a}", c, torch.bfloat16)
+                  for a, c in FLASH_MODEL_SHAPES.items()]
+    flash_runs.append((f"{FLASH} scalar f32 qwen3-14b",
+                       FLASH_MODEL_SHAPES["qwen3-14b"], torch.float32))
+    for name, case, dtype in flash_runs:
         b, sq, sk, h, kh, d, causal, window = case
-        q, k, v = _flash_inputs(torch, dev, case, torch.bfloat16, 7)
+        q, k, v = _flash_inputs(torch, dev, case, dtype, 7)
         i = np.arange(sq)
         lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
         hi = np.minimum(sk - 1, i) if causal else np.full_like(i, sk - 1)
         pairs = int(np.maximum(0, hi - lo + 1).sum())
         fkw = dict(causal=causal, window=window)
-        name = f"{FLASH} {arch}"
+        ops = b * pairs * h * 4 * d
         rows[name] = (
             _median_ms(torch, lambda: flash_attention(q, k, v, **fkw), flush),
             _median_ms(torch, lambda: flash_attention_ref(q, k, v, **fkw),
                        flush),
-            2 * (2 * q.numel() + 2 * k.numel()), b * pairs * h * 4 * d)
-        rates[name] = (BF16_FLOPS_PER_S, "bf16 flops at 989 TFLOP/s")
+            q.element_size() * (2 * q.numel() + 2 * k.numel()), ops)
+        if dtype == torch.bfloat16:
+            rates[name] = (BF16_FLOPS_PER_S, "bf16 flops at 989 TFLOP/s")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         if window is None:
             def sdpa():
@@ -1525,11 +1641,13 @@ def phase_times(torch, dev):
                     qt, kt, vt, attn_mask=mask, enable_gqa=True)
         diff = float((sdpa().transpose(1, 2).float()
                       - flash_attention(q, k, v, **fkw).float()).abs().max())
-        library[name] = ("scaled_dot_product_attention",
-                         _median_ms(torch, sdpa, flush))
-        print(f"[times] {name}: {pairs} visible pairs a head; "
-              f"scaled_dot_product_attention differs from the kernel by "
-              f"{diff:.3e} at most")
+        sdpa_ms = _median_ms(torch, sdpa, flush)
+        library[name] = ("scaled_dot_product_attention", sdpa_ms)
+        ms = rows[name][0]
+        print(f"[times] {name}: {pairs} visible pairs a head, "
+              f"{ops / ms / 1e9:.1f} TFLOP/s; {ms / sdpa_ms:.3f} x "
+              f"scaled_dot_product_attention's time, which differs from "
+              f"the kernel by {diff:.3e} at most")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
     out = {}
@@ -1588,6 +1706,7 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s (nvcc {' '.join(build.NVCC_FLAGS)}"
           "; " + ", ".join(f"{src} {' '.join(fl) or 'no more'}"
                            for src, fl in build.SOURCE_FLAGS.items()) + ")")
+    phase_build_report(build, lib_path)
 
     from repro_torch.core.slab import make_slab_spec
     from repro_torch.models.vision import resnet_tiny
@@ -1622,11 +1741,13 @@ def main() -> int:
     launches[f"{STREAM} {CHUNK_MILLION}x{D_MILLION}"] = \
         million_launches[STREAM]
     from repro_torch.kernels.flash_attention import flash_attention
+    hopper = Counter(flash_attention, "hopper_launches", f"{FLASH} hopper")
     for arch in FLASH_MODEL_SHAPES:
-        runs = phase_serve(torch, dev, flash_attention, arch)
-        launches[f"{FLASH} {arch}"] = sum(r["launches"]
-                                          for r in runs.values())
-    phase_reference_serve(torch, dev)
+        runs = phase_serve(torch, dev, flash_attention, hopper, arch)
+        launches[f"{FLASH} hopper {arch}"] = sum(r["hopper_launches"]
+                                                 for r in runs.values())
+    launches[f"{FLASH} scalar f32 qwen3-14b"] = phase_reference_serve(
+        torch, dev)
     times = phase_times(torch, dev)
 
     rows = (("adaptive_update_slab", "adaptive_update.cu",
@@ -1641,9 +1762,12 @@ def main() -> int:
              "src/repro/kernels/ota_channel.py:447", err_stream),
             (f"{STREAM} {CHUNK_MILLION}x{D_MILLION}", "ota_transmit_stream.cu",
              "src/repro/kernels/ota_channel.py:447", err_stream))
-    rows += tuple((f"{FLASH} {arch}", "flash_attention.cu",
-                   "src/repro/kernels/flash_attention.py:106", err_flash)
-                  for arch in FLASH_MODEL_SHAPES)
+    rows += tuple((f"{FLASH} hopper {arch}", "flash_attention_sm90.cu",
+                   "src/repro/kernels/flash_attention.py:106",
+                   err_flash["hopper"]) for arch in FLASH_MODEL_SHAPES)
+    rows += ((f"{FLASH} scalar f32 qwen3-14b", "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:106",
+              err_flash["scalar"]),)
     kernels = [dict(name=name, route="cuda",
                     source="src/repro_torch/csrc/" + source,
                     replaces=replaces, launches=launches[name],

@@ -28,22 +28,27 @@
 // in the kernel (zero-filled rows and columns), with no padded copies.
 // KV tiles that the causal or window mask hides from every row of the q
 // tile are skipped; a skipped tile would only add terms the correction
-// wipes, so no row with a visible key changes (every row on the model
-// path sees its own diagonal key). Query tiles are taken last-first, so
-// the long causal rows start first.
+// wipes, so no row with a visible key changes. Keys past Sk score -inf
+// (p = 0 always). A q tile holding rows that see no key at all (only
+// with a window, from row Sk + window - 1 on) walks every kv tile, so
+// those rows average v over all Sk keys (p = 1 each), the plain
+// version's value (a uniform softmax over -1e30 scores). Query tiles are
+// taken last-first, so the long causal rows start first.
 //
 // What bounds it on an H100: operations. At Qwen3-14B's prefill (S =
 // 4096, H = 40, K = 8, D = 128, causal) the visible pairs need 4 D
 // flops each, 171.8 GFLOP a layer: 174 us at the bf16 tensor-core rate
 // (989 TFLOP/s), against 100.7 MB of bytes, 30 us at 3.35 TB/s. At
 // StarCoder2-15B's (S = 6144, H = 48, K = 4, window 4096) it is 412.3
-// GFLOP, 417 us. This first version runs scalar f32 FMAs (no tensor
-// cores; the TPU kernel's p @ v stays f32), whose peak is 67 TFLOP/s:
-// at best 2.6 ms a layer at S = 4096. wgmma / TMA and a bf16 mma path
-// are later work (ROADMAP B7).
+// GFLOP, 417 us. This kernel runs scalar f32 FMAs (no tensor cores;
+// the TPU kernel's p @ v stays f32), whose peak is 67 TFLOP/s: at best
+// 2.6 ms a layer at S = 4096. bf16 calls with a head dimension of 64 or
+// 128 go to the wgmma / TMA kernel in flash_attention_sm90.cu instead;
+// this one takes f32 and every other head dimension.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
@@ -125,12 +130,17 @@ __global__ void __launch_bounds__(kThreads)
     qs[r * QLD + c] = x;
   }
 
-  // The kv tiles some row of this q tile can see.
+  // The kv tiles some row of this q tile can see; all of them when a row
+  // sees no key.
   const int q_last = (q0 + kBQ < Sq ? q0 + kBQ : Sq) - 1;
-  int kv_lo = 0;
-  if (window > 0 && q0 - window + 1 > 0) kv_lo = q0 - window + 1;
-  kv_lo = kv_lo / kBK * kBK;
-  const int kv_hi = causal ? (q_last + 1 < Sk ? q_last + 1 : Sk) : Sk;
+  int kv_lo = 0, kv_hi = Sk;
+  const bool keyless =
+      window > 0 && (long long)q_last >= (long long)Sk + window - 1;
+  if (!keyless) {
+    if (window > 0 && q0 - window + 1 > 0) kv_lo = q0 - window + 1;
+    kv_lo = kv_lo / kBK * kBK;
+    if (causal) kv_hi = q_last + 1 < Sk ? q_last + 1 : Sk;
+  }
 
   float m[kRows], l[kRows], acc[kRows][kOut];
 #pragma unroll
@@ -182,10 +192,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
         const int kp = t0 + tx + kLanes * c;
-        bool ok = kp < Sk;
+        bool ok = true;
         if (causal) ok = ok && qp >= kp;
         if (window > 0) ok = ok && qp - kp < window;
-        s[r][c] = ok ? s[r][c] * scale : kNegInf;
+        s[r][c] = kp >= Sk ? -INFINITY : ok ? s[r][c] * scale : kNegInf;
         mx = fmaxf(mx, s[r][c]);
       }
       const float m_new = fmaxf(m[r], group_max(mx));

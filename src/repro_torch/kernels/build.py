@@ -14,10 +14,12 @@ Flags: every source gets ``NVCC_FLAGS``, ``-O3`` with precise math (no
 softmax keep ``sinf``/``cosf``/``powf``/``expf`` at full accuracy), and
 its own flags from ``SOURCE_FLAGS``. The update and OTA kernels add
 ``--fmad=false`` (no mul+add contraction), so each computes the same f32
-operations as its plain version. The flash-attention kernel does not:
-its tier against the plain version is a tolerance (its sums run in
-another order than the plain ``einsum`` anyway), so it keeps nvcc's
-default contraction into fused multiply-adds.
+operations as its plain version. The two flash-attention kernels do
+not: their tiers against the plain version are tolerances (their sums
+run in another order than the plain ``einsum`` anyway), so they keep
+nvcc's default contraction into fused multiply-adds. The Hopper one
+(``flash_attention_sm90.cu``) takes ``cuTensorMapEncodeTiled`` from
+``libcuda.so.1`` at run time, so the link line needs no ``-lcuda``.
 """
 
 from __future__ import annotations
@@ -38,7 +40,8 @@ EXACT = ("--fmad=false",)
 # source -> its flags on top of NVCC_FLAGS
 SOURCE_FLAGS = {"adaptive_update.cu": EXACT, "ota_channel.cu": EXACT,
                 "ota_transmit.cu": EXACT, "ota_transmit_stream.cu": EXACT,
-                "ota_receive.cu": EXACT, "flash_attention.cu": ()}
+                "ota_receive.cu": EXACT, "flash_attention.cu": (),
+                "flash_attention_sm90.cu": ()}
 SOURCES = tuple(SOURCE_FLAGS)
 HEADERS = ("ota_common.cuh",)
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -130,6 +133,10 @@ def load_library() -> ctypes.CDLL:
     lib.repro_ota_receive.restype = i
     lib.repro_flash_attention.argtypes = [i] + [vp] * 4 + [i] * 8 + [f, vp]
     lib.repro_flash_attention.restype = i
+    lib.repro_flash_attention_sm90.argtypes = [vp] * 4 + [i] * 8 + [f, vp]
+    lib.repro_flash_attention_sm90.restype = i
+    lib.repro_flash_attention_sm90_smem.argtypes = [i]
+    lib.repro_flash_attention_sm90_smem.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -9,17 +9,30 @@ positions 0..S-1 with an online softmax,
 over the keys j < Sk that the causal (i >= j) and window (i - j <
 window) masks leave visible; G = H // K query heads share a kv head.
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/flash_attention.cu`` or raises. On a CPU tensor it runs the plain
-version, ``kernels.ref.flash_attention_ref``. Nothing else selects
-between the two. The kernel has no backward (the TPU kernel has none),
-so the wrapper refuses inputs that require grad.
+On a CUDA tensor the wrapper launches one of two hand-written kernels
+or raises; ``flash_variant`` picks which from dtype and shape alone,
+never on a failure:
+
+* ``"hopper"``, ``csrc/flash_attention_sm90.cu`` (TMA, a shared-memory
+  ring, ``wgmma``): bf16 with a head dimension of 64 or 128 at addresses
+  TMA takes. Its ``p @ v`` rounds p to bf16 (the TPU kernel's is f32),
+  so its tier against the plain version is ``flash_tolerance``'s.
+* ``"scalar"``, ``csrc/flash_attention.cu`` (scalar f32 FMAs): all
+  else, f32 and every other head dimension; it agrees with the plain
+  version to 2e-5 in f32.
+
+On a CPU tensor it runs the plain version,
+``kernels.ref.flash_attention_ref``. Nothing else selects among the
+three. ``flash_attention.launches`` counts the kernel launches of both
+variants, ``hopper_launches`` and ``scalar_launches`` each one's. The
+kernels have no backward (the TPU kernel has none), so the wrapper
+refuses inputs that require grad.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -28,6 +41,50 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 MAX_HEAD_DIM = 256
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
+HOPPER_HEAD_DIMS = (64, 128)
+HOPPER_MAX_SEQ_Q = 65535 * 128     # the q tiles of 128 rows on grid.y
+
+
+def flash_variant(dtype: torch.dtype, head_dim: int, seq_q: int,
+                  data_ptrs: Sequence[int]) -> str:
+    """The kernel a CUDA call of ``flash_attention`` gets: ``"hopper"``
+    for bf16 with a head dimension in ``HOPPER_HEAD_DIMS``, at most
+    ``HOPPER_MAX_SEQ_Q`` query rows and every address in ``data_ptrs``
+    (q, k, v, out) 16-byte aligned, which TMA needs; else ``"scalar"``.
+    TMA also needs global strides in multiples of 16 bytes: the wrapper
+    takes contiguous (B, S, heads, D) tensors only, whose strides at D = 64
+    or 128 in bf16 are multiples of 128 bytes."""
+    if (dtype == torch.bfloat16 and head_dim in HOPPER_HEAD_DIMS
+            and seq_q <= HOPPER_MAX_SEQ_Q
+            and all(p % 16 == 0 for p in data_ptrs)):
+        return "hopper"
+    return "scalar"
+
+
+def flash_tolerance(variant: str, ref: torch.Tensor,
+                    ref_abs_v: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """The tier a variant's output is held to against the plain version,
+    an element at a time (f32). ``ref`` is the plain version's output;
+    ``ref_abs_v``, the plain version run on |v| in f32, only for
+    ``"hopper"``.
+
+    * ``"hopper"``: ``2^-7 |ref| + 2^-8 attn(q, k, |v|) + 2e-5``. One bf16
+      step of the element's own value (both sides round an f32 result to
+      bf16); then sum_j |dp_j| |v_j| / l for p rounded to bf16 for the
+      ``wgmma`` (at most 2^-9 relative a term, so 2^-9 attn(q, k, |v|))
+      with a 2x margin; then the f32 tier.
+    * ``"scalar"``: 2e-5 in f32 (sums in another order, with FMAs); in
+      bf16 one bf16 step of the element's own value plus that."""
+    if variant == "hopper":
+        return (2.0 ** -7 * ref.float().abs() + 2.0 ** -8 * ref_abs_v.float()
+                + 2e-5)
+    if variant != "scalar":
+        raise ValueError(f"unknown variant {variant!r}; options: "
+                         '"hopper", "scalar"')
+    if ref.dtype == torch.float32:
+        return torch.full_like(ref, 2e-5)
+    return 2.0 ** -7 * ref.float().abs() + 2e-5
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -79,16 +136,26 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    variant = flash_variant(q.dtype, d, sq, ptrs)
+    # a window of at least Sq hides no key: the same as none
+    w = 0 if window is None or window >= sq else int(window)
     lib = build.load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        code = lib.repro_flash_attention(
-            _DTYPE_ID[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), b, sq, k.shape[1], h, kh, d, int(causal),
-            0 if window is None else int(window), 1.0 / math.sqrt(d), stream)
-    build.check(code, "flash_attention")
+        args = (*ptrs, b, sq, k.shape[1], h, kh, d, int(causal), w,
+                1.0 / math.sqrt(d), stream)
+        if variant == "hopper":
+            code = lib.repro_flash_attention_sm90(*args)
+        else:
+            code = lib.repro_flash_attention(_DTYPE_ID[q.dtype], *args)
+    build.check(code, f"flash_attention ({variant})")
+    counter = f"{variant}_launches"
+    setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.hopper_launches = 0
+flash_attention.scalar_launches = 0

@@ -15,9 +15,12 @@ kernel's payload is held to the wire's contract (equal on >= 99.9 % of
 entries, one quantization step on the rest; scales at 1e-6, the residual
 at 1e-6 of the partial's scale where the payloads agree); its in-kernel
 rounding to one step of x/s and to zero bias. The receive kernel agrees
-to 1e-6 of the output's scale. The flash-attention kernel sums in
-another order than the plain ``einsum`` and contracts into FMAs: 2e-5 in
-f32, and 1e-2 of the output's scale in bf16 (about one bf16 ulp there).
+to 1e-6 of the output's scale. The flash-attention kernels sum in
+another order than the plain ``einsum`` and contract into FMAs: 2e-5 in
+f32, and 1e-2 of the output's scale in bf16 (about one bf16 ulp there);
+and each variant is also held an element at a time to its
+``flash_tolerance``: the Hopper one, which rounds p to bf16 for its
+``wgmma``, to 2^-7 |ref| + 2^-8 attn(q, k, |v|) + 2e-5.
 """
 
 import numpy as np
@@ -571,41 +574,142 @@ FLASH_CASES = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", FLASH_CASES, ids=str)
 def test_flash_attention_kernel_matches_plain(cuda, case, dtype):
-    from repro_torch.kernels.flash_attention import flash_attention
+    _, got, want, tol = _flash_run(cuda, case, dtype, sum(case[:6]))
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max())
+    tol_max = 2e-5 if dtype == torch.float32 else 1e-2 * float(
+        want.float().abs().max())
+    assert err <= tol_max, err
+    assert float((diff / tol).max()) <= 1.0
+
+
+def _flash_run(cuda, case, dtype, seed):
+    """One wrapper call on the card: (variant launched, output, plain
+    version's output, its per-element tolerance), with exactly one launch
+    checked."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_tolerance)
     from repro_torch.kernels.ref import flash_attention_ref
     b, sq, sk, h, kh, d, causal, window = case
-    gen = torch.Generator(device=cuda).manual_seed(sum(case[:6]))
+    gen = torch.Generator(device=cuda).manual_seed(seed)
     q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dtype)
                for s in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d)))
-    n0 = flash_attention.launches
+    n0 = {c: getattr(flash_attention, f"{c}_launches")
+          for c in ("hopper", "scalar")}
     got = flash_attention(q, k, v, causal=causal, window=window)
     want = flash_attention_ref(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert flash_attention.launches - n0 == 1
+    ran = [c for c in n0 if getattr(flash_attention, f"{c}_launches")
+           - n0[c] == 1]
+    assert len(ran) == 1, ran
     assert got.dtype == dtype and got.shape == q.shape
-    err = float((got.float() - want.float()).abs().max())
-    tol = 2e-5 if dtype == torch.float32 else 1e-2 * float(
-        want.float().abs().max())
-    assert err <= tol, err
-
-
-def test_flash_attention_rows_without_keys_stay_finite(cuda):
-    """Non-causal with a window and Sq > Sk + window - 1: rows from
-    Sk + window - 1 on see no key. There the kernel gives a mean over the
-    kv tiles it walks, or 0 where it walks none (ROADMAP section C): finite,
-    and not held to the plain version. Every other row matches it."""
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.ref import flash_attention_ref
-    gen = torch.Generator(device=cuda).manual_seed(9)
-    q = torch.randn(1, 200, 2, 32, generator=gen, device=cuda)
-    k, v = (torch.randn(1, 40, 1, 32, generator=gen, device=cuda)
-            for _ in range(2))
-    got = flash_attention(q, k, v, causal=False, window=50)
-    want = flash_attention_ref(q, k, v, causal=False, window=50)
-    torch.cuda.synchronize()
-    seen = 40 + 50 - 1
     assert bool(torch.isfinite(got).all())
-    assert float((got[:, :seen] - want[:, :seen]).abs().max()) <= 2e-5
+    ref_abs_v = flash_attention_ref(
+        q.float(), k.float(), v.float().abs(), causal=causal,
+        window=window) if ran[0] == "hopper" else None
+    return ran[0], got, want, flash_tolerance(ran[0], want, ref_abs_v)
+
+
+@pytest.mark.parametrize("variant, dtype, d", [
+    ("scalar", torch.float32, 32), ("scalar", torch.bfloat16, 32),
+    ("scalar", torch.float32, 128), ("hopper", torch.bfloat16, 64),
+    ("hopper", torch.bfloat16, 128)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_rows_without_keys_match_plain(cuda, variant, dtype,
+                                                       d, causal):
+    """With a window and Sq > Sk + window - 1, rows from Sk + window - 1 on
+    see no key: both kernels give them the plain version's value, the mean
+    of v over all Sk keys; every row is held to the plain version."""
+    case = (1, 300, 100, 4, 2, d, causal, 64)
+    ran, got, want, tol = _flash_run(cuda, case, dtype, 9)
+    assert ran == variant
+    assert float(((got.float() - want.float()).abs() / tol).max()) <= 1.0
+    mean = want.float()[0, 100 + 64 - 1:]
+    assert float((mean - mean[:1]).abs().max()) <= 1e-6   # one value a head
+
+
+HOPPER_CASES = [
+    # (B, Sq, Sk, H, K, D, causal, window), bf16: one tile first, then Sq /
+    # Sk ragged and unequal, GQA groups 1 / 5 / 12, causal and not,
+    # windows smaller and larger than a tile, B = 2, D = 64 and 128
+    (1, 128, 128, 1, 1, 128, False, None),
+    (1, 128, 128, 1, 1, 64, False, None),
+    (1, 128, 128, 1, 1, 128, True, None),
+    (1, 200, 333, 4, 4, 128, False, None),
+    (2, 333, 200, 10, 2, 128, True, None),
+    (1, 257, 257, 12, 1, 64, True, None),
+    (2, 300, 300, 5, 1, 128, True, 50),
+    (1, 700, 700, 4, 4, 128, True, 300),
+    (1, 700, 650, 12, 1, 64, False, 300),
+    (2, 1, 96, 4, 2, 128, False, None),
+    (1, 1000, 1000, 10, 2, 128, True, 1000),
+]
+
+
+@pytest.mark.parametrize("case", HOPPER_CASES, ids=str)
+def test_flash_attention_hopper_kernel_matches_plain(cuda, case):
+    ran, got, want, tol = _flash_run(cuda, case, torch.bfloat16,
+                                     sum(case[:6]))
+    assert ran == "hopper"
+    share = float(((got.float() - want.float()).abs() / tol).max())
+    assert share <= 1.0, share
+
+
+def test_flash_attention_hopper_kernel_at_16_byte_offsets(cuda):
+    """TMA needs 16-byte aligned addresses, not the 128 bytes of the
+    swizzle: q, k and v 16 bytes past a 128-byte boundary still go to the
+    Hopper kernel and match the plain version."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_tolerance)
+    from repro_torch.kernels.ref import flash_attention_ref
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    shapes = ((1, 200, 4, 128), (1, 200, 2, 128), (1, 200, 2, 128))
+    q, k, v = (torch.empty(int(np.prod(s)) + 64, device=cuda,
+                           dtype=torch.bfloat16)[8:8 + int(np.prod(s))]
+               .view(s) for s in shapes)
+    for t in (q, k, v):
+        t.copy_(torch.randn(t.shape, generator=gen, device=cuda))
+        assert t.data_ptr() % 128 == 16
+    n0 = flash_attention.hopper_launches
+    got = flash_attention(q, k, v, causal=True)
+    want = flash_attention_ref(q, k, v, causal=True)
+    tol = flash_tolerance("hopper", want, flash_attention_ref(
+        q.float(), k.float(), v.float().abs(), causal=True))
+    torch.cuda.synchronize()
+    assert flash_attention.hopper_launches - n0 == 1
+    assert float(((got.float() - want.float()).abs() / tol).max()) <= 1.0
+
+
+def test_flash_attention_variant_counters(cuda):
+    """bf16 at D = 64 / 128 goes to the Hopper kernel; f32, D = 32 and a
+    misaligned address to the scalar one; ``launches`` is their sum."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    gen = torch.Generator(device=cuda).manual_seed(3)
+
+    def qkv(d, dtype):
+        return [torch.randn(1, 64, 2, d, generator=gen, device=cuda)
+                .to(dtype) for _ in range(3)]
+
+    calls = [(qkv(128, torch.bfloat16), "hopper"),
+             (qkv(64, torch.bfloat16), "hopper"),
+             (qkv(128, torch.float32), "scalar"),
+             (qkv(32, torch.bfloat16), "scalar"),
+             (qkv(32, torch.float32), "scalar")]
+    q, k, v = qkv(128, torch.bfloat16)
+    flat = torch.empty(q.numel() + 4, device=cuda, dtype=torch.bfloat16)
+    q8 = flat[4:].view(q.shape)       # 8 bytes past a 16-byte boundary
+    q8.copy_(q)
+    calls.append(([q8, k, v], "scalar"))
+    for (q, k, v), variant in calls:
+        before = {c: getattr(flash_attention, c) for c in (
+            "launches", "hopper_launches", "scalar_launches")}
+        flash_attention(q, k, v)
+        torch.cuda.synchronize()
+        after = {c: getattr(flash_attention, c) - n
+                 for c, n in before.items()}
+        other = "scalar" if variant == "hopper" else "hopper"
+        assert after == {"launches": 1, f"{variant}_launches": 1,
+                         f"{other}_launches": 0}, (q.dtype, q.shape[-1])
 
 
 def test_flash_attention_wrapper_refuses_on_the_card(cuda):

@@ -9,6 +9,12 @@ JAX package, on the CPU.
   kernel to: 2e-5 in f32, 3e-2 in bf16 (inputs are bf16 there, outputs
   are rounded to bf16 by both sides);
 * the wrapper refuses what the kernel does not take, on any device;
+* which kernel a CUDA call gets (``flash_variant``, a pure function of
+  dtype and shape), each variant's tier (``flash_tolerance``) on
+  hand-made values and the Hopper one's against a CPU model of its
+  arithmetic (p rounded to bf16 before ``p @ v``), and the plain version
+  on query rows that see no key against JAX's reference (the mean of v
+  over all keys);
 * ``ops.fused_server_update`` and ``ops.fused_ota_aggregate`` against
   the JAX package's, the OTA MAC fed the JAX package's own draws.
 """
@@ -28,7 +34,10 @@ from repro_torch.convert import params_from_numpy, tensor_from_numpy
 from repro_torch.core.adaptive import (AdaptiveConfig, ServerOptState,
                                        _make_slab_update)
 from repro_torch.kernels import ops
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (HOPPER_MAX_SEQ_Q,
+                                                 flash_attention,
+                                                 flash_tolerance,
+                                                 flash_variant)
 from repro_torch.kernels.ref import flash_attention_ref
 
 # (B, Sq, Sk, H, K, D, causal, window, bq, bk), as tests/test_kernels.py
@@ -124,6 +133,150 @@ def test_wrapper_refuses_other_devices():
     q = torch.zeros(1, 4, 2, 8, device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
         flash_attention(q, q, q)
+
+
+# --------------------------------------------------------------------------
+# The two kernels' dispatch, the Hopper variant's tier, rows without keys
+# --------------------------------------------------------------------------
+
+_BF, _F32 = torch.bfloat16, torch.float32
+_ALIGNED = (0x7f0000000000, 0x7f0000100000, 0x7f0000200000, 0x7f0000300000)
+# (dtype, head dim, Sq, data pointers q / k / v / out) -> variant
+VARIANT_CASES = {
+    "bf16 D128 (every dense zoo model)": (_BF, 128, 4096, _ALIGNED, "hopper"),
+    "bf16 D64": (_BF, 64, 100, _ALIGNED, "hopper"),
+    "bf16 at the q-tile limit": (_BF, 128, HOPPER_MAX_SEQ_Q, _ALIGNED,
+                                 "hopper"),
+    "bf16 past the q-tile limit": (_BF, 128, HOPPER_MAX_SEQ_Q + 1, _ALIGNED,
+                                   "scalar"),
+    "f32 D128": (_F32, 128, 4096, _ALIGNED, "scalar"),
+    "bf16 D32": (_BF, 32, 64, _ALIGNED, "scalar"),
+    "bf16 D80": (_BF, 80, 64, _ALIGNED, "scalar"),
+    "bf16 D256": (_BF, 256, 64, _ALIGNED, "scalar"),
+    "bf16 k 8-byte aligned": (_BF, 128, 64, (_ALIGNED[0], _ALIGNED[1] + 8,
+                                             *_ALIGNED[2:]), "scalar"),
+    "bf16 out 2-byte aligned": (_BF, 64, 64, (*_ALIGNED[:3],
+                                              _ALIGNED[3] + 2), "scalar"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VARIANT_CASES))
+def test_flash_variant_is_chosen_from_dtype_and_shape(name):
+    dtype, d, sq, ptrs, want = VARIANT_CASES[name]
+    assert flash_variant(dtype, d, sq, ptrs) == want
+
+
+_REF = torch.tensor([1.0, -2.0, 0.0, 0.5, 3.0])
+TOLERANCE_CASES = {
+    # variant, ref dtype, |v| attention -> 2^-7 |ref| + 2^-8 attn + 2e-5
+    "hopper": ("hopper", _BF, torch.tensor([0.5, 1.0, 0.8, 0.0, 3.0]),
+               [2 ** -7 + 2 ** -9, 2 ** -6 + 2 ** -8, 0.8 * 2 ** -8, 2 ** -8,
+                3 * 2 ** -7 + 3 * 2 ** -8]),
+    "scalar bf16": ("scalar", _BF, None,
+                    [2 ** -7, 2 ** -6, 0.0, 2 ** -8, 3 * 2 ** -7]),
+    "scalar f32": ("scalar", _F32, None, [0.0] * 5),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TOLERANCE_CASES))
+def test_flash_tolerance_on_hand_made_values(name):
+    variant, dtype, ref_abs_v, want = TOLERANCE_CASES[name]
+    got = flash_tolerance(variant, _REF.to(dtype), ref_abs_v)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, torch.tensor(want) + 2e-5, rtol=1e-7,
+                               atol=0.0)
+
+
+def test_flash_tolerance_refuses_unknown_variants():
+    with pytest.raises(ValueError, match="unknown variant"):
+        flash_tolerance("cutlass", _REF)
+
+
+def _hopper_model(q, k, v, causal, window, skip_tile=None):
+    """The Hopper kernel's arithmetic on the CPU: f32 scores and softmax,
+    p rounded to bf16 for ``p @ v`` with f32 sums, l from the f32 p, the
+    output rounded to bf16. ``skip_tile`` drops the 128 keys from that
+    index on, in both sums (a fault the tier must catch)."""
+    b, sq, hn, d = q.shape
+    kh = k.shape[2]
+    qg = q.reshape(b, sq, kh, hn // kh, d).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / d ** 0.5
+    dpos = torch.arange(sq)[:, None] - torch.arange(k.shape[1])[None, :]
+    ok = torch.ones_like(dpos, dtype=torch.bool)
+    if causal:
+        ok &= dpos >= 0
+    if window is not None:
+        ok &= dpos < window
+    s = s.masked_fill(~ok, -1e30)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    if skip_tile is not None:
+        p[..., skip_tile:skip_tile + 128] = 0.0
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.bfloat16().float(), v.float())
+    o = o / p.sum(-1).permute(0, 3, 1, 2)[..., None]
+    return o.reshape(b, sq, hn, d).bfloat16()
+
+
+def _bf16_qkv(case, seed):
+    b, sq, sk, h, kh, d = case[:6]
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .bfloat16()
+            for s in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d))]
+
+
+HOPPER_MODEL_CASES = [
+    (1, 256, 256, 2, 1, 128, True, None),
+    (1, 64, 1024, 2, 2, 64, False, None),
+    (1, 300, 300, 4, 2, 128, True, 100),
+]
+
+
+@pytest.mark.parametrize("case", HOPPER_MODEL_CASES, ids=str)
+def test_hopper_tier_holds_p_rounded_to_bf16(case):
+    """The tier covers what the Hopper kernel's arithmetic does to the
+    plain version's result, with room to spare; and it is not so loose
+    that one dropped kv tile of a long row passes."""
+    causal, window = case[6:]
+    q, k, v = _bf16_qkv(case, sum(case[:6]))
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+    ref_abs_v = flash_attention_ref(q.float(), k.float(), v.float().abs(),
+                                    causal=causal, window=window)
+    tol = flash_tolerance("hopper", ref, ref_abs_v)
+    got = _hopper_model(q, k, v, causal, window)
+    share = float(((got.float() - ref.float()).abs() / tol).max())
+    assert share <= 0.9, share
+    if window is None:   # the last 128 keys: every row keeps some key
+        dropped = _hopper_model(q, k, v, causal, window,
+                                skip_tile=case[2] - 128)
+        assert float(((dropped.float() - ref.float()).abs() / tol).max()) > 1
+
+
+KEYLESS_CASES = [
+    # (B, Sq, Sk, H, K, D, causal, window): rows from Sk + window - 1 on
+    # see no key
+    (1, 300, 100, 4, 2, 64, False, 64),
+    (1, 300, 100, 4, 2, 32, True, 64),
+    (1, 200, 40, 2, 1, 32, False, 50),
+]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", KEYLESS_CASES, ids=str)
+def test_plain_version_on_rows_without_keys_matches_jax(case, dtype):
+    causal, window = case[6:]
+    (jq, jk, jv), (q, k, v) = _qkv(case, dtype)
+    want = j_flash_ref(jq, jk, jv, causal=causal, window=window)
+    got = flash_attention_ref(q, k, v, causal=causal, window=window)
+    tol = TOL[dtype]
+    assert_close(got, want, tol, tol, "vs flash_attention_ref")
+    # those rows hold the mean of v over all Sk keys
+    first = case[2] + window - 1
+    g = case[3] // case[4]
+    mean = v.float().mean(1).repeat_interleave(g, dim=1)     # (B, H, D)
+    rows = got[:, first:].float()
+    assert rows.shape[1] == case[1] - first > 0
+    assert_close(rows, mean[:, None].expand_as(rows), tol, tol,
+                 "rows without keys")
 
 
 # --------------------------------------------------------------------------

@@ -33,6 +33,7 @@ assert ota_transmit_slab.launches == ota_receive_slab.launches == 0
 assert ota_transmit_slab.stream_launches == 0
 from repro_torch.kernels.flash_attention import flash_attention
 assert flash_attention.launches == 0
+assert flash_attention.hopper_launches == flash_attention.scalar_launches == 0
 assert build.load_library.cache_info().currsize == 0
 print("ok", len(sys.modules))
 """
