@@ -50,9 +50,17 @@ Phases, each printing its own line(s) before the last line:
    transmit of the streamed client axis, against its plain version:
    row_chunk None / 1 / 7 / N, the carry absent or random, n_total != N,
    at 50 x 175,104 and 37 x 4,097 (random rows) and at 2000 x 4096 (the
-   million-client path's own gradient rows); the f32 transmit without a
-   carry (the same kernel) too; one chunk with no carry is bitwise the
-   channel kernel's faded sum;
+   million-client path's own gradient rows, and row_chunk 64 and 1999);
+   the f32 transmit without a carry (the same kernel) too; then, with a
+   carry, 2001 x 4,100 (a last column tile of 4 columns and a ragged last
+   segment; row_chunk None and 64) and 5 x 4096 (fewer rows than
+   segments the grid would like). 37 x 4,097 runs the scalar path. Every
+   case where the rows split across blocks (S > 1) is also bitwise its
+   summation order (ota_transmit_split_model) and itself run to run;
+   each case's S is printed. The bulk-copy ring and the plain loads (G
+   off a 16-byte boundary) agree bitwise. One chunk with no carry is
+   bitwise the channel kernel's faded sum at 50 x 175,104 and at 2000 x
+   4096;
 11. reference: streamed logistic-regression rounds on the card against
    the same rounds on the CPU: serial, double-buffered, ragged, weighted;
 12. streamed equals resident: ResNet-tiny at full width, 50 clients,
@@ -67,7 +75,9 @@ Phases, each printing its own line(s) before the last line:
    package's streamed benchmark, batches made from the client index,
    1,000,000 clients in chunks of 2000, 2 rounds serial and 2
    double-buffered, with launch counts and peak memory; one more serial
-   round under set_sync_debug_mode("error");
+   round under set_sync_debug_mode("error"); one more round of the same
+   step under torch.profiler: the card time of its accumulating-transmit
+   launches, which the counter and the profiler must both count 500;
 15. kernel flash_attention against its plain version: the six
    FLASH_CASES of tests/test_kernels.py in f32 and bf16, then the
    prefill shapes of Qwen3-14B (1 x 4096, 40 heads, 8 kv heads, D 128,
@@ -104,7 +114,9 @@ Phases, each printing its own line(s) before the last line:
    the accumulating transmit, scaled_dot_product_attention for flash
    attention: the Hopper variant at both prefill shapes in bf16, with its
    TFLOP/s and its ratio to scaled_dot_product_attention, and the scalar
-   one at Qwen3-14B's in f32);
+   one at Qwen3-14B's in f32); the accumulating transmit's S, and at the
+   million-client chunk the same kernel on the same grid without a fold,
+   to show what the fold costs;
 then one JSON line listing the kernels, and the result line.
 
 Exits non-zero, and prints no result, without a CUDA device, without the
@@ -823,16 +835,28 @@ def _million_rows(torch, dev):
 
 def phase_kernel_stream(torch, dev, total):
     """The accumulating transmit (B3b; B3a through it) against its plain
-    version; one chunk with no carry against the channel kernel."""
+    version; where the rows split across blocks (S > 1), also bitwise
+    against the kernel's summation order written out in torch
+    (ota_transmit_split_model) and against itself run to run; one chunk
+    with no carry against the channel kernel."""
     from repro_torch.kernels.ota_channel import (ota_channel_slab,
-                                                 ota_transmit_slab)
+                                                 ota_transmit_slab,
+                                                 ota_transmit_split_model,
+                                                 row_split, sm_count)
     from repro_torch.kernels.ref import ota_transmit_ref
 
+    sms = sm_count(dev.index)
     gen = torch.Generator(device=dev).manual_seed(9)
-    shapes = [(N_CLIENTS, D_MAIN, D_MAIN - total), (37, 4097, 38),
-              (CHUNK_MILLION, D_MILLION, 0)]
-    worst, cases = 0.0, 0
-    for n, d, pad in shapes:
+    carry_all = (None, 1, 7, "N")
+    # (n, d, padding columns, row chunks; the carry cases' only, when
+    # the case is there for the split)
+    shapes = [(N_CLIENTS, D_MAIN, D_MAIN - total, carry_all, False),
+              (37, 4097, 38, carry_all, False),
+              (CHUNK_MILLION, D_MILLION, 0, carry_all + (64, 1999), False),
+              (2001, 4100, 0, (None, 64), True),
+              (5, D_MILLION, 0, (None,), True)]
+    worst, cases, splits, seen = 0.0, 0, 0, []
+    for n, d, pad, chunks, split_only in shapes:
         if n == CHUNK_MILLION:
             grads, h = _million_rows(torch, dev)
         else:
@@ -841,9 +865,14 @@ def phase_kernel_stream(torch, dev, total):
         acc = torch.randn(d, generator=gen, device=dev)
         if pad:
             grads[:, d - pad:], acc[d - pad:] = 0.0, 0.0
-        kws = [dict()] + [dict(n_total=n + 3, acc=a, row_chunk=rc)
-                          for rc in (None, 1, 7, n) for a in (None, acc)]
+        kws = [] if split_only else [dict()]
+        for rc in chunks:
+            rc = n if rc == "N" else rc
+            kws += [dict(n_total=n + 3, acc=a, row_chunk=rc)
+                    for a in ((acc,) if split_only else (None, acc))]
         for kw in kws:
+            n_seg = row_split(n, d, kw.get("row_chunk"),
+                              kw.get("acc") is not None, sms)
             n0 = ota_transmit_slab.stream_launches
             got = ota_transmit_slab(grads, h, **kw)
             want = ota_transmit_ref(grads, h, **kw)
@@ -854,30 +883,75 @@ def phase_kernel_stream(torch, dev, total):
             scale = float(want.abs().max())
             what = (f"ota_transmit_slab {n}x{d} carry="
                     f"{kw.get('acc') is not None} "
-                    f"row_chunk={kw.get('row_chunk')}")
+                    f"row_chunk={kw.get('row_chunk')} S={n_seg}")
             check(bool(torch.all(err <= 1e-6 * want.abs() + 1e-6 * scale)),
                   f"{what}: max err {float(err.max())} (scale {scale})")
             if pad:
                 check(bool(torch.all(got[d - pad:] == 0.0)),
                       f"{what}: padding not 0")
+            if n_seg > 1:
+                model = ota_transmit_split_model(grads, h, n_seg=n_seg,
+                                                 **kw)
+                again = ota_transmit_slab(grads, h, **kw)
+                torch.cuda.synchronize()
+                check(torch.equal(got, model), f"{what}: differs from its "
+                      f"summation order by {float((got - model).abs().max())}")
+                check(torch.equal(got, again), f"{what}: differs run to run")
+                splits += 1
             worst, cases = max(worst, float(err.max())), cases + 1
+            if kw.get("acc") is not None:
+                seen.append(f"{n}x{d} rc={kw['row_chunk']}: S={n_seg}")
+    # The kernel's two ways of reading G give the same bits: the
+    # bulk-copy ring (16-byte aligned G) and plain loads (the same rows
+    # 4 bytes off a 16-byte boundary).
+    grads, h = _million_rows(torch, dev)
+    off = torch.empty(grads.numel() + 1, device=dev)[1:].view(grads.shape)
+    off.copy_(grads)
+    acc = torch.randn(D_MILLION, generator=gen, device=dev)
+    for a in (None, acc):
+        check(torch.equal(ota_transmit_slab(grads, h, acc=a),
+                          ota_transmit_slab(off, h, acc=a)),
+              "the transmit kernel's load paths disagree")
+    del off
     # One chunk and no carry: bitwise the channel kernel's faded sum
-    # (u = 0, e = 1 synthesize no interference).
-    grads = torch.randn(N_CLIENTS, D_MAIN, generator=gen, device=dev)
-    h = 0.5 + torch.rand(N_CLIENTS, generator=gen, device=dev)
-    chan = ota_channel_slab(grads, h, torch.zeros(D_MAIN, device=dev),
-                            torch.ones(D_MAIN, device=dev), alpha=1.5,
-                            scale=0.0)
-    for kw in (dict(), dict(acc=torch.zeros(D_MAIN, device=dev))):
-        check(torch.equal(ota_transmit_slab(grads, h, **kw), chan),
-              "one-chunk stream transmit differs from the channel kernel")
+    # (u = 0, e = 1 synthesize no interference), at the streamed runs'
+    # width (the column tiles fill the card) and at the million-client
+    # chunk (they do not: the no-carry call takes one segment anyway).
+    bitwise = []
+    for n, d in ((N_CLIENTS, D_MAIN), (CHUNK_MILLION, D_MILLION)):
+        if n == CHUNK_MILLION:
+            grads, h = _million_rows(torch, dev)
+        else:
+            grads = torch.randn(n, d, generator=gen, device=dev)
+            h = 0.5 + torch.rand(n, generator=gen, device=dev)
+        chan = ota_channel_slab(grads, h, torch.zeros(d, device=dev),
+                                torch.ones(d, device=dev), alpha=1.5,
+                                scale=0.0)
+        kws = [dict(), dict(row_chunk=n)]
+        if row_split(n, d, None, True, sms) == 1:
+            kws.append(dict(acc=torch.zeros(d, device=dev)))
+        for kw in kws:
+            check(torch.equal(ota_transmit_slab(grads, h, **kw), chan),
+                  f"one-chunk stream transmit {n}x{d} {sorted(kw)} differs "
+                  f"from the channel kernel")
+        bitwise.append(f"{n}x{d} ({len(kws)} calls)")
     print(f"[kernel ota_transmit_slab stream] {cases} cases (50x{D_MAIN} and "
-          f"37x4097 random rows, {CHUNK_MILLION}x{D_MILLION} the million-"
+          f"37x4097 random rows (the scalar path), {CHUNK_MILLION}x"
+          f"{D_MILLION} the million-"
           f"client path's gradient rows; no carry and no row_chunk (the f32 "
-          f"transmit), then row_chunk None/1/7/N x carry absent/random, "
-          f"n_total = N + 3): max_abs_err={worst:.3e} (tol 1e-6 rel + 1e-6 "
-          f"of scale); padding exact; one chunk with no carry bitwise the "
-          f"channel kernel's faded sum; ok")
+          f"transmit), then row_chunk None/1/7/N (and 64, 1999 at the "
+          f"million chunk) x carry absent/random, n_total = N + 3; then "
+          f"with a carry 2001x4100 (a 4-column last tile, a ragged last "
+          f"segment) "
+          f"row_chunk None/64 and 5x{D_MILLION}, fewer rows than the grid "
+          f"would like): max_abs_err={worst:.3e} (tol 1e-6 rel + 1e-6 of "
+          f"scale); padding exact; the {splits} split cases bitwise their "
+          f"summation order (ota_transmit_split_model) and themselves run "
+          f"to run; the bulk-copy ring and plain loads bitwise equal at "
+          f"{CHUNK_MILLION}x{D_MILLION}; no carry bitwise the "
+          f"channel kernel's faded sum at {', '.join(bitwise)}; ok")
+    print(f"[kernel ota_transmit_slab stream] segments S on {sms} SMs, "
+          f"the carry cases (no carry: S = 1): " + "; ".join(seen))
     return worst
 
 
@@ -1196,6 +1270,27 @@ def phase_million(torch, dev, counters):
           f"max|dw|={dw:.3e} (tier 1e-5: the fold reassociates each chunk's "
           f"sum); one more serial round ({chunks} chunks, the finish, the "
           f"update) under sync_debug_mode='error' with no host sync; ok")
+    # one more round of the same step, on its own under torch.profiler:
+    # the card time of its transmits (they hide under the host clock)
+    from repro_torch.kernels.ota_channel import ota_transmit_slab
+    d = TorchDraws(ch, state.spec, N_MILLION, seed=2, device=dev)(rounds + 1)
+    ota_transmit_slab.stream_launches = 0
+    wall_ms, dev_ev = _profile_run(torch, lambda: step(state, d, None))
+    tx = [a for a in dev_ev if "ota_transmit_stream" in a.key]
+    tx_n = sum(a.count for a in tx)
+    check(ota_transmit_slab.stream_launches == chunks and tx_n == chunks,
+          f"million profiled round: {ota_transmit_slab.stream_launches} "
+          f"transmit launches counted, {tx_n} seen by the profiler, want "
+          f"{chunks}")
+    busy_ms = sum(a.self_device_time_total for a in dev_ev) / 1e3
+    tx_ms = sum(a.self_device_time_total for a in tx) / 1e3
+    check(tx_ms > 0, "million profiled round: no transmit card time")
+    print(f"[million] one more serial round ({chunks} chunks) under "
+          f"torch.profiler: host clock {wall_ms:.1f} ms (under the "
+          f"profiler), card busy {busy_ms:.2f} ms; the accumulating "
+          f"transmit {tx_ms:.3f} ms of card time over {tx_n} launches "
+          f"({1e3 * tx_ms / tx_n:.2f} us each, {tx_ms / busy_ms:.1%} of "
+          f"busy); ok")
     return totals
 
 
@@ -1339,11 +1434,9 @@ def _serve_run(torch, model, params, dev, batch, prompt, gen, counter,
                 ids=r["ids"][0, :8].tolist())
 
 
-def _profile(torch, what, fn):
-    """Run fn once under torch.profiler; print the host-clock time, the
-    card's kernel time (sum over CUDA events: one stream, no overlap),
-    hence the card's busy and idle shares, the kernel count and the
-    flash kernel's share. Measures; checks nothing."""
+def _profile_run(torch, fn):
+    """Run fn once under torch.profiler: its host-clock ms and the
+    profiler's CUDA events (key_averages)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1354,8 +1447,16 @@ def _profile(torch, what, fn):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    dev_ev = [a for a in prof.key_averages()
-              if a.device_type == DeviceType.CUDA]
+    return wall_ms, [a for a in prof.key_averages()
+                     if a.device_type == DeviceType.CUDA]
+
+
+def _profile(torch, what, fn):
+    """Run fn once under torch.profiler; print the host-clock time, the
+    card's kernel time (sum over CUDA events: one stream, no overlap),
+    hence the card's busy and idle shares, the kernel count and the
+    flash kernel's share. Measures; checks nothing."""
+    wall_ms, dev_ev = _profile_run(torch, fn)
     busy_ms = sum(a.self_device_time_total for a in dev_ev) / 1e3
     if busy_ms <= 0:
         print(f"[profile] {what}: host clock {wall_ms:.2f} ms; card time "
@@ -1500,6 +1601,40 @@ def _median_ms(torch, fn, flush):
     return statistics.median(s.elapsed_time(e) for s, e in times)
 
 
+def _fold_cost(torch, dev, gen, flush, gs, hs, acc, n_seg):
+    """Time a split call of the accumulating transmit beside the same
+    kernel on as many blocks and about the same bytes without a split,
+    two turns each: (n_y, d_y) has a column tile for each block of the
+    split call, each block reading a segment's rows x 2 KB; its column
+    tiles fill the card, so it takes S = 1 (no partials, no ticket, no
+    fold). The difference is what the split costs."""
+    from repro_torch.kernels.ota_channel import (TRANSMIT_TILE,
+                                                 ota_transmit_slab, row_split,
+                                                 segment_rows, sm_count)
+
+    (n, d), blocks = gs.shape, -(-gs.shape[1] // TRANSMIT_TILE) * n_seg
+    n_y, d_y = segment_rows(n, None, n_seg), blocks * TRANSMIT_TILE
+    check(row_split(n_y, d_y, None, True, sm_count(dev.index)) == 1,
+          f"the fold's yardstick {n_y}x{d_y} splits its rows")
+    gy = torch.randn(n_y, d_y, generator=gen, device=dev)
+    hy = torch.rand(n_y, generator=gen, device=dev)
+    acc_y = torch.randn(d_y, generator=gen, device=dev)
+    calls = [(f"{n}x{d}, S = {n_seg}, {4 * n * d / 1e6:.1f} MB",
+              lambda: ota_transmit_slab(gs, hs, n_total=n, acc=acc)),
+             (f"{n_y}x{d_y}, S = 1, {4 * n_y * d_y / 1e6:.1f} MB",
+              lambda: ota_transmit_slab(gy, hy, n_total=n_y, acc=acc_y))]
+    ms = [[], []]
+    for _ in range(2):
+        for (_, fn), times in zip(calls, ms):
+            times.append(_median_ms(torch, fn, flush))
+    fold, plain = (statistics.median(t) for t in ms)
+    print(f"[times] {STREAM} {n}x{d} against the same kernel without a "
+          f"fold ({blocks} blocks of {n_y} rows x 2 KB each), two turns: "
+          + "; ".join(f"{what}: " + " ".join(f"{t:.4f}" for t in times)
+                      + " ms" for (what, _), times in zip(calls, ms))
+          + f"; the split costs {fold - plain:.4f} ms")
+
+
 def phase_times(torch, dev):
     from repro_torch.kernels.adaptive_update import adaptive_update_slab
     from repro_torch.kernels.ota_channel import ota_channel_slab
@@ -1540,7 +1675,8 @@ def phase_times(torch, dev):
     # faded sum and about 8 an entry for the epilogue.
     from repro_torch.kernels.ota_channel import (ota_receive_slab,
                                                  ota_transmit_slab,
-                                                 pack_sign_slab)
+                                                 pack_sign_slab, row_split,
+                                                 sm_count)
     from repro_torch.kernels.ref import ota_receive_ref, ota_transmit_ref
     r = torch.rand(d, generator=gen, device=dev)
     ef = 0.01 * torch.randn(d, generator=gen, device=dev)
@@ -1593,6 +1729,11 @@ def phase_times(torch, dev):
         library[name] = ("torch.addmv", _median_ms(
             torch, lambda: torch.addmv(acc, gs.t(), hs, alpha=1.0 / n_s),
             flush))
+        n_seg = row_split(n_s, d_s, None, True, sm_count(dev.index))
+        print(f"[times] {name}: the rows split into S = {n_seg} segments; "
+              f"{rows[name][0] / library[name][1]:.3f} x torch.addmv's time")
+        if n_seg > 1:
+            _fold_cost(torch, dev, gen, flush, gs, hs, acc, n_seg)
     del gs, acc
     # flash attention at the two models' prefill shapes, bf16 (the Hopper
     # variant): reads q, k, v and writes out once; 4 D flops for each

@@ -213,12 +213,13 @@ def streamed_round_parts(draws: RoundDraws, channel_cfg: OTAChannelConfig,
     zeros = torch.zeros((spec.padded,), dtype=f32, device=dev)
     if n == chunk:
         # A single chunk: the resident compute feeding the transmit
-        # kernel once, with no slicing.
+        # kernel once, with no slicing and no carry (0 + x == x), so the
+        # kernel sums the rows in the channel kernel's order.
         batch = (batch_gen(draws, torch.arange(n, device=dev))
                  if batch_gen is not None else client_batches)
         grads, losses = client_fn(params, batch)
         g_stack = stack_to_slab(spec, grads)
-        acc = ota_transmit_slab(g_stack, h_eff, n_total=n_div, acc=zeros)
+        acc = ota_transmit_slab(g_stack, h_eff, n_total=n_div)
         clean = torch.sum(mask[:, None] * g_stack, dim=0)
         loss_sum = torch.sum(mask * losses)
     elif fl_cfg.double_buffer:

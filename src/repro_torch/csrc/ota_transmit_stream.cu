@@ -8,117 +8,433 @@
 //
 //   out[c] = acc[c] + sum_k (sum_{n in chunk k} h[n] * G[n, c]) / n_total
 //
-// Chunks are taken in order (rows [k*rc, (k+1)*rc)), and rows in order
-// inside a chunk; each chunk's sum is divided by n_total as it lands, as
-// the TPU kernel folds each row-chunk grid step into its output tile. A
-// null acc is a zero carry. With one chunk and no carry the result is
-// 0 + s / n_total == s / n_total, and s is summed exactly as the channel
-// kernel (ota_channel.cu) sums it, so the streamed round's faded sum is
-// bitwise the resident round's.
-//
 // What bounds it on an H100: device-memory bytes. The chunk's rows x d
 // gradient stack is read once (4 rows d bytes; 35 MB at 50 x 175,104,
 // 32.8 MB at 2000 x 4096) against 2 flops per entry.
 //
-// What the design does about it: the structure of the channel kernel.
-// Each thread owns 4 adjacent columns (16-byte loads; 1 column when d is
-// not a multiple of 4) and walks the rows itself, so the sum needs no
-// cross-thread reduction and its order is fixed; h is staged through
-// shared memory in pieces of kHChunk; the carry stays in registers from
-// the first chunk to the last and is written once. This is the simple
-// first version: at d = 4096 it runs 8 blocks, far too few to fill 132
-// SMs (PERF.md).
+// The design. A block owns a tile of kTileCols = 512 columns (128
+// threads, 4 columns a thread) and a SEGMENT of rows; the grid is
+// (column tiles) x (segments). The wrapper picks the number of segments
+// S (kernels/ota_channel.py, row_split): 1 without a carry, whenever the
+// column tiles alone give 2 blocks an SM, and when the rows come in more
+// than 64 row chunks; else enough to give the card 2 blocks an SM, at
+// most kFoldRows = 32. Segments are `seg_rows` rows each (the last one
+// ragged); with more than one row chunk, `seg_rows` is a multiple of the
+// chunk, so a segment holds whole chunks.
+//
+// Summation order (kernels/ota_channel.py, ota_transmit_split_model,
+// mirrors it operation for operation). A PIECE is the rows of one row
+// chunk inside one segment (a whole chunk, or, with one chunk, the
+// whole segment); its sum runs over its rows in row order from 0,
+// part = part + h[n] * G[n, c].
+//   S = 1: v = acc[c] (0 for a null acc), then v = v + part / n_total for
+//      each piece in order; out[c] = v. The carry is the running sum,
+//      as in the TPU kernel and the plain version.
+//   S > 1: each segment's partial P_s = 0, then P_s = P_s + part / n_total
+//      for each of its pieces in order; the fold T = 0, T = T + P_s for
+//      s = 0 .. S-1 in segment order; out[c] = acc[c] + T (0 + T for a
+//      null acc). The carry is added once, after the chunk's sum: only
+//      one rounding at the carry's magnitude. (That is why the split
+//      stops at 64 row chunks: the plain version adds each chunk onto
+//      the carry, and over hundreds of small chunks whose sums keep one
+//      sign its roundings drift from any other order by more than the
+//      1e-6 tier; 9.4 x the tier at 2000 chunks of 1 row on the
+//      million-client path's rows, in the CPU model.)
+// With --fmad=false every product and sum rounds on its own, so the
+// result is one fixed function of the inputs: it does not depend on
+// which block ends last, and it is the same from run to run. With no
+// carry (S = 1) and one row chunk it is 0 + s / n_total, s summed as the
+// channel kernel (ota_channel.cu) sums it, so the streamed round's faded
+// sum is bitwise the resident round's.
+//
+// The fold across blocks, in the same launch: each block of a tile
+// writes its P_s into an (S, d) workspace and takes a ticket from the
+// tile's counter (an acquire-release add); the block that draws the last
+// ticket copies
+// the tile's S partials into shared memory (bulk copies, one round trip
+// from L2), adds them in segment order and then the carry, writes out,
+// and puts the counter back to 0 for the next launch. No float atomics.
+// With S = 1 the block writes out itself and touches neither.
+//
+// Loads (the bulk path: d % 4 == 0 and G 16-byte aligned). One thread
+// issues a 1-D bulk asynchronous copy (cp.async.bulk, the TMA's
+// contiguous form) for each row of the tile (2 KB) into a ring of 4
+// stages of 8 rows (64 KB), each stage completing on an mbarrier; the
+// threads add from shared memory and, once every thread is done with a
+// stage, the same thread refills it. So 48-64 KB are in flight per block
+// whatever the compiler does with the loop, and h comes into shared
+// memory beside it, 1024 rows at a time. G is read once, so its L2 lines
+// come in evict-first: the stream replaces its own lines and not the
+// rest of L2 (h, the carry, other kernels' data, lines still to be
+// written back). The scalar path (d % 4 != 0 or G not 16-byte aligned)
+// reads G with plain loads, thread t on columns t, t + 128, t + 256,
+// t + 384 of the tile, in the same order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kHChunk = 1024;
-constexpr int kMaxThreads = 1024;
+constexpr int kThreads = 128;
+constexpr int kTileCols = 512;          // 4 columns a thread
+constexpr int kRowBytes = kTileCols * 4;  // a row of a tile: 2 KB
+constexpr int kStageRows = 8;
+constexpr int kStageBytes = kStageRows * kRowBytes;  // 16 KB
+// 64 KB of shared memory a block: the ring, then (S > 1) the fold's
+// buffer of kFoldRows partial rows; 3 blocks fit an SM.
+constexpr int kSmemBytes = 64 * 1024;
+constexpr int kStages = kSmemBytes / kStageBytes;
+constexpr int kFoldRows = kSmemBytes / kRowBytes;
+// h of kHRows rows at a time, staged in shared memory (the bulk path).
+constexpr int kHRows = 1024;
+static_assert(kHRows % kStageRows == 0, "h chunks end on stage ends");
+constexpr long long kWaitCycles = 20000000000LL;  // ~10 s: a lost barrier
 
-template <int VEC>
-__global__ void ota_transmit_stream_kernel(const float* __restrict__ G,
-                                           const float* __restrict__ h,
-                                           const float* __restrict__ acc,
-                                           float* __restrict__ out,
-                                           int n_rows, int64_t d,
-                                           int row_chunk, float n_total) {
-  __shared__ float h_s[kHChunk];
-  const int64_t col0 = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * VEC;
-  const bool active = col0 < d;
-  const int width = active ? (int)(d - col0 < VEC ? d - col0 : VEC) : 0;
-  float carry[VEC];
-#pragma unroll
-  for (int j = 0; j < VEC; ++j)
-    carry[j] = (acc != nullptr && j < width) ? acc[col0 + j] : 0.f;
+struct Args {
+  const float* G;
+  const float* h;
+  const float* acc;        // may be null: a zero carry
+  float* out;
+  float* partials;         // (n_seg, ld); unused when n_seg == 1
+  unsigned* counters;      // one a column tile, 0 between launches
+  int64_t ld;              // d rounded up to a multiple of 4
+  int n_rows;
+  int64_t d;
+  int row_chunk;
+  int seg_rows;
+  int n_seg;
+  float n_total;
+};
 
-  for (int c0 = 0; c0 < n_rows; c0 += row_chunk) {
-    const int c_rows = n_rows - c0 < row_chunk ? n_rows - c0 : row_chunk;
-    float part[VEC];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of the given parity to complete. A barrier that
+// never completes (a fault in this file) traps after ~10 s instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  const long long t0 = clock64();
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (!done && clock64() - t0 > kWaitCycles) __trap();
+  } while (!done);
+}
+
+// An L2 policy that marks the lines it brings in evict-first.
+__device__ __forceinline__ uint64_t evict_first_policy() {
+  uint64_t pol;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
+               : "=l"(pol));
+  return pol;
+}
+
+// One contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device memory into shared memory, completing on bar,
+// its L2 lines under the policy `pol`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar,
+                                          uint64_t pol) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".L2::cache_hint [%0], [%1], %2, [%3], %4;" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar), "l"(pol)
+      : "memory");
+}
+
+// Rows [r, r + n) of the tile (columns from `tile`) into stage s of the
+// ring.
+__device__ __forceinline__ void issue_stage(const float* tile, int64_t d,
+                                            uint32_t ring, uint32_t bars,
+                                            int s, int r, int n,
+                                            uint32_t row_bytes,
+                                            uint64_t pol) {
+  const uint32_t bar = bars + 8 * s;
+  mbar_expect_tx(bar, n * row_bytes);
+  for (int k = 0; k < n; ++k)
+    bulk_load(ring + (s * kStageRows + k) * kRowBytes,
+              tile + (int64_t)(r + k) * d, row_bytes, bar, pol);
+}
+
+// How a block reads its rows of G.
+enum Load { kScalar = 0, kBulk = 1 };
+
+template <int LOAD>
+__global__ void __launch_bounds__(kThreads)
+    ota_transmit_stream_kernel(const Args a) {
+  // the ring (kBulk), then the fold's buffer (S > 1)
+  extern __shared__ __align__(128) float ring[];
+  __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ __align__(8) uint64_t fold_bar;
+  __shared__ float h_s[LOAD == kBulk ? kHRows : 1];
+  __shared__ int last;
+
+  const int tid = threadIdx.x;
+  const int64_t tile0 = (int64_t)blockIdx.x * kTileCols;
+  const int width = (int)(a.d - tile0 < kTileCols ? a.d - tile0 : kTileCols);
+  const int seg = blockIdx.y;
+  const int row0 = seg * a.seg_rows;
+  const int row1 = a.n_rows - row0 < a.seg_rows ? a.n_rows : row0 + a.seg_rows;
+
+  // This thread's columns within the tile: 4 adjacent ones (kBulk;
+  // width is then a multiple of 4), or 4 strided by 128.
+  int off[4];
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) part[j] = 0.f;
-    for (int n0 = 0; n0 < c_rows; n0 += kHChunk) {
-      const int rows = c_rows - n0 < kHChunk ? c_rows - n0 : kHChunk;
-      __syncthreads();
-      for (int i = threadIdx.x; i < rows; i += blockDim.x)
-        h_s[i] = h[c0 + n0 + i];
-      __syncthreads();
-      if (!active) continue;
-      const float* row = G + (int64_t)(c0 + n0) * d + col0;
-      if (VEC == 4 && width == 4) {
-#pragma unroll 8
-        for (int r = 0; r < rows; ++r) {
-          const float4 gv =
-              __ldg(reinterpret_cast<const float4*>(row + (int64_t)r * d));
-          const float hv = h_s[r];
-          part[0] = part[0] + hv * gv.x;
-          part[1] = part[1] + hv * gv.y;
-          part[2] = part[2] + hv * gv.z;
-          part[3] = part[3] + hv * gv.w;
-        }
-      } else {
-        for (int r = 0; r < rows; ++r) {
-          const float hv = h_s[r];
-          for (int j = 0; j < width; ++j)
-            part[j] = part[j] + hv * __ldg(row + (int64_t)r * d + j);
-        }
+  for (int j = 0; j < 4; ++j)
+    off[j] = LOAD == kScalar ? tid + kThreads * j : 4 * tid + j;
+  const bool on = 4 * tid < width;
+
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  // S = 1: the carry is the running sum; S > 1: P_s starts at 0.
+  float segp[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    segp[j] = (a.n_seg == 1 && a.acc != nullptr && off[j] < width)
+                  ? a.acc[tile0 + off[j]]
+                  : 0.f;
+  // The end of the first piece: the first row chunk boundary after row0,
+  // or row1 when the segment ends first.
+  const int64_t first = ((int64_t)row0 / a.row_chunk + 1) * a.row_chunk;
+  int next = first < row1 ? (int)first : row1;
+
+  const uint64_t pol = evict_first_policy();  // G and the partials: read once
+  if (LOAD == kBulk) {
+    const uint32_t ring_s = smem_u32(ring);
+    const uint32_t bars = smem_u32(full);
+    const uint32_t row_bytes = (uint32_t)width * 4u;
+    const int n_st = (row1 - row0 + kStageRows - 1) / kStageRows;
+    if (tid == 0) {
+      for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      for (int i = 0; i < n_st && i < kStages; ++i) {
+        const int r = row0 + i * kStageRows;
+        issue_stage(a.G + tile0, a.d, ring_s, bars, i, r,
+                    row1 - r < kStageRows ? row1 - r : kStageRows, row_bytes,
+                    pol);
       }
     }
+    for (int k = tid; k < row1 - row0 && k < kHRows; k += kThreads)
+      h_s[k] = a.h[row0 + k];
+    __syncthreads();
+    for (int i = 0; i < n_st; ++i) {
+      const int s = i % kStages;
+      const int r = row0 + i * kStageRows;
+      const int nr = row1 - r < kStageRows ? row1 - r : kStageRows;
+      if (i > 0 && (r - row0) % kHRows == 0) {  // the next rows' h
+        for (int k = tid; k < row1 - r && k < kHRows; k += kThreads)
+          h_s[k] = a.h[r + k];
+        __syncthreads();
+      }
+      mbar_wait(bars + 8 * s, (uint32_t)(i / kStages) & 1u);
+      const float* st = ring + s * kStageRows * kTileCols + 4 * tid;
+      for (int k = 0; k < nr; ++k) {
+        const int row = r + k;
+        if (row == next) {  // a piece ends: it lands on the partial
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) carry[j] = carry[j] + part[j] / n_total;
+          for (int j = 0; j < 4; ++j) {
+            segp[j] = segp[j] + part[j] / a.n_total;
+            part[j] = 0.f;
+          }
+          next = next + a.row_chunk < row1 ? next + a.row_chunk : row1;
+        }
+        const float hv = h_s[(row - row0) % kHRows];
+        if (on) {
+          const float4 g =
+              *reinterpret_cast<const float4*>(st + k * kTileCols);
+          part[0] = part[0] + hv * g.x;
+          part[1] = part[1] + hv * g.y;
+          part[2] = part[2] + hv * g.z;
+          part[3] = part[3] + hv * g.w;
+        }
+      }
+      __syncthreads();  // every thread is done with stage s
+      if (tid == 0 && i + kStages < n_st) {
+        const int rn = r + kStages * kStageRows;
+        issue_stage(a.G + tile0, a.d, ring_s, bars, s, rn,
+                    row1 - rn < kStageRows ? row1 - rn : kStageRows,
+                    row_bytes, pol);
+      }
+    }
+  } else {
+    // Plain loads, a piece at a time.
+    for (int c0 = row0; c0 < row1;) {
+      const int c1 = next;
+      const float* g = a.G + tile0;
+#pragma unroll 4
+      for (int row = c0; row < c1; ++row) {
+        const float hv = __ldg(a.h + row);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (off[j] < width)
+            part[j] = part[j] + hv * __ldg(g + (int64_t)row * a.d + off[j]);
+      }
+      if (c1 < row1) {  // a piece ends before the segment does
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          segp[j] = segp[j] + part[j] / a.n_total;
+          part[j] = 0.f;
+        }
+        next = next + a.row_chunk < row1 ? next + a.row_chunk : row1;
+      }
+      c0 = c1;
+    }
+  }
+  if (row1 > row0) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) segp[j] = segp[j] + part[j] / a.n_total;
   }
 
-  for (int j = 0; j < width; ++j) out[col0 + j] = carry[j];
+  if (a.n_seg == 1) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (off[j] < width) a.out[tile0 + off[j]] = segp[j];
+    return;
+  }
+
+  // Publish this segment's partials; the last block of the tile folds.
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (off[j] < width) a.partials[seg * a.ld + tile0 + off[j]] = segp[j];
+  // The block's writes are ordered before thread 0's by the barrier; its
+  // acquire-release add makes them visible with the ticket, and the last
+  // ticket sees every other block's.
+  const uint32_t fbar = smem_u32(&fold_bar);
+  __syncthreads();
+  if (tid == 0) {
+    unsigned ticket;
+    asm volatile("atom.add.acq_rel.gpu.global.u32 %0, [%1], 1;"
+                 : "=r"(ticket)
+                 : "l"(reinterpret_cast<uint64_t>(a.counters + blockIdx.x))
+                 : "memory");
+    last = ticket == (unsigned)(a.n_seg - 1);
+    if (last) {
+      mbar_init(fbar, 1);
+      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+      // the partials were written through the generic proxy; the copies
+      // read them through the async one
+      asm volatile("fence.proxy.async.global;" ::: "memory");
+    }
+  }
+  __syncthreads();
+  if (!last) return;
+  // The fold: the tile's partials come from L2 into shared memory by
+  // bulk copies (a row of kFoldRows segments' partials a round: one round
+  // when S <= kFoldRows), and are added in segment order.
+  const uint32_t fold_bytes = 16u * ((width + 3) / 4);  // a partial's row
+  float t[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int s0 = 0, round = 0; s0 < a.n_seg; s0 += kFoldRows, ++round) {
+    const int ns = a.n_seg - s0 < kFoldRows ? a.n_seg - s0 : kFoldRows;
+    __syncthreads();  // the barrier is set up; the previous round is read
+    if (tid == 0) {
+      mbar_expect_tx(fbar, ns * fold_bytes);
+      for (int r = 0; r < ns; ++r)
+        bulk_load(smem_u32(ring + r * kTileCols),
+                  a.partials + (s0 + r) * a.ld + tile0, fold_bytes, fbar,
+                  pol);
+    }
+    mbar_wait(fbar, (uint32_t)round & 1u);
+    for (int r = 0; r < ns; ++r) {
+      const float* row = ring + r * kTileCols;
+      if (LOAD == kScalar) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) t[j] = t[j] + row[off[j]];
+      } else {
+        const float4 v = *reinterpret_cast<const float4*>(row + 4 * tid);
+        t[0] = t[0] + v.x;
+        t[1] = t[1] + v.y;
+        t[2] = t[2] + v.z;
+        t[3] = t[3] + v.w;
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (off[j] < width) {
+      const int64_t c = tile0 + off[j];
+      a.out[c] = (a.acc != nullptr ? a.acc[c] : 0.f) + t[j];
+    }
+  if (tid == 0) a.counters[blockIdx.x] = 0u;
+}
+
+// Dynamic shared memory of a launch: the ring (kBulk), and the fold's
+// buffer when the rows are split; the two are used one after the other.
+int smem_bytes(int load, int n_seg) {
+  return load == kBulk || n_seg > 1 ? kSmemBytes : 0;
+}
+
+template <int LOAD>
+cudaError_t launch(const Args& a, dim3 grid, cudaStream_t s) {
+  // Above the 48 KB default: allow it once a device.
+  static bool allowed[64] = {};
+  const int bytes = smem_bytes(LOAD, a.n_seg);
+  if (bytes > 0) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return e;
+    if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+    if (!allowed[dev]) {
+      e = cudaFuncSetAttribute(ota_transmit_stream_kernel<LOAD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kSmemBytes);
+      if (e != cudaSuccess) return e;
+      allowed[dev] = true;
+    }
+  }
+  ota_transmit_stream_kernel<LOAD><<<grid, kThreads, bytes, s>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// One launch; `blocks` must be ceil(d / (threads * vec)). `vec` (4 or 1)
-// selects 16-byte row loads, which need d % 4 == 0 and 16-byte aligned G.
-// `acc` may be null (a zero carry); it must not alias `out`.
-extern "C" int repro_ota_transmit_stream(int vec, const void* G,
-                                         const void* h, const void* acc,
-                                         void* out, int n_rows, long long d,
-                                         int row_chunk, float n_total,
-                                         int threads, int blocks,
+// One launch on `stream`: grid (ceil(d / 512), n_seg) of 128 threads.
+// G is read through the bulk-copy ring when d % 4 == 0 and G is 16-byte
+// aligned, else with plain 4-byte loads; both sum in the same order.
+// Segments are `seg_rows` rows (a multiple of `row_chunk` when
+// row_chunk < n_rows, so that no chunk is cut); `partials` is an
+// (n_seg, ceil(d / 4) * 4) f32 workspace and `counters` ceil(d / 512)
+// zeroed ints, both used only when n_seg > 1, and a launch leaves the
+// counters at 0. `acc` may be null (a zero carry); it must not alias
+// `out`. Launches that share `counters` must not run at the same time.
+extern "C" int repro_ota_transmit_stream(const void* G, const void* h,
+                                         const void* acc, void* out,
+                                         void* partials, void* counters,
+                                         int n_rows, long long d,
+                                         int row_chunk, int seg_rows,
+                                         int n_seg, float n_total,
                                          void* stream) {
-  if (d <= 0 || blocks <= 0) return 0;
-  if (threads <= 0 || threads > kMaxThreads || threads % 32 != 0 ||
-      row_chunk < 1 || n_rows < 0)
+  if (d <= 0) return 0;
+  if (row_chunk < 1 || n_rows < 0 || seg_rows < 0 || n_seg < 1 ||
+      n_seg > 65535 || (long long)seg_rows * n_seg < n_rows ||
+      (n_seg > 1 && (partials == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
+  Args a{static_cast<const float*>(G), static_cast<const float*>(h),
+         static_cast<const float*>(acc), static_cast<float*>(out),
+         static_cast<float*>(partials), static_cast<unsigned*>(counters),
+         (d + 3) / 4 * 4, n_rows, (int64_t)d, row_chunk, seg_rows, n_seg,
+         n_total};
+  const dim3 grid((unsigned)((d + kTileCols - 1) / kTileCols), n_seg);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* g = static_cast<const float*>(G);
-  const float* hp = static_cast<const float*>(h);
-  const float* a = static_cast<const float*>(acc);
-  float* o = static_cast<float*>(out);
-  if (vec == 4)
-    ota_transmit_stream_kernel<4><<<blocks, threads, 0, s>>>(
-        g, hp, a, o, n_rows, d, row_chunk, n_total);
-  else if (vec == 1)
-    ota_transmit_stream_kernel<1><<<blocks, threads, 0, s>>>(
-        g, hp, a, o, n_rows, d, row_chunk, n_total);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  if (d % 4 == 0 && reinterpret_cast<uintptr_t>(G) % 16 == 0)
+    return (int)launch<kBulk>(a, grid, s);
+  return (int)launch<kScalar>(a, grid, s);
 }

@@ -125,8 +125,8 @@ def load_library() -> ctypes.CDLL:
     lib.repro_ota_transmit.argtypes = ([i] + [vp] * 7
                                        + [ctypes.c_ulonglong, i, ll, f, vp])
     lib.repro_ota_transmit.restype = i
-    lib.repro_ota_transmit_stream.argtypes = ([i] + [vp] * 4
-                                              + [i, ll, i, f, i, i, vp])
+    lib.repro_ota_transmit_stream.argtypes = ([vp] * 6
+                                              + [i, ll, i, i, i, f, vp])
     lib.repro_ota_transmit_stream.restype = i
     lib.repro_ota_receive.argtypes = ([i, i] + [vp] * 6 + [i, ll, f]
                                       + [f] * 6 + [i, vp])

@@ -12,7 +12,9 @@ PyTorch counterpart of ``repro.kernels.ota_channel``:
   fresh residual;
 * ``ota_transmit_slab(quantize=False)`` — the f32 faded partial sum,
   optionally accumulated into a running (d,) carry ``acc`` over client
-  row chunks (``row_chunk``): the streamed client axis's transmitter;
+  row chunks (``row_chunk``): the streamed client axis's transmitter.
+  Its kernel splits the rows into ``row_split`` segments across blocks
+  and folds them in a fixed order (``ota_transmit_split_model``);
 * ``ota_receive_slab`` — the server's front end: dequantizes and sums R
   payload rows (the int8 container, or the packed sign words of
   ``pack_sign_slab``) and adds the CMS interference.
@@ -32,6 +34,7 @@ for the f32 (accumulating) one.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -44,8 +47,8 @@ from repro_torch.kernels.ref import (INT8_MAX, LANE, ota_channel_ref,
                                      unpack_sign_slab)
 
 __all__ = ["INT8_MAX", "LANE", "ota_channel_slab", "ota_receive_slab",
-           "ota_transmit_slab", "pack_sign_slab", "sign_words",
-           "unpack_sign_slab"]
+           "ota_transmit_slab", "ota_transmit_split_model", "pack_sign_slab",
+           "row_split", "segment_rows", "sign_words", "unpack_sign_slab"]
 
 THREADS = 128     # threads per block; each owns `vec` adjacent columns
 # The transmit and receive kernels: 128 threads a block, 4 columns a
@@ -249,9 +252,130 @@ ota_transmit_slab.launches = 0
 ota_transmit_slab.stream_launches = 0
 
 
+# The accumulating kernel (csrc/ota_transmit_stream.cu): a block owns
+# TRANSMIT_TILE columns and one segment of the rows; row_split picks the
+# number of segments so that the grid gives the card SPLIT_BLOCKS_PER_SM
+# blocks an SM, and splits no call of more than MAX_SPLIT_CHUNKS row
+# chunks (there the carry stays the running sum, as in the plain
+# version: see the kernel's header).
+TRANSMIT_TILE = 512
+SPLIT_BLOCKS_PER_SM = 2
+MAX_SPLIT_CHUNKS = 64
+MAX_SEGMENTS = 32      # the kernel folds 32 partial rows a round trip
+
+
+def _row_chunks(n_rows: int, row_chunk: Optional[int]):
+    """(rows a chunk, chunks) of a call (one chunk by default)."""
+    rc = max(1, n_rows if row_chunk is None else min(row_chunk, n_rows))
+    return rc, -(-n_rows // rc)
+
+
+def _split_units(n_rows: int, row_chunk: Optional[int]):
+    """(rows a unit, units): segments are made of whole row chunks when
+    there is more than one, else of single rows."""
+    rc, chunks = _row_chunks(n_rows, row_chunk)
+    return (rc, chunks) if chunks > 1 else (1, n_rows)
+
+
+def row_split(n_rows: int, d: int, row_chunk: Optional[int],
+              has_carry: bool, sm_count: int) -> int:
+    """The number of row segments S the accumulating kernel splits a call
+    into. 1 with no carry (the no-carry call then sums its rows in the
+    channel kernel's order), whenever the column tiles alone give 2
+    blocks an SM, and with more than MAX_SPLIT_CHUNKS row chunks; else
+    enough segments to give the card SPLIT_BLOCKS_PER_SM blocks an SM,
+    never more than the rows (or the row chunks, when there are
+    several), and normalised so that every segment of ``segment_rows``
+    rows holds at least one row."""
+    tiles = -(-d // TRANSMIT_TILE)
+    if not has_carry or n_rows < 2 or tiles >= 2 * sm_count:
+        return 1
+    if _row_chunks(n_rows, row_chunk)[1] > MAX_SPLIT_CHUNKS:
+        return 1
+    _, units = _split_units(n_rows, row_chunk)
+    want = min(MAX_SEGMENTS,
+               max(1, SPLIT_BLOCKS_PER_SM * sm_count // tiles))
+    per = -(-units // min(want, units))
+    return -(-units // per)
+
+
+def segment_rows(n_rows: int, row_chunk: Optional[int], n_seg: int) -> int:
+    """Rows a segment when a call is split into ``n_seg`` (from
+    ``row_split``): a multiple of the row chunk when there are several."""
+    unit, units = _split_units(n_rows, row_chunk)
+    return -(-units // n_seg) * unit
+
+
+def ota_transmit_split_model(grads: torch.Tensor, h: torch.Tensor, *,
+                             n_total: Optional[int] = None,
+                             acc: Optional[torch.Tensor] = None,
+                             row_chunk: Optional[int] = None,
+                             n_seg: int = 1) -> torch.Tensor:
+    """The accumulating kernel's summation order, one f32 operation at a
+    time (csrc/ota_transmit_stream.cu, its header): each piece (a row
+    chunk within a segment) summed row by row from 0 and divided by
+    n_total as it lands; with one segment onto the carry, with several
+    onto the segment's partial, the partials then added in segment order
+    and the carry last. A model for the tests and the card check, not a
+    route of the wrapper (that is ``ota_transmit_ref`` on the CPU): it
+    loops over the rows."""
+    n, d = grads.shape
+    if n_total is None:
+        n_total = n
+    f32 = torch.float32
+    rc = _row_chunks(n, row_chunk)[0]
+    seg_rows = segment_rows(n, row_chunk, n_seg)
+    zeros = torch.zeros((d,), dtype=f32, device=grads.device)
+    # a full divisor: elementwise IEEE division, as the kernel divides
+    div = torch.full((d,), float(n_total), dtype=f32, device=grads.device)
+    g, hf = grads.float(), h.float()
+    carry = zeros if acc is None else acc.float()
+    total = zeros
+    for s in range(n_seg):
+        r0, r1 = s * seg_rows, min(n, (s + 1) * seg_rows)
+        seg, part = (carry if n_seg == 1 else zeros), zeros
+        nxt = min(r1, (r0 // rc + 1) * rc)
+        for r in range(r0, r1):
+            if r == nxt:
+                seg, part = seg + part / div, zeros
+                nxt = min(r1, nxt + rc)
+            part = part + hf[r] * g[r]
+        if r1 > r0:
+            seg = seg + part / div
+        if n_seg == 1:
+            return seg
+        total = total + seg
+    return carry + total
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (a host query,
+    cached: no device sync)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# (device index, stream) -> the tile counters of the split fold: zeroed
+# once, and every launch leaves them at 0. Launches on one stream run in
+# order, so they never share a counter at the same time. A split call
+# has fewer than 2 sm_count column tiles (row_split).
+_TILE_COUNTERS = {}
+
+
+def _tile_counters(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    if key not in _TILE_COUNTERS:
+        _TILE_COUNTERS[key] = torch.zeros(2 * sm_count(dev.index),
+                                          dtype=torch.int32, device=dev)
+    return _TILE_COUNTERS[key]
+
+
 def _transmit_f32(grads, h, n, d, n_total, acc, row_chunk):
     """The f32 route of ``ota_transmit_slab``: the accumulating kernel
-    (one row chunk and a zero carry when neither is given)."""
+    (one row chunk and a zero carry when neither is given), its rows
+    split into ``row_split`` segments across blocks. The kernel reads G
+    through bulk copies when d % 4 == 0 and G is 16-byte aligned, else
+    with plain loads; both compute the same value."""
     if row_chunk is not None and row_chunk < 1:
         raise ValueError(f"row_chunk must be >= 1, got {row_chunk}")
     if acc is not None and tuple(acc.shape) != (d,):
@@ -271,17 +395,24 @@ def _transmit_f32(grads, h, n, d, n_total, acc, row_chunk):
     _check_operand("h", h, (n,), f32, dev, 4)
     if acc is not None:
         _check_operand("acc", acc, (d,), f32, dev, 4)
-    rc = n if row_chunk is None else min(row_chunk, n)
+    rc = _row_chunks(n, row_chunk)[0]
+    n_seg = row_split(n, d, row_chunk, acc is not None, sm_count(dev.index))
+    seg = segment_rows(n, row_chunk, n_seg)
     out = torch.empty((d,), dtype=f32, device=dev)
-    vec = 4 if d % 4 == 0 and grads.data_ptr() % 16 == 0 else 1
-    blocks = -(-d // (THREADS * vec))
     lib = build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        partials = counters = None
+        if n_seg > 1:
+            partials = torch.empty((n_seg, -(-d // 4) * 4), dtype=f32,
+                                   device=dev)
+            counters = _tile_counters(dev, stream)
         code = lib.repro_ota_transmit_stream(
-            vec, grads.data_ptr(), h.data_ptr(),
-            None if acc is None else acc.data_ptr(), out.data_ptr(), n, d,
-            max(rc, 1), float(n_total), THREADS, blocks, stream)
+            grads.data_ptr(), h.data_ptr(),
+            None if acc is None else acc.data_ptr(), out.data_ptr(),
+            None if partials is None else partials.data_ptr(),
+            None if counters is None else counters.data_ptr(), n, d, rc,
+            seg, n_seg, float(n_total), stream)
     build.check(code, "ota_transmit_slab")
     ota_transmit_slab.stream_launches += 1
     return out

@@ -202,12 +202,17 @@ def decode_self_attention(p: dict, cfg: AttentionConfig, x: torch.Tensor,
 def prefill_kv_cache(p: dict, cfg: AttentionConfig, x: torch.Tensor,
                      length: int) -> Tuple[torch.Tensor, dict]:
     """Run prefill self-attention over positions 0..S-1 AND build the
-    decode cache in one pass."""
+    decode cache in one pass. Without a window the cache must hold the
+    whole prompt: a prompt longer than ``length`` raises ``ValueError``
+    (the JAX package refuses it too)."""
+    s = x.shape[1]
+    if cfg.window is None and s > length:
+        raise ValueError(f"prompt of {s} tokens does not fit a cache of "
+                         f"{length} positions (no sliding window)")
     pos = _sequence_positions(x, None)
     q, k, v = _project_qkv(p, cfg, x, x, pos, pos)
     o = attend(q, k, v, None, None, cfg.causal, cfg.window)
     y = dense(p["wo"], o.reshape(*o.shape[:-2], -1))
-    s = x.shape[1]
     if cfg.window is not None and s > length:
         # Keep only the last `window` tokens, ring-aligned.
         ps = torch.arange(s - length, s, dtype=torch.int32, device=x.device)
@@ -216,8 +221,7 @@ def prefill_kv_cache(p: dict, cfg: AttentionConfig, x: torch.Tensor,
                    "pos": ps[order]}
     cache = init_kv_cache(x.shape[0], length, cfg, dtype=k.dtype,
                           device=x.device)
-    n = min(s, length)
-    cache["k"][:, :n] = k[:, :n]
-    cache["v"][:, :n] = v[:, :n]
-    cache["pos"][:n] = torch.arange(n, dtype=torch.int32, device=x.device)
+    cache["k"][:, :s] = k
+    cache["v"][:, :s] = v
+    cache["pos"][:s] = torch.arange(s, dtype=torch.int32, device=x.device)
     return y, cache

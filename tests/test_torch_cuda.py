@@ -15,7 +15,10 @@ kernel's payload is held to the wire's contract (equal on >= 99.9 % of
 entries, one quantization step on the rest; scales at 1e-6, the residual
 at 1e-6 of the partial's scale where the payloads agree); its in-kernel
 rounding to one step of x/s and to zero bias. The receive kernel agrees
-to 1e-6 of the output's scale. The flash-attention kernels sum in
+to 1e-6 of the output's scale. The accumulating transmit kernel agrees
+to 1e-6 of scale with its plain version and, where its rows split
+across blocks, bitwise with ``ota_transmit_split_model`` (the same f32
+operations in the same order). The flash-attention kernels sum in
 another order than the plain ``einsum`` and contract into FMAs: 2e-5 in
 f32, and 1e-2 of the output's scale in bf16 (about one bf16 ulp there);
 and each variant is also held an element at a time to its
@@ -38,7 +41,9 @@ from repro_torch.kernels.adaptive_update import MODES, adaptive_update_slab
 from repro_torch.kernels.ota_channel import (ota_channel_slab,
                                              ota_receive_slab,
                                              ota_transmit_slab,
-                                             pack_sign_slab)
+                                             ota_transmit_split_model,
+                                             pack_sign_slab, row_split,
+                                             sm_count)
 from repro_torch.kernels.ref import (adaptive_update_ref, ota_channel_ref,
                                      ota_receive_ref, ota_transmit_ref)
 from repro_torch.models.vision import logistic_regression
@@ -431,17 +436,89 @@ def test_stream_transmit_kernel_matches_plain(cuda, shape, row_chunk,
 
 
 def test_stream_transmit_one_chunk_is_the_channel_kernels_sum(cuda):
-    """One chunk and a zero carry give the channel kernel's faded sum
+    """One chunk and no carry give the channel kernel's faded sum
     bitwise (u = 0, e = 1 synthesize no interference): the property the
-    streamed round's chunk >= N parity rests on. Also B3a's case."""
+    streamed round's chunk >= N parity rests on (it passes no carry).
+    Also B3a's case. A zero carry splits the rows at this width, and is
+    then bitwise its own summation order instead."""
     gen = torch.Generator(device=cuda).manual_seed(8)
     grads = torch.randn(50, 4096, generator=gen, device=cuda)
     h = 0.5 + torch.rand(50, generator=gen, device=cuda)
     u, e = torch.zeros(4096, device=cuda), torch.ones(4096, device=cuda)
     chan = ota_channel_slab(grads, h, u, e, alpha=1.5, scale=0.0)
-    for kw in (dict(), dict(acc=torch.zeros(4096, device=cuda)),
-               dict(row_chunk=50)):
+    for kw in (dict(), dict(row_chunk=50)):
         assert torch.equal(ota_transmit_slab(grads, h, **kw), chan)
+    zeros = torch.zeros(4096, device=cuda)
+    n_seg = row_split(50, 4096, None, True, sm_count(cuda.index or 0))
+    assert n_seg > 1
+    assert torch.equal(ota_transmit_slab(grads, h, acc=zeros),
+                       ota_transmit_split_model(grads, h, acc=zeros,
+                                                n_seg=n_seg))
+
+
+def test_stream_transmit_no_carry_at_the_million_chunk_is_the_channel_sum(
+        cuda):
+    """2000 x 4096 (8 column tiles): without a carry the rows do not
+    split, so the sum is the channel kernel's, bitwise."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    grads = torch.randn(2000, 4096, generator=gen, device=cuda)
+    h = 0.5 + torch.rand(2000, generator=gen, device=cuda)
+    u, e = torch.zeros(4096, device=cuda), torch.ones(4096, device=cuda)
+    chan = ota_channel_slab(grads, h, u, e, alpha=1.5, scale=0.0)
+    for kw in (dict(), dict(row_chunk=2000), dict(n_total=2003)):
+        want = (chan if "n_total" not in kw else
+                ota_channel_slab(grads, h, u, e, alpha=1.5, scale=0.0,
+                                 n_total=2003))
+        assert torch.equal(ota_transmit_slab(grads, h, **kw), want)
+
+
+@pytest.mark.parametrize("n, d, rc", [(2000, 4096, None), (2000, 4096, 64),
+                                      (2000, 4096, 1999), (2000, 4096, 2000),
+                                      (2001, 4100, None), (2001, 4100, 64),
+                                      (5, 4096, None), (37, 4097, 3)])
+def test_stream_transmit_split_matches_plain_and_its_order(cuda, n, d, rc):
+    """Rows split across blocks (a carry at fewer column tiles than 2 an
+    SM): within the tier of the plain version, bitwise the summation
+    order the kernel's header states (``ota_transmit_split_model``), the
+    same run to run, one launch, and the tile counters back at 0. Row
+    chunks of 7 or 1 at 2000 rows do not split (over 64 chunks): the
+    existing cases above hold them."""
+    from repro_torch.kernels.ota_channel import _TILE_COUNTERS
+    gen = torch.Generator(device=cuda).manual_seed(n + d + (rc or 0))
+    grads = torch.randn(n, d, generator=gen, device=cuda)
+    h = 0.5 + torch.rand(n, generator=gen, device=cuda)
+    acc = torch.randn(d, generator=gen, device=cuda)
+    n_seg = row_split(n, d, rc, True, sm_count(cuda.index or 0))
+    assert n_seg > 1
+    kw = dict(n_total=n + 3, acc=acc, row_chunk=rc)
+    n0 = ota_transmit_slab.stream_launches
+    got = ota_transmit_slab(grads, h, **kw)
+    torch.cuda.synchronize()
+    assert ota_transmit_slab.stream_launches - n0 == 1
+    _close(got, ota_transmit_ref(grads, h, **kw))
+    assert torch.equal(got, ota_transmit_split_model(grads, h, n_seg=n_seg,
+                                                     **kw))
+    assert torch.equal(got, ota_transmit_slab(grads, h, **kw))
+    torch.cuda.synchronize()
+    assert all(int(c.abs().sum()) == 0 for c in _TILE_COUNTERS.values())
+
+
+@pytest.mark.parametrize("n, d", [(50, 4096), (2000, 4096), (50, 175104)])
+def test_stream_transmit_load_paths_agree(cuda, n, d):
+    """The kernel's two ways of reading G compute the same value,
+    bitwise: the bulk-copy ring (16-byte aligned G) and plain 4-byte
+    loads (the same rows 4 bytes off a 16-byte boundary)."""
+    gen = torch.Generator(device=cuda).manual_seed(n + 1)
+    grads = torch.randn(n, d, generator=gen, device=cuda)
+    flat = torch.empty(n * d + 1, device=cuda)
+    off = flat[1:].view(n, d)
+    off.copy_(grads)
+    assert grads.data_ptr() % 16 == 0 and off.data_ptr() % 16 == 4
+    h = 0.5 + torch.rand(n, generator=gen, device=cuda)
+    for acc in (None, torch.randn(d, generator=gen, device=cuda)):
+        kw = dict(n_total=n + 3, acc=acc)
+        assert torch.equal(ota_transmit_slab(grads, h, **kw),
+                           ota_transmit_slab(off, h, **kw))
 
 
 def _stream_model_inputs(cuda, n, d=16, c=4, b=6, seed=1):

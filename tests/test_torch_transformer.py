@@ -296,6 +296,38 @@ def test_prefill_and_greedy_decode_match_jax(arch, dtype):
                       f"decoded cache {key}")
 
 
+def test_prefill_longer_than_a_windowless_cache_is_refused():
+    """A prompt of 8 into a cache of 4 with no window: the JAX package's
+    dynamic_update_slice refuses the larger update (TypeError); the port
+    raises ValueError and never keeps the first 4 keys silently."""
+    jm, tm, jp, tp = _models("qwen3-14b", "float32")
+    assert tm.config.window is None
+    toks = np.random.default_rng(3).integers(0, tm.config.vocab, (1, 8))
+    with pytest.raises(TypeError):
+        jm.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)}, length=4)
+    with pytest.raises(ValueError, match="8 tokens .* 4 positions"):
+        tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, length=4)
+
+
+def test_windowed_prefill_into_a_short_cache_builds_the_ring():
+    """With a window the same call keeps the last 4 positions, ring-
+    aligned (slot = pos % 4), as the JAX package does."""
+    jm, tm, jp, tp = _models("starcoder2-15b", "float32")
+    assert tm.config.window is not None
+    toks = np.random.default_rng(3).integers(0, tm.config.vocab, (1, 8))
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                        length=4)
+    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)}, length=4)
+    _scaled_close(tl, jl, 1e-4, "prefill logits")
+    for key in ("k", "v"):
+        _scaled_close(tc["layers"]["kv"][key], jc["layers"]["kv"][key], 1e-4,
+                      f"prefill cache {key}")
+    pos = tc["layers"]["kv"]["pos"][0]
+    np.testing.assert_array_equal(to_np(tc["layers"]["kv"]["pos"]),
+                                  np.asarray(jc["layers"]["kv"]["pos"]))
+    assert pos.tolist() == [4, 5, 6, 7]
+
+
 @pytest.mark.parametrize("arch", DENSE)
 def test_forward_matches_jax(arch):
     jm, tm, jp, tp = _models(arch, "float32")
