@@ -10,16 +10,24 @@ Phases, each printing its own line(s) before the last line:
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
    matrix products and convolutions (the reference computes in f32);
 2. build: nvcc builds the kernels from src/repro_torch/csrc, each source
-   by its own nvcc, all started together; then the Hopper flash-attention
-   kernel (D = 64 and 128) as compiled: the compiler's report (-Xptxas
-   -v: registers, which must be 168 for setmaxnreg's balance, spills),
-   its dynamic shared memory, and a cuobjdump -sass count that must show
-   wgmma (HGMMA) and TMA loads (UTMALDG);
-3. kernel adaptive_update_slab against its plain version at the main
-   path's slab (175,104 entries): six modes, f32 and bf16 g/w,
-   alpha in {1.2, 1.5, 2.0};
+   by its own nvcc, all started together; the update (B1), channel (B2)
+   and accumulating transmit (B3b) kernels as compiled: registers,
+   shared memory and spills from the compiler's report (-Xptxas -v),
+   which must show no spill; then the Hopper flash-attention kernel
+   (D = 64 and 128): the same report (registers, which must be 168 for
+   setmaxnreg's balance, spills), its dynamic shared memory, and a
+   cuobjdump -sass count that must show wgmma (HGMMA) and TMA loads
+   (UTMALDG);
+3. kernel adaptive_update_slab against its plain version: six modes,
+   f32 and bf16 g/w, alpha in {1.2, 1.5, 2.0}, at the main path's slab
+   (175,104 entries), at the same slab 3 elements off 16-byte alignment,
+   and at the million-client stream's (4096);
 4. kernel ota_channel_slab against its plain version at 50 x 175,104,
-   pilot statistics on and off, alpha in {1.2, 1.5, 2.0};
+   alpha in {1.2, 1.5, 2.0}, then at alpha 1.5 at 1 x 175,104 and
+   1 x 4096 (the streamed finishes), 2000 x 4096 (h in two chunks) and
+   37 x 4097 (d % 4 != 0: plain loads), each with pilot statistics on
+   and off (count exact, padding exactly 0); the bulk-copy ring and the
+   plain loads bitwise equal;
 5. kernel ota_transmit_slab against its plain version at 50 x 175,104
    (the last 38 columns zero, as the slab's padding): int8 with host
    stochastic rounding and round-to-nearest, sign and folded sign, each
@@ -28,10 +36,11 @@ Phases, each printing its own line(s) before the last line:
 6. kernel ota_receive_slab against its plain version: R in {1, 3}, the
    int8 container and the fold / planes sign words, alpha in
    {1.2, 1.5, 2.0}, pilot statistics on and off;
-7. runtime alpha: adaptive_update_slab with alpha a device tensor against
-   its plain version, and the server half of a tracked round (the MAC
-   with statistics, the EMA, the update) under
-   torch.cuda.set_sync_debug_mode("error"): no read back to the host;
+7. runtime alpha: adaptive_update_slab with alpha a device tensor,
+   launched under torch.cuda.set_sync_debug_mode("error"), against its
+   plain version, and the server half of a tracked round (the MAC with
+   statistics, the EMA, the update) under the same mode: no read back
+   to the host;
 8. reference: small inputs through the round on the card and on the CPU
    (plain versions), same draws: logistic regression and a small
    ResNet-tiny agree within their tiers; then quantized rounds (int8 +
@@ -59,8 +68,8 @@ Phases, each printing its own line(s) before the last line:
    summation order (ota_transmit_split_model) and itself run to run;
    each case's S is printed. The bulk-copy ring and the plain loads (G
    off a 16-byte boundary) agree bitwise. One chunk with no carry is
-   bitwise the channel kernel's faded sum at 50 x 175,104 and at 2000 x
-   4096;
+   bitwise the channel kernel's faded sum (scale 0) at 50 x 175,104,
+   2000 x 4096 and 1 x 4096;
 11. reference: streamed logistic-regression rounds on the card against
    the same rounds on the CPU: serial, double-buffered, ragged, weighted;
 12. streamed equals resident: ResNet-tiny at full width, 50 clients,
@@ -106,10 +115,14 @@ Phases, each printing its own line(s) before the last line:
    prefill logits, caches and 8 greedy ids; the f32 path of the scalar
    flash kernel, one launch a layer in each prefill, none of the Hopper
    one;
-19. times: CUDA events, median of 50 launches, each after an L2 flush
+19. times: the launch floor (a near-empty launch, timed as the kernels
+   are); then CUDA events, median of 50 launches, each after an L2 flush
    and a device sleep that covers the host's enqueue, of each kernel and
-   its plain version at the main path's shapes, beside the least time
-   the card needs for the bytes or the operations (and, where one
+   its plain version at the main path's shapes (B1 also at d = 4096; B2
+   at 50 x 175,104 in turns with B3b's no-carry call, with pilot
+   statistics, and at the streamed finishes 1 x 175,104 and 1 x 4096),
+   beside the least time the card needs for the bytes or the operations
+   and the launch floor (and, where one
    PyTorch call computes the same function, that call: torch.addmv for
    the accumulating transmit, scaled_dot_product_attention for flash
    attention: the Hopper variant at both prefill shapes in bf16, with its
@@ -117,7 +130,8 @@ Phases, each printing its own line(s) before the last line:
    one at Qwen3-14B's in f32); the accumulating transmit's S, and at the
    million-client chunk the same kernel on the same grid without a fold,
    to show what the fold costs;
-then one JSON line listing the kernels, and the result line.
+then one JSON line listing the kernels (and the launch floor), and the
+result line.
 
 Exits non-zero, and prints no result, without a CUDA device, without the
 repository beside it, or when any phase fails.
@@ -213,25 +227,64 @@ def nvidia_smi() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def phase_build_report(build, lib_path):
-    """The Hopper flash-attention kernels as compiled: the compiler's
-    report (-Xptxas -v: registers, stack, spills), their dynamic shared
-    memory, and their SASS, which must hold wgmma (HGMMA) and TMA loads
-    (UTMALDG); a register count other than HOPPER_REGS would unbalance
-    setmaxnreg, so it fails here, before any launch."""
+def _ptxas_report(lib_path):
+    """The compiler's -Xptxas -v report by kernel (mangled name):
+    {"regs": "Used N registers, ... smem ...", "spill": "N bytes stack
+    frame, N bytes spill stores, N bytes spill loads"}."""
     import re
 
-    report, fn = {}, None
+    # "Used N registers" follows its entry function's "Compiling entry
+    # function" line, a spill line its "Function properties for" line
+    # (a kernel's own, or a callee's such as the sinf slow path).
+    report, entry, props = {}, None, None
     for line in lib_path.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties "
-                      r"for) '?([\w]+)", line)
+        m = re.search(r"Compiling entry function '?([\w]+)", line)
         if m:
-            fn = m.group(1)
-        elif fn and HOPPER_KERNEL in fn and ("registers" in line
-                                             or "spill" in line):
-            report.setdefault(fn, {})[
-                "regs" if "registers" in line else "spill"] = line.split(
-                    ":", 1)[-1].strip()
+            entry = props = m.group(1)
+            continue
+        m = re.search(r"Function properties for '?([\w]+)", line)
+        if m:
+            props = m.group(1)
+        elif entry and "registers" in line:
+            report.setdefault(entry, {})["regs"] = line.split(":", 1)[-1].strip()
+        elif props and "spill" in line:
+            report.setdefault(props, {})["spill"] = line.strip()
+    return report
+
+
+def phase_build_report(build, lib_path):
+    """The kernels as compiled. B1 (adaptive_update_kernel, 24
+    instances), B2 (ota_channel_kernel, 4) and B3b
+    (ota_transmit_stream_kernel, 2): registers, shared memory and
+    spills from the compiler's report (-Xptxas -v), which must show no
+    spill. The Hopper flash-attention kernels: the same report, their
+    dynamic shared memory, and their SASS, which must hold wgmma (HGMMA)
+    and TMA loads (UTMALDG); a register count other than HOPPER_REGS
+    would unbalance setmaxnreg, so it fails here, before any launch."""
+    import re
+
+    full = _ptxas_report(lib_path)
+    for kernel in ("adaptive_update_kernel", "ota_channel_kernel",
+                   "ota_transmit_stream_kernel"):
+        found = {fn: r for fn, r in full.items() if kernel in fn}
+        check(len(found) > 0 and all("regs" in r for r in found.values()),
+              f"no compiler report for {kernel}")
+        regs = sorted({int(re.search(r"Used (\d+) registers",
+                                     r["regs"]).group(1))
+                       for r in found.values()})
+        smem = sorted({m.group(0) for r in found.values()
+                       for m in [re.search(r"[\d+]+ bytes smem", r["regs"])]
+                       if m})
+        spills = sum(int(n) for r in found.values() for n in re.findall(
+            r"(\d+) bytes spill", r.get("spill", "")))
+        check(spills == 0, f"{kernel}: {spills} bytes of spill stores and "
+              "loads")
+        print(f"[build] {kernel}: {len(found)} instances, registers "
+              f"{regs[0]}-{regs[-1]}, static shared memory "
+              f"{', '.join(smem) or 'none'}, 0 bytes spilled; e.g. "
+              + "; ".join(f"{r['regs']} / {r.get('spill', '')}"
+                          for r in list(found.values())[:2]) + "; ok")
+    report = {fn: r for fn, r in full.items() if HOPPER_KERNEL in fn}
     cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
                           capture_output=True, text=True, timeout=300,
@@ -267,90 +320,141 @@ def phase_build_report(build, lib_path):
 
 
 def phase_kernel_update(torch, dev):
+    """B1 against its plain version: six modes x f32 / bf16 g and w x
+    alpha 1.2 / 1.5 / 2.0, at the main path's slab, at the same slab
+    three elements off its allocation (no operand 16-byte aligned), and
+    at the million-client stream's slab. Returns the worst f32 error by
+    slab length."""
     from repro_torch.kernels.adaptive_update import (MODES,
                                                      adaptive_update_slab)
     from repro_torch.kernels.ref import adaptive_update_ref
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    worst_f32 = worst_rel = worst_bf16 = 0.0
+    worst_f32, worst_rel, worst_bf16 = {}, 0.0, 0.0
     cases = 0
-    for dtype in (torch.float32, torch.bfloat16):
-        g = torch.randn(D_MAIN, generator=gen, device=dev).to(dtype)
-        w = torch.randn(D_MAIN, generator=gen, device=dev).to(dtype)
-        delta = 0.1 * torch.randn(D_MAIN, generator=gen, device=dev)
-        delta[::17] = 0.0
-        nu = 0.01 * torch.rand(D_MAIN, generator=gen, device=dev)
-        nu_max = nu + 0.01 * torch.rand(D_MAIN, generator=gen, device=dev)
-        for mode in MODES:
-            for alpha in (1.2, 1.5, 2.0):
-                kw = dict(lr=0.01, beta1=0.9, beta2=0.3, alpha=alpha,
-                          eps=1e-8, mode=mode,
-                          nu_max=nu_max if mode == "amsgrad" else None)
-                got = adaptive_update_slab(g, delta, nu, w, **kw)
-                want = adaptive_update_ref(g, delta, nu, w, **kw)
-                torch.cuda.synchronize()
-                cases += 1
-                for i, (a, b) in enumerate(zip(got, want)):
-                    a, b = a.float(), b.float()
-                    err = (a - b).abs()
-                    if dtype == torch.bfloat16 and i == len(got) - 1:
-                        steps = err / (2.0 ** -7 * b.abs().clamp_min(
-                            2.0 ** -126))
-                        worst_bf16 = max(worst_bf16, float(steps.max()))
-                        continue
-                    tol = 1e-6 * b.abs() + 1e-6 * float(b.abs().max())
-                    check(bool(torch.all(err <= tol)),
-                          f"adaptive_update_slab {mode} {dtype} a={alpha} "
-                          f"output {i}: max err {float(err.max())}")
-                    worst_f32 = max(worst_f32, float(err.max()))
-                    worst_rel = max(worst_rel, float(
-                        (err / b.abs().clamp_min(1e-30)).max()))
+    for d, offset in ((D_MAIN, 0), (D_MAIN, 3), (D_MILLION, 0)):
+        def r(scale=1.0):
+            return (scale * torch.randn(d + offset, generator=gen,
+                                        device=dev))[offset:]
+        for dtype in (torch.float32, torch.bfloat16):
+            g, w = r().to(dtype), r().to(dtype)
+            delta = r(0.1)
+            delta[::17] = 0.0
+            nu = r(0.01).abs()
+            nu_max = nu + r(0.01).abs()
+            for mode in MODES:
+                for alpha in (1.2, 1.5, 2.0):
+                    kw = dict(lr=0.01, beta1=0.9, beta2=0.3, alpha=alpha,
+                              eps=1e-8, mode=mode,
+                              nu_max=nu_max if mode == "amsgrad" else None)
+                    got = adaptive_update_slab(g, delta, nu, w, **kw)
+                    want = adaptive_update_ref(g, delta, nu, w, **kw)
+                    torch.cuda.synchronize()
+                    cases += 1
+                    for i, (a, b) in enumerate(zip(got, want)):
+                        a, b = a.float(), b.float()
+                        err = (a - b).abs()
+                        if dtype == torch.bfloat16 and i == len(got) - 1:
+                            steps = err / (2.0 ** -7 * b.abs().clamp_min(
+                                2.0 ** -126))
+                            worst_bf16 = max(worst_bf16, float(steps.max()))
+                            continue
+                        tol = 1e-6 * b.abs() + 1e-6 * float(b.abs().max())
+                        check(bool(torch.all(err <= tol)),
+                              f"adaptive_update_slab d={d}+{offset} {mode} "
+                              f"{dtype} a={alpha} output {i}: max err "
+                              f"{float(err.max())}")
+                        worst_f32[d] = max(worst_f32.get(d, 0.0),
+                                           float(err.max()))
+                        worst_rel = max(worst_rel, float(
+                            (err / b.abs().clamp_min(1e-30)).max()))
     check(worst_bf16 <= 1.0, f"bf16 w off by {worst_bf16} steps")
-    print(f"[kernel adaptive_update_slab] d={D_MAIN} {cases} cases (6 modes x "
-          f"f32/bf16 x alpha 1.2/1.5/2.0): max_abs_err={worst_f32:.3e} "
-          f"max_rel_err={worst_rel:.3e} (tol 1e-6 rel + 1e-6 of scale); "
-          f"bf16 w within {worst_bf16:.2f} bf16 steps (tol 1) ok")
+    print(f"[kernel adaptive_update_slab] {cases} cases (6 modes x f32/bf16 "
+          f"x alpha 1.2/1.5/2.0 at d={D_MAIN}, at d={D_MAIN} 3 elements off "
+          f"16-byte alignment, and at d={D_MILLION}): max_abs_err="
+          f"{max(worst_f32.values()):.3e} max_rel_err={worst_rel:.3e} (tol "
+          f"1e-6 rel + 1e-6 of scale); bf16 w within {worst_bf16:.2f} bf16 "
+          f"steps (tol 1) ok")
     return worst_f32
 
 
+# B2's shapes: (N, d) -> what runs it. The streamed finishes are one row
+# (h = 1, n_total = 1); 2000 x 4096 stages h in two chunks; 37 x 4097
+# (d % 4 != 0) takes the plain-load path.
+CHANNEL_SHAPES = {(N_CLIENTS, D_MAIN): "the resident round",
+                  (1, D_MAIN): "the streamed finish, S1-S3",
+                  (1, D_MILLION): "the million-client finish",
+                  (CHUNK_MILLION, D_MILLION): "h in two chunks",
+                  (37, 4097): "d % 4 != 0: plain loads"}
+
+
 def phase_kernel_channel(torch, dev, total):
+    """B2 against its plain version: at the main path's 50 x 175,104
+    alpha 1.2 / 1.5 / 2.0, then every CHANNEL_SHAPES entry at alpha 1.5,
+    each with pilot statistics on and off; the padding exactly 0 and the
+    statistics' count exact. The bulk-copy ring and the plain loads (the
+    same rows 4 bytes off a 16-byte boundary) agree bitwise. Returns the
+    worst error by shape."""
     from repro_torch.core.channel import CMS_U_BOUND
     from repro_torch.kernels.ota_channel import ota_channel_slab
     from repro_torch.kernels.ref import ota_channel_ref
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    grads = torch.randn(N_CLIENTS, D_MAIN, generator=gen, device=dev)
-    h = 0.5 + torch.rand(N_CLIENTS, generator=gen, device=dev)
-    u = (2 * torch.rand(D_MAIN, generator=gen, device=dev) - 1) * CMS_U_BOUND
-    e = -torch.log(torch.rand(D_MAIN, generator=gen, device=dev))
-    # the slab's padding tail: no gradient, the CMS fixed point (0, 1)
-    grads[:, total:], u[total:], e[total:] = 0.0, 0.0, 1.0
-    worst = worst_stats = 0.0
-    for alpha in (1.2, 1.5, 2.0):
-        for stats in (False, True):
-            kw = dict(alpha=alpha, scale=0.1, pilot_stats=stats)
-            got = ota_channel_slab(grads, h, u, e, **kw)
-            want = ota_channel_ref(grads, h, u, e, **kw)
-            torch.cuda.synchronize()
-            if stats:
-                (got, gs), (want, ws) = got, want
-                check(float(gs[0]) == float(ws[0]) == total,
-                      f"stats count {float(gs[0])} vs {float(ws[0])}")
-                rel = float(((gs - ws).abs() / ws.abs().clamp_min(1)).max())
-                check(rel <= 1e-5, f"stats rel err {rel}")
-                worst_stats = max(worst_stats, rel)
-            err = (got - want).abs()
-            scale = float(want.abs().max())
-            check(bool(torch.all(err <= 1e-6 * want.abs() + 1e-6 * scale)),
-                  f"ota_channel_slab a={alpha} stats={stats}: max err "
-                  f"{float(err.max())}")
-            check(bool(torch.all(got[total:] == 0.0)), "padding not 0")
-            worst = max(worst, float(err.max()))
-    print(f"[kernel ota_channel_slab] N={N_CLIENTS} d={D_MAIN} 6 cases "
-          f"(alpha 1.2/1.5/2.0 x stats on/off): max_abs_err={worst:.3e} "
-          f"(tol 1e-6 rel + 1e-6 of scale); padding "
-          f"{D_MAIN - total} entries exactly 0; stats max_rel_err="
-          f"{worst_stats:.3e} (tol 1e-5), count exact; ok")
+    worst, worst_stats, cases = {}, 0.0, 0
+    for n, d in CHANNEL_SHAPES:
+        grads = torch.randn(n, d, generator=gen, device=dev)
+        h = (torch.ones(n, device=dev) if n == 1 else
+             0.5 + torch.rand(n, generator=gen, device=dev))
+        u = (2 * torch.rand(d, generator=gen, device=dev) - 1) * CMS_U_BOUND
+        e = -torch.log(torch.rand(d, generator=gen, device=dev))
+        # the slab's padding tail: no gradient, the CMS fixed point (0, 1)
+        pad = D_MAIN - total if d == D_MAIN else 38
+        grads[:, d - pad:], u[d - pad:], e[d - pad:] = 0.0, 0.0, 1.0
+        n_total = 1 if n == 1 else None
+        alphas = (1.2, 1.5, 2.0) if (n, d) == (N_CLIENTS, D_MAIN) else (1.5,)
+        for alpha in alphas:
+            for stats in (False, True):
+                kw = dict(alpha=alpha, scale=0.1, pilot_stats=stats,
+                          n_total=n_total)
+                got = ota_channel_slab(grads, h, u, e, **kw)
+                want = ota_channel_ref(grads, h, u, e, **kw)
+                torch.cuda.synchronize()
+                what = f"ota_channel_slab {n}x{d} a={alpha} stats={stats}"
+                if stats:
+                    (got, gs), (want, ws) = got, want
+                    check(float(gs[0]) == float(ws[0]) == d - pad,
+                          f"{what}: count {float(gs[0])} vs {float(ws[0])}")
+                    rel = float(((gs - ws).abs()
+                                 / ws.abs().clamp_min(1)).max())
+                    check(rel <= 1e-5, f"{what}: stats rel err {rel}")
+                    worst_stats = max(worst_stats, rel)
+                err = (got - want).abs()
+                scale = float(want.abs().max())
+                check(bool(torch.all(err <= 1e-6 * want.abs()
+                                     + 1e-6 * scale)),
+                      f"{what}: max err {float(err.max())}")
+                check(bool(torch.all(got[d - pad:] == 0.0)),
+                      f"{what}: padding not 0")
+                worst[(n, d)] = max(worst.get((n, d), 0.0), float(err.max()))
+                cases += 1
+        if d % 4 == 0 and n > 1:
+            off = torch.empty(grads.numel() + 1, device=dev)[1:].view(n, d)
+            off.copy_(grads)
+            check(torch.equal(ota_channel_slab(grads, h, u, e, alpha=1.5,
+                                               scale=0.1),
+                              ota_channel_slab(off, h, u, e, alpha=1.5,
+                                               scale=0.1)),
+                  f"ota_channel_slab {n}x{d}: the load paths disagree")
+            del off
+    print(f"[kernel ota_channel_slab] {cases} cases ({N_CLIENTS}x{D_MAIN} "
+          f"alpha 1.2/1.5/2.0, then " + ", ".join(
+              f"{n}x{d} ({what})" for (n, d), what in CHANNEL_SHAPES.items()
+              if (n, d) != (N_CLIENTS, D_MAIN))
+          + " at alpha 1.5; stats on/off): max_abs_err="
+          f"{max(worst.values()):.3e} (tol 1e-6 rel + 1e-6 of scale); "
+          f"padding exactly 0; stats max_rel_err={worst_stats:.3e} (tol "
+          f"1e-5), count exact; the bulk-copy ring and plain loads bitwise "
+          f"equal at {N_CLIENTS}x{D_MAIN} and {CHUNK_MILLION}x{D_MILLION}; ok")
     return worst
 
 
@@ -527,7 +631,12 @@ def phase_runtime_alpha(torch, dev, total):
             kw = dict(lr=0.01, beta1=0.9, beta2=0.3, eps=1e-8, mode=mode,
                       nu_max=nu_max if mode == "amsgrad" else None,
                       alpha=torch.tensor(a, device=dev))
-            got = adaptive_update_slab(g, delta, nu, w, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:    # the kernel reads alpha where it lies: no host sync
+                got = adaptive_update_slab(g, delta, nu, w, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
             want = adaptive_update_ref(g, delta, nu, w, **kw)
             torch.cuda.synchronize()
             for i, (x, y) in enumerate(zip(got, want)):
@@ -560,7 +669,8 @@ def phase_runtime_alpha(torch, dev, total):
     check(abs(float(alpha_hat) - 1.5) < 0.1, f"alpha_hat {float(alpha_hat)}")
     check(bool(torch.isfinite(w).all()), "tracked update: w not finite")
     print(f"[runtime alpha] adaptive_update_slab with a device alpha, 16 "
-          f"cases (4 modes x alpha 1.2/1.5/1.83/2.0): max_abs_err="
+          f"cases (4 modes x alpha 1.2/1.5/1.83/2.0), each launched under "
+          f"sync_debug_mode='error': max_abs_err="
           f"{worst:.3e} (tol 1e-6 rel + 1e-6 of scale); 3 tracked server "
           f"steps (MAC + stats, EMA, update) under sync_debug_mode='error' "
           f"with no host sync, alpha_hat={float(alpha_hat):.4f}; ok")
@@ -918,7 +1028,8 @@ def phase_kernel_stream(torch, dev, total):
     # width (the column tiles fill the card) and at the million-client
     # chunk (they do not: the no-carry call takes one segment anyway).
     bitwise = []
-    for n, d in ((N_CLIENTS, D_MAIN), (CHUNK_MILLION, D_MILLION)):
+    for n, d in ((N_CLIENTS, D_MAIN), (CHUNK_MILLION, D_MILLION),
+                 (1, D_MILLION)):
         if n == CHUNK_MILLION:
             grads, h = _million_rows(torch, dev)
         else:
@@ -1623,10 +1734,7 @@ def _fold_cost(torch, dev, gen, flush, gs, hs, acc, n_seg):
               lambda: ota_transmit_slab(gs, hs, n_total=n, acc=acc)),
              (f"{n_y}x{d_y}, S = 1, {4 * n_y * d_y / 1e6:.1f} MB",
               lambda: ota_transmit_slab(gy, hy, n_total=n_y, acc=acc_y))]
-    ms = [[], []]
-    for _ in range(2):
-        for (_, fn), times in zip(calls, ms):
-            times.append(_median_ms(torch, fn, flush))
+    ms = _in_turns(torch, flush, [fn for _, fn in calls])
     fold, plain = (statistics.median(t) for t in ms)
     print(f"[times] {STREAM} {n}x{d} against the same kernel without a "
           f"fold ({blocks} blocks of {n_y} rows x 2 KB each), two turns: "
@@ -1635,41 +1743,106 @@ def _fold_cost(torch, dev, gen, flush, gs, hs, acc, n_seg):
           + f"; the split costs {fold - plain:.4f} ms")
 
 
+def _in_turns(torch, flush, fns, turns=2):
+    """Each call's _median_ms, taken in turns: A B .. B A (the order
+    reverses every turn); one list of times a call."""
+    ms = [[] for _ in fns]
+    for t in range(turns):
+        order = list(range(len(fns)))
+        for i in (order if t % 2 == 0 else order[::-1]):
+            ms[i].append(_median_ms(torch, fns[i], flush))
+    return ms
+
+
 def phase_times(torch, dev):
+    """Times of every kernel at its main-path shapes (see the module
+    docstring, phase 19). Returns the rows by name and the launch floor:
+    a near-empty launch (torch.cuda._sleep of one cycle) timed the same
+    way, the least any kernel's time can read in this harness."""
     from repro_torch.kernels.adaptive_update import adaptive_update_slab
-    from repro_torch.kernels.ota_channel import ota_channel_slab
+    from repro_torch.kernels.ota_channel import (channel_blocks,
+                                                 ota_channel_slab,
+                                                 ota_transmit_slab)
     from repro_torch.kernels.ref import adaptive_update_ref, ota_channel_ref
 
     flush = torch.empty(64 * 2 ** 20, device=dev)      # 256 MB > 50 MB L2
     gen = torch.Generator(device=dev).manual_seed(2)
+    floor = _median_ms(torch, lambda: torch.cuda._sleep(1), flush)
+    print(f"[times] launch floor: {floor:.4f} ms, the median of "
+          f"{TIMED_LAUNCHES} near-empty launches (torch.cuda._sleep(1)) "
+          "under the same flush and sleep")
     d, n = D_MAIN, N_CLIENTS
-    g, w = (torch.randn(d, generator=gen, device=dev) for _ in range(2))
-    delta = 0.1 * torch.randn(d, generator=gen, device=dev)
-    nu = 0.01 * torch.rand(d, generator=gen, device=dev)
     kw = dict(lr=0.01, beta1=0.9, beta2=0.3, alpha=1.5, eps=1e-8, mode="adam")
+    rows = {}
+    # adam: reads g, delta, nu, w and writes delta, nu, w (f32); about 16
+    # f32 operations an element, counting each powf as one. At the main
+    # path's slab and at the million-client stream's.
+    for d_u, name in ((D_MAIN, "adaptive_update_slab"),
+                      (D_MILLION, f"adaptive_update_slab d={D_MILLION}")):
+        g, w = (torch.randn(d_u, generator=gen, device=dev)
+                for _ in range(2))
+        delta = 0.1 * torch.randn(d_u, generator=gen, device=dev)
+        nu = 0.01 * torch.rand(d_u, generator=gen, device=dev)
+        rows[name] = (
+            _median_ms(torch, lambda: adaptive_update_slab(g, delta, nu, w,
+                                                           **kw), flush),
+            _median_ms(torch, lambda: adaptive_update_ref(g, delta, nu, w,
+                                                          **kw), flush),
+            7 * 4 * d_u, 16 * d_u)
+    # channel: reads G, h, u, e and writes out; 2 N d for the faded sum
+    # and about 12 a column for the CMS transform. At 50 x 175,104 in
+    # turns with the accumulating transmit's no-carry call (the same rows
+    # through the same ring, no CMS), then with pilot statistics (the
+    # wrapper's call: the kernel and the sum of its (blocks, 3) rows);
+    # then the one-row streamed finishes.
+    ckw = dict(alpha=1.5, scale=0.1)
+    for n_c, d_c in ((n, d), (1, D_MAIN), (1, D_MILLION)):
+        grads = torch.randn(n_c, d_c, generator=gen, device=dev)
+        h = torch.rand(n_c, generator=gen, device=dev)
+        u = torch.rand(d_c, generator=gen, device=dev) - 0.5
+        e = torch.rand(d_c, generator=gen, device=dev) + 0.5
+        name = ("ota_channel_slab" if n_c > 1 else
+                f"ota_channel_slab {n_c}x{d_c}")
+        if n_c > 1:
+            b2, b3 = _in_turns(torch, flush, [
+                lambda: ota_channel_slab(grads, h, u, e, **ckw),
+                lambda: ota_transmit_slab(grads, h)])
+            ms = statistics.median(b2)
+            stats_ms = _median_ms(torch, lambda: ota_channel_slab(
+                grads, h, u, e, pilot_stats=True, **ckw), flush)
+            rows_ = torch.rand(channel_blocks(d_c), 3, generator=gen,
+                               device=dev)
+            sum_ms = _median_ms(torch, lambda: torch.sum(rows_, dim=0), flush)
+            # the same two launches without the statistics epilogue: the
+            # difference is what the epilogue costs inside the kernel
+            pair_ms = _median_ms(torch, lambda: (
+                ota_channel_slab(grads, h, u, e, **ckw),
+                torch.sum(rows_, dim=0)), flush)
+            print(f"[times] ota_channel_slab {n_c}x{d_c} and {STREAM}'s "
+                  f"no-carry call, in turns: "
+                  + " ".join(f"{t:.4f}" for t in b2) + " ms against "
+                  + " ".join(f"{t:.4f}" for t in b3) + " ms: "
+                  f"{1e3 * (ms - statistics.median(b3)):.2f} us over it; "
+                  f"with pilot statistics {stats_ms:.4f} ms "
+                  f"(+{1e3 * (stats_ms - ms):.2f} us): the kernel and the "
+                  f"wrapper's sum of its {channel_blocks(d_c)} statistics "
+                  f"rows, a launch of its own ({sum_ms:.4f} ms alone); the "
+                  f"kernel without statistics and the same sum "
+                  f"{pair_ms:.4f} ms, so the epilogue costs "
+                  f"{1e3 * (stats_ms - pair_ms):.2f} us in the kernel")
+        else:
+            ms = _median_ms(torch, lambda: ota_channel_slab(
+                grads, h, u, e, n_total=1, **ckw), flush)
+        rows[name] = (
+            ms, _median_ms(torch, lambda: ota_channel_ref(grads, h, u, e,
+                                                          **ckw), flush),
+            4 * (n_c * d_c + n_c + 3 * d_c), 2 * n_c * d_c + 12 * d_c)
+    del grads
+    d, n = D_MAIN, N_CLIENTS
     grads = torch.randn(n, d, generator=gen, device=dev)
     h = torch.rand(n, generator=gen, device=dev)
     u = torch.rand(d, generator=gen, device=dev) - 0.5
     e = torch.rand(d, generator=gen, device=dev) + 0.5
-    ckw = dict(alpha=1.5, scale=0.1)
-
-    rows = {}
-    # adam: reads g, delta, nu, w and writes delta, nu, w (f32); about 16
-    # f32 operations an element, counting each powf as one.
-    bytes_u, ops_u = 7 * 4 * d, 16 * d
-    rows["adaptive_update_slab"] = (
-        _median_ms(torch, lambda: adaptive_update_slab(g, delta, nu, w, **kw),
-                   flush),
-        _median_ms(torch, lambda: adaptive_update_ref(g, delta, nu, w, **kw),
-                   flush), bytes_u, ops_u)
-    # channel: reads G, h, u, e and writes out; 2 N d for the faded sum
-    # and about 12 an entry for the CMS transform.
-    bytes_c, ops_c = 4 * (n * d + n + 3 * d), 2 * n * d + 12 * d
-    rows["ota_channel_slab"] = (
-        _median_ms(torch, lambda: ota_channel_slab(grads, h, u, e, **ckw),
-                   flush),
-        _median_ms(torch, lambda: ota_channel_ref(grads, h, u, e, **ckw),
-                   flush), bytes_c, ops_c)
     # transmit, int8 SR + EF + residual: reads G, h, r, ef; writes q
     # (int8), s (one f32 per 128 columns) and the residual; 2 N d for the
     # faded sum and about 8 an entry for the epilogue.
@@ -1805,11 +1978,12 @@ def phase_times(torch, dev):
         print(f"[times] {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"bound {bound:.5f} ms ({out[name]['bound_by']}: {nbytes} B at "
               f"3.35 TB/s; {ops} {what}), share of bound "
-              f"{bound / ms:.3f}; "
+              f"{bound / ms:.3f}; launch floor {floor:.4f} ms, kernel - "
+              f"floor {ms - floor:.4f} ms; "
               + (f"library ({lib_name}) {lib_ms:.4f} ms" if lib_ms else
                  "library_ms null: no single PyTorch call computes this "
                  "function"))
-    return out
+    return out, floor
 
 
 def main() -> int:
@@ -1858,7 +2032,8 @@ def main() -> int:
     err_channel = phase_kernel_channel(torch, dev, spec.total)
     err_transmit = phase_kernel_transmit(torch, dev, spec.total)
     err_receive = phase_kernel_receive(torch, dev, spec.total)
-    err_update = max(err_update, phase_runtime_alpha(torch, dev, spec.total))
+    err_update[D_MAIN] = max(err_update[D_MAIN],
+                             phase_runtime_alpha(torch, dev, spec.total))
     err_stream = phase_kernel_stream(torch, dev, spec.total)
     err_flash = phase_kernel_flash(torch, dev)
     phase_reference(torch, np)
@@ -1877,10 +2052,18 @@ def main() -> int:
     for part in (wire_launches, stream_launches, million_launches):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
-    # the accumulating kernel's launches by chunk shape
+    # launches by shape: the accumulating kernel's chunks, the streamed
+    # runs' one-row channel finish, the million-client stream's finish
+    # and update
     launches[f"{STREAM} {N_CLIENTS}x{D_MAIN}"] = stream_launches[STREAM]
     launches[f"{STREAM} {CHUNK_MILLION}x{D_MILLION}"] = \
         million_launches[STREAM]
+    launches[f"ota_channel_slab 1x{D_MAIN}"] = \
+        stream_launches["ota_channel_slab"]
+    launches[f"ota_channel_slab 1x{D_MILLION}"] = \
+        million_launches["ota_channel_slab"]
+    launches[f"adaptive_update_slab d={D_MILLION}"] = \
+        million_launches["adaptive_update_slab"]
     from repro_torch.kernels.flash_attention import flash_attention
     hopper = Counter(flash_attention, "hopper_launches", f"{FLASH} hopper")
     for arch in FLASH_MODEL_SHAPES:
@@ -1889,12 +2072,17 @@ def main() -> int:
                                                  for r in runs.values())
     launches[f"{FLASH} scalar f32 qwen3-14b"] = phase_reference_serve(
         torch, dev)
-    times = phase_times(torch, dev)
+    times, floor = phase_times(torch, dev)
 
-    rows = (("adaptive_update_slab", "adaptive_update.cu",
-             "src/repro/kernels/adaptive_update.py:188", err_update),
-            ("ota_channel_slab", "ota_channel.cu",
-             "src/repro/kernels/ota_channel.py:222", err_channel),
+    b1 = ("adaptive_update.cu", "src/repro/kernels/adaptive_update.py:188")
+    b2 = ("ota_channel.cu", "src/repro/kernels/ota_channel.py:222")
+    rows = (("adaptive_update_slab", *b1, err_update[D_MAIN]),
+            (f"adaptive_update_slab d={D_MILLION}", *b1,
+             err_update[D_MILLION]),
+            ("ota_channel_slab", *b2, err_channel[(N_CLIENTS, D_MAIN)]),
+            (f"ota_channel_slab 1x{D_MAIN}", *b2, err_channel[(1, D_MAIN)]),
+            (f"ota_channel_slab 1x{D_MILLION}", *b2,
+             err_channel[(1, D_MILLION)]),
             ("ota_transmit_slab", "ota_transmit.cu",
              "src/repro/kernels/ota_channel.py:527", err_transmit),
             ("ota_receive_slab", "ota_receive.cu",
@@ -1917,7 +2105,7 @@ def main() -> int:
                                                    "bound_ms", "bound_by",
                                                    "library_ms")})
                for name, source, replaces, err in rows]
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "launch_floor_ms": floor}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -14,16 +14,28 @@
 // What bounds it on an H100: device-memory bytes. Per element the update
 // reads g, w and the mode's state and writes the state and w back (f32:
 // sgd 12 B, momentum 20 B, adagrad/adam/yogi 28 B, amsgrad 36 B) against
-// a few dozen flops (two powf), far below the card's ~20 flop/byte ridge
-// for f32 outside the tensor cores.
+// a few dozen flops, far below the card's ~20 flop/byte ridge for f32
+// outside the tensor cores. But at the main path's slab (175,104 entries,
+// 4.9 MB for adam: 1.46 us at 3.35 TB/s) the pass is short, and each
+// element is a long dependent chain: its loads, two precise powf and an
+// IEEE divide, then its stores. Four elements a thread (16-byte loads)
+// gave 171 blocks of 256 on 132 SMs, about 10 warps an SM, too few to
+// hide that chain.
 //
-// What the design does about it: every operand is read once and every
-// output written once, in one grid-stride pass with no shared memory and
-// no reduction. Each thread handles four consecutive elements with one
-// 16-byte (f32) or 8-byte (bf16) load per operand when every pointer is
-// aligned, else scalar loads. At the main path's slab (175,104 entries)
-// the pass moves ~4.9 MB, so launch latency rather than bandwidth sets
-// its time.
+// The design: one element a thread, 256 threads a block, one pass with
+// no grid-stride loop, no shared memory and no reduction: 684 blocks at
+// d = 175,104, all resident at once (about 41 warps an SM), so every
+// operand's load is in flight at the start and the chains of the warps
+// whose data has come overlap the loads of the rest. A warp's accesses
+// to each operand are 128 contiguous bytes (f32; 64 for bf16), so the
+// same code serves every slab, aligned or not, ragged or not. Two or
+// four elements a thread (8- or 16-byte loads), 128 or 512 threads a
+// block and streaming cache hints measured no faster.
+//
+// Measured (chip_smoke.py phase "times", NVIDIA H100 80GB HBM3, 700.00 W;
+// adam, f32): 8.13 us at d = 175,104 (four elements a thread: 9.2 us in
+// the same run), 6.18 us at d = 4096, where a near-empty launch timed
+// the same way takes 5.04 us: 3.09 us above that floor at 175,104.
 //
 // Numerics follow the plain version op for op: the mode and the g/w
 // types are template parameters, the constants (1-b1, 1-b2, 1/alpha) are
@@ -67,29 +79,6 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 // jnp.sign: sign(0) == 0 (copysignf would give +-1).
 __device__ __forceinline__ float sign_f(float x) {
   return x > 0.f ? 1.f : (x < 0.f ? -1.f : x);
-}
-
-// Four consecutive elements: one 16-byte (f32) or 8-byte (bf16) access.
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  uint2 raw = *reinterpret_cast<const uint2*>(p);
-  float2 a = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.x));
-  float2 b = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&raw.y));
-  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-}
-__device__ __forceinline__ void store4(float* p, const float v[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
-  __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
-  __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
-  uint2 raw;
-  raw.x = *reinterpret_cast<uint32_t*>(&a);
-  raw.y = *reinterpret_cast<uint32_t*>(&b);
-  *reinterpret_cast<uint2*>(p) = raw;
 }
 
 // One element of the update. Inputs and outputs are f32 values; the
@@ -136,88 +125,63 @@ template <int MODE> constexpr bool kHasDelta = MODE != SGD;
 template <int MODE> constexpr bool kHasNu = MODE != SGD && MODE != MOMENTUM;
 template <int MODE> constexpr bool kHasVmax = MODE == AMSGRAD;
 
+constexpr int kThreads = 256;
+
 template <int MODE, typename TG, typename TW>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(kThreads)
 adaptive_update_kernel(const TG* __restrict__ g, const float* __restrict__ d_in,
                        const float* __restrict__ v_in,
                        const float* __restrict__ m_in,
                        const TW* __restrict__ w_in, float* __restrict__ d_out,
                        float* __restrict__ v_out, float* __restrict__ m_out,
-                       TW* __restrict__ w_out, int64_t n, int vec, Params p,
+                       TW* __restrict__ w_out, int64_t n, Params p,
                        const float* __restrict__ alpha_dev) {
+  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
   if (alpha_dev != nullptr) {
     p.alpha = *alpha_dev;
     p.inv_alpha = 1.0f / p.alpha;
   }
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x * 4;
-  for (int64_t base = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-       base < n; base += stride) {
-    float gv[4], wv[4], dv[4] = {0, 0, 0, 0}, vv[4] = {0, 0, 0, 0},
-                        mv[4] = {0, 0, 0, 0};
-    float dn[4], vn[4], mn[4], wn[4];
-    if (vec && base + 4 <= n) {
-      load4(g + base, gv);
-      load4(w_in + base, wv);
-      if constexpr (kHasDelta<MODE>) load4(d_in + base, dv);
-      if constexpr (kHasNu<MODE>) load4(v_in + base, vv);
-      if constexpr (kHasVmax<MODE>) load4(m_in + base, mv);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        update_one<MODE>(gv[j], wv[j], dv[j], vv[j], mv[j], p, dn[j], vn[j],
-                         mn[j], wn[j]);
-      store4(w_out + base, wn);
-      if constexpr (kHasDelta<MODE>) store4(d_out + base, dn);
-      if constexpr (kHasNu<MODE>) store4(v_out + base, vn);
-      if constexpr (kHasVmax<MODE>) store4(m_out + base, mn);
-    } else {
-      const int64_t end = base + 4 < n ? base + 4 : n;
-      for (int64_t i = base; i < end; ++i) {
-        float dn1 = 0.f, vn1 = 0.f, mn1 = 0.f, wn1 = 0.f;
-        const float d1 = kHasDelta<MODE> ? d_in[i] : 0.f;
-        const float v1 = kHasNu<MODE> ? v_in[i] : 0.f;
-        const float m1 = kHasVmax<MODE> ? m_in[i] : 0.f;
-        update_one<MODE>(to_f(g[i]), to_f(w_in[i]), d1, v1, m1, p, dn1, vn1,
-                         mn1, wn1);
-        w_out[i] = from_f<TW>(wn1);
-        if constexpr (kHasDelta<MODE>) d_out[i] = dn1;
-        if constexpr (kHasNu<MODE>) v_out[i] = vn1;
-        if constexpr (kHasVmax<MODE>) m_out[i] = mn1;
-      }
-    }
-  }
+  const float g1 = to_f(g[i]), w1 = to_f(w_in[i]);
+  const float d1 = kHasDelta<MODE> ? d_in[i] : 0.f;
+  const float v1 = kHasNu<MODE> ? v_in[i] : 0.f;
+  const float m1 = kHasVmax<MODE> ? m_in[i] : 0.f;
+  float dn = 0.f, vn = 0.f, mn = 0.f, wn = 0.f;
+  update_one<MODE>(g1, w1, d1, v1, m1, p, dn, vn, mn, wn);
+  w_out[i] = from_f<TW>(wn);
+  if constexpr (kHasDelta<MODE>) d_out[i] = dn;
+  if constexpr (kHasNu<MODE>) v_out[i] = vn;
+  if constexpr (kHasVmax<MODE>) m_out[i] = mn;
 }
-
-constexpr int kThreads = 256;
 
 template <int MODE, typename TG, typename TW>
 void launch(const void* g, const void* d_in, const void* v_in, const void* m_in,
             const void* w_in, void* d_out, void* v_out, void* m_out, void* w_out,
-            int64_t n, int vec, const Params& p, const float* alpha_dev,
+            int64_t n, const Params& p, const float* alpha_dev,
             cudaStream_t stream) {
-  int64_t blocks = (n + (int64_t)kThreads * 4 - 1) / ((int64_t)kThreads * 4);
-  if (blocks > 65535) blocks = 65535;  // grid-stride loop covers the rest
+  const int64_t blocks = (n + kThreads - 1) / kThreads;
   adaptive_update_kernel<MODE, TG, TW><<<(unsigned)blocks, kThreads, 0, stream>>>(
       static_cast<const TG*>(g), static_cast<const float*>(d_in),
       static_cast<const float*>(v_in), static_cast<const float*>(m_in),
       static_cast<const TW*>(w_in), static_cast<float*>(d_out),
       static_cast<float*>(v_out), static_cast<float*>(m_out),
-      static_cast<TW*>(w_out), n, vec, p, alpha_dev);
+      static_cast<TW*>(w_out), n, p, alpha_dev);
 }
 
 template <int MODE>
 int dispatch_types(int g_dtype, int w_dtype, const void* g, const void* d_in,
                    const void* v_in, const void* m_in, const void* w_in,
                    void* d_out, void* v_out, void* m_out, void* w_out,
-                   int64_t n, int vec, const Params& p, const float* a_dev,
+                   int64_t n, const Params& p, const float* a_dev,
                    cudaStream_t s) {
   if (g_dtype == F32 && w_dtype == F32)
-    launch<MODE, float, float>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a_dev, s);
+    launch<MODE, float, float>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, p, a_dev, s);
   else if (g_dtype == F32 && w_dtype == BF16)
-    launch<MODE, float, __nv_bfloat16>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a_dev, s);
+    launch<MODE, float, __nv_bfloat16>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, p, a_dev, s);
   else if (g_dtype == BF16 && w_dtype == F32)
-    launch<MODE, __nv_bfloat16, float>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a_dev, s);
+    launch<MODE, __nv_bfloat16, float>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, p, a_dev, s);
   else if (g_dtype == BF16 && w_dtype == BF16)
-    launch<MODE, __nv_bfloat16, __nv_bfloat16>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a_dev, s);
+    launch<MODE, __nv_bfloat16, __nv_bfloat16>(g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, p, a_dev, s);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -226,22 +190,24 @@ int dispatch_types(int g_dtype, int w_dtype, const void* g, const void* d_in,
 }  // namespace
 
 extern "C" int repro_adaptive_update(
-    int mode, int g_dtype, int w_dtype, int vec, const void* g,
+    int mode, int g_dtype, int w_dtype, const void* g,
     const void* d_in, const void* v_in, const void* m_in, const void* w_in,
     void* d_out, void* v_out, void* m_out, void* w_out, long long n, float lr,
     float beta1, float gain, float beta2, float one_minus_beta2, float alpha,
     float inv_alpha, float eps, const void* alpha_dev, void* stream) {
   if (n <= 0) return 0;
+  if (n / kThreads >= 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;  // more blocks than a grid holds
   const Params p{lr, beta1, gain, beta2, one_minus_beta2, alpha, inv_alpha, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* a = static_cast<const float*>(alpha_dev);
   switch (mode) {
-    case ADAGRAD: return dispatch_types<ADAGRAD>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a, s);
-    case ADAM: return dispatch_types<ADAM>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a, s);
-    case AMSGRAD: return dispatch_types<AMSGRAD>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a, s);
-    case YOGI: return dispatch_types<YOGI>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a, s);
-    case MOMENTUM: return dispatch_types<MOMENTUM>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a, s);
-    case SGD: return dispatch_types<SGD>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, vec, p, a, s);
+    case ADAGRAD: return dispatch_types<ADAGRAD>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, p, a, s);
+    case ADAM: return dispatch_types<ADAM>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, p, a, s);
+    case AMSGRAD: return dispatch_types<AMSGRAD>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, p, a, s);
+    case YOGI: return dispatch_types<YOGI>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, p, a, s);
+    case MOMENTUM: return dispatch_types<MOMENTUM>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, p, a, s);
+    case SGD: return dispatch_types<SGD>(g_dtype, w_dtype, g, d_in, v_in, m_in, w_in, d_out, v_out, m_out, w_out, n, p, a, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

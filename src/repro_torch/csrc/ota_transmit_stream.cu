@@ -56,39 +56,39 @@
 // and puts the counter back to 0 for the next launch. No float atomics.
 // With S = 1 the block writes out itself and touches neither.
 //
-// Loads (the bulk path: d % 4 == 0 and G 16-byte aligned). One thread
-// issues a 1-D bulk asynchronous copy (cp.async.bulk, the TMA's
-// contiguous form) for each row of the tile (2 KB) into a ring of 4
-// stages of 8 rows (64 KB), each stage completing on an mbarrier; the
-// threads add from shared memory and, once every thread is done with a
-// stage, the same thread refills it. So 48-64 KB are in flight per block
-// whatever the compiler does with the loop, and h comes into shared
-// memory beside it, 1024 rows at a time. G is read once, so its L2 lines
-// come in evict-first: the stream replaces its own lines and not the
-// rest of L2 (h, the carry, other kernels' data, lines still to be
-// written back). The scalar path (d % 4 != 0 or G not 16-byte aligned)
-// reads G with plain loads, thread t on columns t, t + 128, t + 256,
-// t + 384 of the tile, in the same order.
+// Loads (the bulk path: d % 4 == 0 and G 16-byte aligned): the bulk-copy
+// row ring of ota_ring.cuh, shared with the channel kernel: one thread
+// copies each 2 KB row of the tile into a ring of 4 stages of 8 rows
+// (64 KB), each stage completing on an mbarrier, so 48-64 KB are in
+// flight per block; G's lines come in evict-first; h comes into shared
+// memory beside it, 1024 rows at a time. The scalar path (d % 4 != 0 or
+// G not 16-byte aligned) reads G with plain loads, thread t on columns
+// t, t + 128, t + 256, t + 384 of the tile, in the same order.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ota_ring.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kTileCols = 512;          // 4 columns a thread
 constexpr int kRowBytes = kTileCols * 4;  // a row of a tile: 2 KB
-constexpr int kStageRows = 8;
-constexpr int kStageBytes = kStageRows * kRowBytes;  // 16 KB
-// 64 KB of shared memory a block: the ring, then (S > 1) the fold's
-// buffer of kFoldRows partial rows; 3 blocks fit an SM.
-constexpr int kSmemBytes = 64 * 1024;
-constexpr int kStages = kSmemBytes / kStageBytes;
-constexpr int kFoldRows = kSmemBytes / kRowBytes;
-// h of kHRows rows at a time, staged in shared memory (the bulk path).
+// 64 KB of shared memory a block: the ring of 4 stages of 8 rows, then
+// (S > 1) the fold's buffer of kFoldRows partial rows; 3 blocks fit an
+// SM. h comes into shared memory 1024 rows at a time (the bulk path).
+constexpr int kStages = 4;
 constexpr int kHRows = 1024;
-static_assert(kHRows % kStageRows == 0, "h chunks end on stage ends");
-constexpr long long kWaitCycles = 20000000000LL;  // ~10 s: a lost barrier
+using Ring = ota_ring::Ring<kTileCols, 8, kStages, kHRows>;
+constexpr int kSmemBytes = Ring::kBytes;
+constexpr int kFoldRows = kSmemBytes / kRowBytes;
+using ota_ring::bulk_load;
+using ota_ring::evict_first_policy;
+using ota_ring::mbar_expect_tx;
+using ota_ring::mbar_init;
+using ota_ring::mbar_wait;
+using ota_ring::smem_u32;
 
 struct Args {
   const float* G;
@@ -105,76 +105,6 @@ struct Args {
   int n_seg;
   float n_total;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Wait for the phase of the given parity to complete. A barrier that
-// never completes (a fault in this file) traps after ~10 s instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  const long long t0 = clock64();
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > kWaitCycles) __trap();
-  } while (!done);
-}
-
-// An L2 policy that marks the lines it brings in evict-first.
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t pol;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;"
-               : "=l"(pol));
-  return pol;
-}
-
-// One contiguous copy of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from device memory into shared memory, completing on bar,
-// its L2 lines under the policy `pol`.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar,
-                                          uint64_t pol) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1], %2, [%3], %4;" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar), "l"(pol)
-      : "memory");
-}
-
-// Rows [r, r + n) of the tile (columns from `tile`) into stage s of the
-// ring.
-__device__ __forceinline__ void issue_stage(const float* tile, int64_t d,
-                                            uint32_t ring, uint32_t bars,
-                                            int s, int r, int n,
-                                            uint32_t row_bytes,
-                                            uint64_t pol) {
-  const uint32_t bar = bars + 8 * s;
-  mbar_expect_tx(bar, n * row_bytes);
-  for (int k = 0; k < n; ++k)
-    bulk_load(ring + (s * kStageRows + k) * kRowBytes,
-              tile + (int64_t)(r + k) * d, row_bytes, bar, pol);
-}
 
 // How a block reads its rows of G.
 enum Load { kScalar = 0, kBulk = 1 };
@@ -219,62 +149,25 @@ __global__ void __launch_bounds__(kThreads)
 
   const uint64_t pol = evict_first_policy();  // G and the partials: read once
   if (LOAD == kBulk) {
-    const uint32_t ring_s = smem_u32(ring);
-    const uint32_t bars = smem_u32(full);
-    const uint32_t row_bytes = (uint32_t)width * 4u;
-    const int n_st = (row1 - row0 + kStageRows - 1) / kStageRows;
-    if (tid == 0) {
-      for (int s = 0; s < kStages; ++s) mbar_init(bars + 8 * s, 1);
-      asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-      for (int i = 0; i < n_st && i < kStages; ++i) {
-        const int r = row0 + i * kStageRows;
-        issue_stage(a.G + tile0, a.d, ring_s, bars, i, r,
-                    row1 - r < kStageRows ? row1 - r : kStageRows, row_bytes,
-                    pol);
-      }
-    }
-    for (int k = tid; k < row1 - row0 && k < kHRows; k += kThreads)
-      h_s[k] = a.h[row0 + k];
-    __syncthreads();
-    for (int i = 0; i < n_st; ++i) {
-      const int s = i % kStages;
-      const int r = row0 + i * kStageRows;
-      const int nr = row1 - r < kStageRows ? row1 - r : kStageRows;
-      if (i > 0 && (r - row0) % kHRows == 0) {  // the next rows' h
-        for (int k = tid; k < row1 - r && k < kHRows; k += kThreads)
-          h_s[k] = a.h[r + k];
-        __syncthreads();
-      }
-      mbar_wait(bars + 8 * s, (uint32_t)(i / kStages) & 1u);
-      const float* st = ring + s * kStageRows * kTileCols + 4 * tid;
-      for (int k = 0; k < nr; ++k) {
-        const int row = r + k;
-        if (row == next) {  // a piece ends: it lands on the partial
+    Ring::stream_rows<kThreads>(
+        a.G + tile0, a.h, a.d, width, row0, row1, ring, full, h_s, pol,
+        [&](int row, float hv, const float* st) {
+          if (row == next) {  // a piece ends: it lands on the partial
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            segp[j] = segp[j] + part[j] / a.n_total;
-            part[j] = 0.f;
+            for (int j = 0; j < 4; ++j) {
+              segp[j] = segp[j] + part[j] / a.n_total;
+              part[j] = 0.f;
+            }
+            next = next + a.row_chunk < row1 ? next + a.row_chunk : row1;
           }
-          next = next + a.row_chunk < row1 ? next + a.row_chunk : row1;
-        }
-        const float hv = h_s[(row - row0) % kHRows];
-        if (on) {
-          const float4 g =
-              *reinterpret_cast<const float4*>(st + k * kTileCols);
-          part[0] = part[0] + hv * g.x;
-          part[1] = part[1] + hv * g.y;
-          part[2] = part[2] + hv * g.z;
-          part[3] = part[3] + hv * g.w;
-        }
-      }
-      __syncthreads();  // every thread is done with stage s
-      if (tid == 0 && i + kStages < n_st) {
-        const int rn = r + kStages * kStageRows;
-        issue_stage(a.G + tile0, a.d, ring_s, bars, s, rn,
-                    row1 - rn < kStageRows ? row1 - rn : kStageRows,
-                    row_bytes, pol);
-      }
-    }
+          if (on) {
+            const float4 g = *reinterpret_cast<const float4*>(st + 4 * tid);
+            part[0] = part[0] + hv * g.x;
+            part[1] = part[1] + hv * g.y;
+            part[2] = part[2] + hv * g.z;
+            part[3] = part[3] + hv * g.w;
+          }
+        });
   } else {
     // Plain loads, a piece at a time.
     for (int c0 = row0; c0 < row1;) {

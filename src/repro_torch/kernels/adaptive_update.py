@@ -91,8 +91,6 @@ def adaptive_update_slab(g: torch.Tensor, delta: Optional[torch.Tensor],
 
     outs = {k: torch.empty_like(state[k]) for k in names}
     w_out = torch.empty_like(w)
-    ptrs = [g, w] + [state[k] for k in names] + list(outs.values()) + [w_out]
-    vec = int(all(t.data_ptr() % 16 == 0 for t in ptrs))
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -113,7 +111,7 @@ def adaptive_update_slab(g: torch.Tensor, delta: Optional[torch.Tensor],
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream(g.device).cuda_stream
         code = lib.repro_adaptive_update(
-            MODES.index(mode), _DTYPE_ID[g.dtype], _DTYPE_ID[w.dtype], vec,
+            MODES.index(mode), _DTYPE_ID[g.dtype], _DTYPE_ID[w.dtype],
             ptr(g), ptr(state["delta"] if "delta" in names else None),
             ptr(state["nu"] if "nu" in names else None),
             ptr(state["nu_max"] if "nu_max" in names else None), ptr(w),

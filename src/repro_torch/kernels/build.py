@@ -1,12 +1,13 @@
 """Build the port's CUDA kernels and bind them with ctypes.
 
-Each source under ``src/repro_torch/csrc/`` (``SOURCES``; the shared
-header ``ota_common.cuh`` is included by two of them) is compiled by its
-own ``nvcc`` process for ``sm_90a`` (all started together), and the objects
-are linked into one shared library with a plain C interface under
-``<repo>/build/kernels/``. The library's name carries a hash of the
-sources, headers and flags, so an edited source is rebuilt at its first use and
-an unchanged one is loaded as built. Nothing is built at import time:
+Each source under ``src/repro_torch/csrc/`` (``SOURCES``; the OTA
+kernels include the shared headers ``ota_common.cuh`` and
+``ota_ring.cuh``) is compiled by its own ``nvcc`` process for ``sm_90a``
+(all started together), and the objects are linked into one shared
+library with a plain C interface under ``<repo>/build/kernels/``. The
+library's name carries a hash of the sources, headers and flags, so an
+edited source is rebuilt at its first use and an unchanged one is loaded
+as built. Nothing is built at import time:
 ``load_library()`` builds on first call.
 
 Flags: every source gets ``NVCC_FLAGS``, ``-O3`` with precise math (no
@@ -43,7 +44,7 @@ SOURCE_FLAGS = {"adaptive_update.cu": EXACT, "ota_channel.cu": EXACT,
                 "ota_receive.cu": EXACT, "flash_attention.cu": (),
                 "flash_attention_sm90.cu": ()}
 SOURCES = tuple(SOURCE_FLAGS)
-HEADERS = ("ota_common.cuh",)
+HEADERS = ("ota_common.cuh", "ota_ring.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -116,11 +117,11 @@ def load_library() -> ctypes.CDLL:
     argument and result types declared."""
     lib = ctypes.CDLL(str(build()))
     vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-    lib.repro_adaptive_update.argtypes = ([i] * 4 + [vp] * 9 + [ll] + [f] * 8
+    lib.repro_adaptive_update.argtypes = ([i] * 3 + [vp] * 9 + [ll] + [f] * 8
                                           + [vp, vp])
     lib.repro_adaptive_update.restype = i
-    lib.repro_ota_channel.argtypes = ([i, i] + [vp] * 6 + [i, ll, f, f]
-                                      + [f] * 6 + [i, i, vp])
+    lib.repro_ota_channel.argtypes = ([i] + [vp] * 6 + [i, ll, f, f]
+                                      + [f] * 6 + [i, vp])
     lib.repro_ota_channel.restype = i
     lib.repro_ota_transmit.argtypes = ([i] + [vp] * 7
                                        + [ctypes.c_ulonglong, i, ll, f, vp])

@@ -46,11 +46,16 @@ from repro_torch.kernels.ref import (INT8_MAX, LANE, ota_channel_ref,
                                      pack_sign_slab, sign_words,
                                      unpack_sign_slab)
 
-__all__ = ["INT8_MAX", "LANE", "ota_channel_slab", "ota_receive_slab",
+__all__ = ["CHANNEL_TILE", "INT8_MAX", "LANE", "channel_blocks",
+           "ota_channel_slab", "ota_receive_slab",
            "ota_transmit_slab", "ota_transmit_split_model", "pack_sign_slab",
            "row_split", "segment_rows", "sign_words", "unpack_sign_slab"]
 
-THREADS = 128     # threads per block; each owns `vec` adjacent columns
+# The channel kernel (csrc/ota_channel.cu): a block owns CHANNEL_TILE
+# columns and streams every row through them (4 warps, 4 columns a
+# thread) while 8 more warps compute the CMS term; one statistics row a
+# block.
+CHANNEL_TILE = 512
 # The transmit and receive kernels: 128 threads a block, 4 columns a
 # thread (csrc/ota_transmit.cu, csrc/ota_receive.cu).
 WIRE_COLS_PER_BLOCK = 512
@@ -93,9 +98,7 @@ def ota_channel_slab(grads: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
         n_total = n
 
     out = torch.empty((d,), dtype=torch.float32, device=grads.device)
-    vec = 4 if (d % 4 == 0 and all(t.data_ptr() % 16 == 0
-                                   for t in (grads, out))) else 1
-    blocks = -(-d // (THREADS * vec))
+    blocks = channel_blocks(d)
     rows = (torch.empty((blocks, 3), dtype=torch.float32, device=grads.device)
             if pilot_stats else None)
     a = float(alpha)
@@ -103,11 +106,11 @@ def ota_channel_slab(grads: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
     with torch.cuda.device(grads.device):
         stream = torch.cuda.current_stream(grads.device).cuda_stream
         code = lib.repro_ota_channel(
-            vec, int(pilot_stats), grads.data_ptr(), h.data_ptr(),
+            int(pilot_stats), grads.data_ptr(), h.data_ptr(),
             u.data_ptr(), e.data_ptr(), out.data_ptr(),
             rows.data_ptr() if pilot_stats else None, n, d, float(n_total),
             float(scale), a, 1.0 / a, 1.0 - a, (1.0 - a) / a, CMS_U_BOUND,
-            CMS_E_FLOOR, THREADS, blocks, stream)
+            CMS_E_FLOOR, blocks, stream)
     build.check(code, "ota_channel_slab")
     ota_channel_slab.launches += 1
     if pilot_stats:
@@ -116,6 +119,12 @@ def ota_channel_slab(grads: torch.Tensor, h: torch.Tensor, u: torch.Tensor,
 
 
 ota_channel_slab.launches = 0
+
+
+def channel_blocks(d: int) -> int:
+    """Blocks of a channel-kernel launch over d columns, one column tile
+    each; also the rows of its (blocks, 3) statistics buffer."""
+    return -(-d // CHANNEL_TILE)
 
 
 def _check_operand(name: str, t: torch.Tensor, shape, dtype, dev,

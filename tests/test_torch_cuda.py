@@ -104,6 +104,39 @@ def test_adaptive_update_kernel_matches_plain(cuda, mode, dtype, offset):
                              <= step)
 
 
+@pytest.mark.parametrize("d", [175104, 4096])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adaptive_update_kernel_at_the_round_slabs(cuda, d, dtype):
+    """The resident round's slab and the million-client stream's, every
+    mode and alpha, aligned and 3 elements off 16-byte alignment."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    for offset in (0, 3):
+        def r(scale=1.0):
+            return (torch.randn(d + offset, generator=gen, device=cuda)
+                    * scale)[offset:]
+        g, w = r().to(dtype), r().to(dtype)
+        delta, nu = r(0.1), r(0.01).abs()
+        nu_max = nu + r(0.01).abs()
+        delta[::17] = 0.0
+        for mode in MODES:
+            for alpha in (1.2, 1.5, 2.0):
+                kw = dict(lr=0.01, beta1=0.9, beta2=0.3, alpha=alpha,
+                          eps=1e-8, mode=mode,
+                          nu_max=nu_max if mode == "amsgrad" else None)
+                got = adaptive_update_slab(g, delta, nu, w, **kw)
+                want = adaptive_update_ref(g, delta, nu, w, **kw)
+                torch.cuda.synchronize()
+                for a, b in zip(got[:-1], want[:-1]):
+                    _close(a, b)
+                if dtype == torch.float32:
+                    _close(got[-1], want[-1])
+                else:
+                    step = 2.0 ** -7 * want[-1].float().abs().clamp_min(
+                        2.0 ** -126)
+                    assert torch.all((got[-1].float() - want[-1].float())
+                                     .abs() <= step)
+
+
 @pytest.mark.parametrize("shape", [(50, 175104), (7, 1001), (1500, 256)])
 @pytest.mark.parametrize("pilot_stats", [False, True])
 def test_ota_channel_kernel_matches_plain(cuda, shape, pilot_stats):
@@ -125,6 +158,58 @@ def test_ota_channel_kernel_matches_plain(cuda, shape, pilot_stats):
             _close(gs, ws, 1e-5)
         _close(got, want)
         assert torch.all(got[-64:] == 0.0)
+
+
+@pytest.mark.parametrize("shape", [(1, 175104), (1, 4096), (2000, 4096),
+                                   (37, 4097)])
+@pytest.mark.parametrize("pilot_stats", [False, True])
+def test_ota_channel_kernel_at_the_streamed_and_edge_shapes(cuda, shape,
+                                                          pilot_stats):
+    """The streamed finishes (one row, h = 1, n_total = 1), h in two
+    chunks of the kernel's 1024 rows, and d % 4 != 0 (plain loads)."""
+    n, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(n + d)
+    grads = torch.randn(n, d, generator=gen, device=cuda)
+    h = (torch.ones(n, device=cuda) if n == 1 else
+         0.5 + torch.rand(n, generator=gen, device=cuda))
+    u = (2 * torch.rand(d, generator=gen, device=cuda) - 1) * CMS_U_BOUND
+    e = -torch.log(torch.rand(d, generator=gen, device=cuda))
+    grads[:, -38:], u[-38:], e[-38:] = 0.0, 0.0, 1.0
+    kw = dict(alpha=1.5, scale=0.1, pilot_stats=pilot_stats,
+              n_total=1 if n == 1 else None)
+    n0 = ota_channel_slab.launches
+    got = ota_channel_slab(grads, h, u, e, **kw)
+    want = ota_channel_ref(grads, h, u, e, **kw)
+    torch.cuda.synchronize()
+    assert ota_channel_slab.launches == n0 + 1
+    if pilot_stats:
+        (got, gs), (want, ws) = got, want
+        assert float(gs[0]) == float(ws[0]) == d - 38
+        _close(gs, ws, 1e-5)
+    _close(got, want)
+    assert torch.all(got[-38:] == 0.0)
+
+
+@pytest.mark.parametrize("n, d", [(50, 175104), (2000, 4096), (1, 4096)])
+def test_ota_channel_kernel_with_scale_zero_is_the_transmit_sum(cuda, n, d):
+    """Scale 0: the channel kernel's sum is the accumulating transmit's
+    no-carry sum, bitwise (both walk the same ring in row order), and
+    its bulk-copy ring and plain loads (G 4 bytes off a 16-byte
+    boundary) agree bitwise."""
+    gen = torch.Generator(device=cuda).manual_seed(n * d)
+    grads = torch.randn(n, d, generator=gen, device=cuda)
+    h = 0.5 + torch.rand(n, generator=gen, device=cuda)
+    u = (2 * torch.rand(d, generator=gen, device=cuda) - 1) * CMS_U_BOUND
+    e = -torch.log(torch.rand(d, generator=gen, device=cuda))
+    z, o = torch.zeros(d, device=cuda), torch.ones(d, device=cuda)
+    for kw in (dict(), dict(n_total=n + 3)):
+        assert torch.equal(ota_channel_slab(grads, h, z, o, alpha=1.5,
+                                            scale=0.0, **kw),
+                           ota_transmit_slab(grads, h, **kw))
+    off = torch.empty(n * d + 1, device=cuda)[1:].view(n, d)
+    off.copy_(grads)
+    assert torch.equal(ota_channel_slab(grads, h, u, e, alpha=1.5, scale=0.1),
+                       ota_channel_slab(off, h, u, e, alpha=1.5, scale=0.1))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
@@ -300,6 +385,28 @@ def test_update_kernel_with_device_alpha_matches_plain(cuda, mode):
             _close(x, y)
     with pytest.raises(ValueError, match="0-dim float32"):
         adaptive_update_slab(g, delta, nu, w, alpha=torch.tensor(1.5), **kw)
+
+
+def test_update_kernel_with_device_alpha_makes_no_host_sync(cuda):
+    """The kernel reads the tracked alpha where it lies: a launch under
+    sync_debug_mode("error") at the main path's slab."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    g, w = (torch.randn(175104, generator=gen, device=cuda)
+            for _ in range(2))
+    delta = 0.1 * torch.randn(175104, generator=gen, device=cuda)
+    nu = 0.01 * torch.rand(175104, generator=gen, device=cuda)
+    kw = dict(lr=0.01, beta1=0.9, beta2=0.3, eps=1e-8, mode="adam",
+              alpha=torch.tensor(1.5, device=cuda))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = adaptive_update_slab(g, delta, nu, w, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = adaptive_update_ref(g, delta, nu, w, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(got, want):
+        _close(x, y)
 
 
 def test_tracked_server_half_makes_no_host_sync(cuda):
