@@ -10,10 +10,11 @@ Phases, each printing its own line(s) before the last line:
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
    matrix products and convolutions (the reference computes in f32);
 2. build: nvcc builds the kernels from src/repro_torch/csrc, each source
-   by its own nvcc, all started together; the update (B1), channel (B2)
-   and accumulating transmit (B3b) kernels as compiled: registers,
-   shared memory and spills from the compiler's report (-Xptxas -v),
-   which must show no spill; then the Hopper flash-attention kernel
+   by its own nvcc, all started together; the update (B1), channel (B2),
+   accumulating transmit (B3b), quantize transmit (B3c) and receive (B4)
+   kernels as compiled: registers, shared memory and spills from the
+   compiler's report (-Xptxas -v), which must show no spill; then the
+   Hopper flash-attention kernel
    (D = 64 and 128): the same report (registers, which must be 168 for
    setmaxnreg's balance, spills), its dynamic shared memory, and a
    cuobjdump -sass count that must show wgmma (HGMMA) and TMA loads
@@ -32,10 +33,18 @@ Phases, each printing its own line(s) before the last line:
    (the last 38 columns zero, as the slab's padding): int8 with host
    stochastic rounding and round-to-nearest, sign and folded sign, each
    with and without error feedback; the in-kernel Philox rounding held
-   to one quantization step and to zero bias;
+   to one quantization step and to zero bias; then the plain quantizer
+   applied to the kernel's own sum (the accumulating transmit's no-carry
+   call + ef) at 50 x 175,104, 1 x 175,104 (the streamed finish: h = 1,
+   n_total = 1) and 7 x 640 (a last tile of one quantization block):
+   the int8 payload, scales and residual (host rounding, RTN) and the
+   sign payload bitwise, the sign scales and residuals at 1e-6;
 6. kernel ota_receive_slab against its plain version: R in {1, 3}, the
    int8 container and the fold / planes sign words, alpha in
-   {1.2, 1.5, 2.0}, pilot statistics on and off;
+   {1.2, 1.5, 2.0}, pilot statistics on and off; its grid resident in
+   one wave (blocks an SM from the occupancy API); with statistics one
+   launch (torch.profiler sees one kernel), the same bits in two runs;
+   1 x 640 with statistics;
 7. runtime alpha: adaptive_update_slab with alpha a device tensor,
    launched under torch.cuda.set_sync_debug_mode("error"), against its
    plain version, and the server half of a tracked round (the MAC with
@@ -50,11 +59,12 @@ Phases, each printing its own line(s) before the last line:
    adam_ota then adagrad_ota, 5 rounds each, through
    make_slab_round_runner + run_rounds_slab with the port's own draws.
    Every launch counter is set to 0 just before and read just after:
-   each kernel must have launched exactly once per round. Then three
+   each kernel must have launched exactly once per round. Then four
    wire runs of adam_ota, 5 rounds each, the counters set to 0 before
    and read after each: f32 uplink with alpha="auto"; int8 uplink with
    error feedback and the int8 downlink, alpha="auto"; folded sign with
-   error feedback, static alpha 1.5;
+   error feedback, static alpha 1.5; int8 with in-kernel rounding
+   (sr_inkernel) and error feedback, static alpha 1.5;
 10. kernel ota_transmit_slab(acc=, row_chunk=), the accumulating
    transmit of the streamed client axis, against its plain version:
    row_chunk None / 1 / 7 / N, the carry absent or random, n_total != N,
@@ -120,7 +130,9 @@ Phases, each printing its own line(s) before the last line:
    and a device sleep that covers the host's enqueue, of each kernel and
    its plain version at the main path's shapes (B1 also at d = 4096; B2
    at 50 x 175,104 in turns with B3b's no-carry call, with pilot
-   statistics, and at the streamed finishes 1 x 175,104 and 1 x 4096),
+   statistics, and at the streamed finishes 1 x 175,104 and 1 x 4096;
+   B3c at 50 x 175,104 in turns with B3b's no-carry call, with in-kernel
+   rounding, and at S3's finish 1 x 175,104; B4 with pilot statistics),
    beside the least time the card needs for the bytes or the operations
    and the launch floor (and, where one
    PyTorch call computes the same function, that call: torch.addmv for
@@ -254,10 +266,11 @@ def _ptxas_report(lib_path):
 
 def phase_build_report(build, lib_path):
     """The kernels as compiled. B1 (adaptive_update_kernel, 24
-    instances), B2 (ota_channel_kernel, 4) and B3b
-    (ota_transmit_stream_kernel, 2): registers, shared memory and
-    spills from the compiler's report (-Xptxas -v), which must show no
-    spill. The Hopper flash-attention kernels: the same report, their
+    instances), B2 (ota_channel_kernel, 4), B3b
+    (ota_transmit_stream_kernel, 2), B3c (ota_transmit_kernel, 5) and B4
+    (ota_receive_kernel, 6): registers, shared memory and spills from the
+    compiler's report (-Xptxas -v), which must show no spill. The Hopper
+    flash-attention kernels: the same report, their
     dynamic shared memory, and their SASS, which must hold wgmma (HGMMA)
     and TMA loads (UTMALDG); a register count other than HOPPER_REGS
     would unbalance setmaxnreg, so it fails here, before any launch."""
@@ -265,7 +278,8 @@ def phase_build_report(build, lib_path):
 
     full = _ptxas_report(lib_path)
     for kernel in ("adaptive_update_kernel", "ota_channel_kernel",
-                   "ota_transmit_stream_kernel"):
+                   "ota_transmit_stream_kernel", "ota_transmit_kernel",
+                   "ota_receive_kernel"):
         found = {fn: r for fn, r in full.items() if kernel in fn}
         check(len(found) > 0 and all("regs" in r for r in found.values()),
               f"no compiler report for {kernel}")
@@ -550,7 +564,65 @@ def phase_kernel_transmit(torch, dev, total):
           f"entries one step apart: {flips} of {cases * D_MAIN} (tol 0.1 %); "
           f"padding exact; in-kernel SR within one step, mean (q - x/s) = "
           f"{bias:.3e} vs 3 se {3 * se:.3e}; ok")
+    _check_transmit_composition(torch, dev, grads, h, r, ef)
     return worst
+
+
+def _check_transmit_composition(torch, dev, grads, h, r, ef):
+    """The kernel's output against the plain quantizer applied to its own
+    sum: x = the accumulating transmit's no-carry call + ef, and
+    ota_transmit_ref(x[None], 1, n_total=1) must give the kernel's int8
+    payload, scales and residual (host rounding, RTN) and its sign
+    payload bit for bit; the sign scales and residuals within 1e-6 rel +
+    1e-6 of scale (the warp sums |x| in another order than torch.mean).
+    At 50 x 175,104, at 1 x 175,104 as the streamed finish calls it
+    (h = 1, n_total = 1), and at 7 x 640 (a last tile of one
+    quantization block)."""
+    from repro_torch.kernels.ota_channel import ota_transmit_slab
+    from repro_torch.kernels.ref import ota_transmit_ref
+
+    one = torch.ones(1, device=dev)
+    small = slice(D_MAIN - 640, None)     # 640 columns, the padding last
+    shapes = ((f"{N_CLIENTS}x{D_MAIN}", grads, h, None, r, ef),
+              (f"1x{D_MAIN}", grads[:1], one, 1, r, ef),
+              ("7x640", grads[:7, small].contiguous(), h[:7], None,
+               r[small].contiguous(), ef[small].contiguous()))
+    modes = [("int8", True, False), ("int8", False, False),
+             ("sign", False, False), ("sign", False, True)]
+    worst, cases = 0.0, 0
+    for shape, g, hh, n_total, rr, ee in shapes:
+        x = ota_transmit_slab(g, hh, n_total=n_total) + ee
+        for qmode, stochastic, zero_fold in modes:
+            sr = qmode == "int8" and stochastic
+            kw = dict(quantize=True, r=rr if sr else None,
+                      stochastic=stochastic, qmode=qmode,
+                      zero_fold=zero_fold, return_residual=True)
+            got = ota_transmit_slab(g, hh, n_total=n_total, ef=ee, **kw)
+            want = ota_transmit_ref(x[None], one, n_total=1, **kw)
+            torch.cuda.synchronize()
+            what = (f"ota_transmit_slab {shape} {qmode} sr={stochastic} "
+                    f"fold={zero_fold}: the plain quantizer on its sum")
+            check(torch.equal(got[0], want[0]), f"{what}: payload differs "
+                  f"on {int((got[0] != want[0]).sum())} entries")
+            if qmode == "int8":
+                check(torch.equal(got[1], want[1]), f"{what}: scales")
+                check(torch.equal(got[2], want[2]), f"{what}: residual")
+            else:
+                scale = float(x.abs().max())
+                for a, b, name in ((got[1], want[1], "scales"),
+                                   (got[2], want[2], "residual")):
+                    err = (a - b).abs()
+                    check(bool(torch.all(err <= 1e-6 * b.abs()
+                                         + 1e-6 * scale)),
+                          f"{what}: {name} err {float(err.max())}")
+                    worst = max(worst, float(err.max()))
+            cases += 1
+    print(f"[kernel ota_transmit_slab] the plain quantizer on the kernel's "
+          f"own sum (the accumulating transmit's no-carry call + ef), at "
+          f"{', '.join(s[0] for s in shapes)}, {cases} cases: int8 payload, "
+          f"scales and residual and the sign payload bitwise; sign scales "
+          f"and residuals max_abs_err={worst:.3e} (tol 1e-6 rel + 1e-6 of "
+          f"scale); ok")
 
 
 def phase_kernel_receive(torch, dev, total):
@@ -607,6 +679,93 @@ def phase_kernel_receive(torch, dev, total):
           f"{worst:.3e} (tol 1e-6 rel + 1e-6 of scale); padding exactly 0 on "
           f"int8 and planes; stats max_rel_err={worst_stats:.3e} (tol 1e-5), "
           "count exact; ok")
+    return max(worst, _check_receive_grid(torch, dev, u, e, total))
+
+
+def _check_receive_grid(torch, dev, u, e, total):
+    """The receive kernel's grid and its statistics fold: every instance
+    resident in one wave at the main path's slab (blocks an SM x SMs >=
+    receive_blocks); with pilot statistics one launch (the profiler sees
+    one kernel: no second launch sums the blocks' rows), the same bits in
+    two runs, the ticket counter back at 0; and 640 columns (R = 1, two
+    quantization blocks of padding) against the plain version. Returns
+    the largest output error."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ota_channel import (_PACKED, _TILE_COUNTERS,
+                                                 RECEIVE_THREADS,
+                                                 ota_receive_slab,
+                                                 pack_sign_slab,
+                                                 receive_blocks, sm_count)
+    from repro_torch.kernels.ref import ota_receive_ref
+
+    lib = build.load_library()
+    sms, blocks = sm_count(dev.index), receive_blocks(D_MAIN)
+    per_sm = {(p, st): lib.repro_ota_receive_blocks_per_sm(_PACKED[p], st)
+              for p in _PACKED for st in (0, 1)}
+    check(all(n * sms >= blocks for n in per_sm.values()),
+          f"receive grid of {blocks} blocks not resident on {sms} SMs: "
+          f"blocks an SM {per_sm}")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    s = torch.rand(1, D_MAIN // 128, generator=gen, device=dev)
+    q = torch.randint(-127, 128, (1, D_MAIN), generator=gen, device=dev,
+                      dtype=torch.int8)
+    q[:, total:] = 0
+    worst = 0.0
+    for packed, payload in ((None, q), ("fold", pack_sign_slab(
+            torch.where(q < 0, -1, 1).to(torch.int8)))):
+        kw = dict(alpha=1.5, scale=0.1, packed=packed, pilot_stats=True)
+        first = ota_receive_slab(payload, s, u, e, **kw)
+        n0 = ota_receive_slab.launches
+        _, dev_ev = _profile_run(torch, lambda: ota_receive_slab(
+            payload, s, u, e, **kw))
+        names = [a.key for a in dev_ev for _ in range(a.count)]
+        check(ota_receive_slab.launches == n0 + 1 and len(names) == 1
+              and "ota_receive_kernel" in names[0],
+              f"receive with statistics ({packed}): kernels {names}")
+        again = ota_receive_slab(payload, s, u, e, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(first[0], again[0])
+              and torch.equal(first[1], again[1]),
+              f"receive with statistics ({packed}): runs differ")
+        check(all(int(c.abs().sum()) == 0 for c in _TILE_COUNTERS.values()),
+              "receive: ticket counter not back at 0")
+    d = 640
+    cols = slice(D_MAIN - d, None)
+    for packed in (None, "fold", "planes"):
+        q3 = torch.randint(-1, 2, (1, d), generator=gen, device=dev,
+                           dtype=torch.int8)
+        q3[:, d - 38:] = 0
+        payload = (torch.randint(-127, 128, (1, d), generator=gen,
+                                 device=dev, dtype=torch.int8)
+                   if packed is None else pack_sign_slab(
+                       torch.where(q3 < 0, -1, 1).to(torch.int8)
+                       if packed == "fold" else q3,
+                       planes=packed == "planes"))
+        if packed is None:
+            payload[:, d - 38:] = 0
+        sd = s[:, :d // 128].contiguous()
+        ud, ed = u[cols].contiguous(), e[cols].contiguous()
+        kw = dict(alpha=1.5, scale=0.1, packed=packed, pilot_stats=True)
+        (got, gs), (want, ws) = (ota_receive_slab(payload, sd, ud, ed, **kw),
+                                 ota_receive_ref(payload, sd, ud, ed, **kw))
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        check(bool(torch.all(err <= 1e-6 * want.abs() + 1e-6
+                             * float(want.abs().max()))),
+              f"ota_receive_slab 1x{d} {packed}: max err {float(err.max())}")
+        rel = float(((gs - ws).abs() / ws.abs().clamp_min(1)).max())
+        check(float(gs[0]) == float(ws[0]) and rel <= 1e-5,
+              f"ota_receive_slab 1x{d} {packed}: stats {gs.tolist()} vs "
+              f"{ws.tolist()}")
+        worst = max(worst, float(err.max()))
+    print(f"[kernel ota_receive_slab] grid: {blocks} blocks of "
+          f"{RECEIVE_THREADS} threads at d={D_MAIN}, resident in one wave "
+          f"({min(per_sm.values())}-"
+          f"{max(per_sm.values())} blocks an SM x {sms} SMs); with pilot "
+          f"statistics one launch (int8, fold), the same bits in two runs, "
+          f"the ticket counter back at 0; 1x640 int8 / fold / planes with "
+          f"statistics max_abs_err={worst:.3e} (tol 1e-6 rel + 1e-6 of "
+          f"scale); ok")
     return worst
 
 
@@ -765,12 +924,13 @@ def phase_reference_wire(torch, np):
                       for k, v in worst.items()) + " (tier 1e-5); ok")
 
 
-WIRE_RUNS = ("f32-auto", "int8-ef-dl8-auto", "sign-fold-ef")
+WIRE_RUNS = ("f32-auto", "int8-ef-dl8-auto", "sign-fold-ef", "int8-srk-ef")
 
 
 def phase_wire_runs(torch, np, dev, counters):
-    """Three runs of the main path on the wire's configurations. Every
-    counter is set to 0 just before each run and read just after."""
+    """Four runs of the main path on the wire's configurations. Every
+    counter is set to 0 just before each run and read just after.
+    Returns the launches over all of them and those of each run."""
     from repro_torch.core.adaptive import AdaptiveConfig
     from repro_torch.core.channel import OTAChannelConfig, UplinkConfig
     from repro_torch.core.draws import TorchDraws
@@ -798,8 +958,16 @@ def phase_wire_runs(torch, np, dev, counters):
                                                  sign_pack="fold")), 1.5,
             {"ota_transmit_slab", "ota_receive_slab",
              "adaptive_update_slab"}),
+        # the transmit kernel draws its own rounding uniforms (Philox)
+        "int8-srk-ef": (
+            OTAChannelConfig(uplink=UplinkConfig(mode="int8",
+                                                 error_feedback=True,
+                                                 sr_inkernel=True)), 1.5,
+            {"ota_transmit_slab", "ota_receive_slab",
+             "adaptive_update_slab"}),
     }
     totals = {c.__name__: 0 for c in counters}
+    by_run = {}
     for name in WIRE_RUNS:
         ch, alpha, launched = configs[name]
         ad = AdaptiveConfig(optimizer="adam_ota", lr=0.01, alpha=alpha)
@@ -822,6 +990,7 @@ def phase_wire_runs(torch, np, dev, counters):
         counts = {c.__name__: c.launches for c in counters}
         want = {k: ROUNDS if k in launched else 0 for k in counts}
         check(counts == want, f"{name}: launches {counts}, want {want}")
+        by_run[name] = counts
         for k, v in counts.items():
             totals[k] += v
         losses = [x["loss"] for x in hist]
@@ -847,7 +1016,7 @@ def phase_wire_runs(torch, np, dev, counters):
               + " ".join(f"{x:.4f}" for x in losses)
               + f"; {ms:.2f} ms/round (host clock, synchronized); launches "
               f"{counts}{extra}; ok")
-    return totals
+    return totals, by_run
 
 
 def phase_main_path(torch, np, dev, counters):
@@ -1856,10 +2025,37 @@ def phase_times(torch, dev):
     tkw = dict(quantize=True, r=r, ef=ef, return_residual=True)
     bytes_t = 4 * n * d + 4 * n + 3 * 4 * d + d + 4 * (d // 128)
     ops_t = 2 * n * d + 8 * d
+    # in turns with the accumulating transmit's no-carry call (the same
+    # rows through the same ring, no epilogue)
+    b3c, b3b = _in_turns(torch, flush, [
+        lambda: ota_transmit_slab(grads, h, **tkw),
+        lambda: ota_transmit_slab(grads, h)])
+    ms = statistics.median(b3c)
+    print(f"[times] ota_transmit_slab {n}x{d} (int8, host rounding, EF, "
+          f"residual) and {STREAM}'s no-carry call, in turns: "
+          + " ".join(f"{t:.4f}" for t in b3c) + " ms against "
+          + " ".join(f"{t:.4f}" for t in b3b) + " ms: "
+          f"{1e3 * (ms - statistics.median(b3b)):.2f} us over it")
     rows["ota_transmit_slab"] = (
-        _median_ms(torch, lambda: ota_transmit_slab(grads, h, **tkw), flush),
+        ms,
         _median_ms(torch, lambda: ota_transmit_ref(grads, h, **tkw), flush),
         bytes_t, ops_t)
+    # in-kernel rounding: no r to read, a Philox draw a 4-column group
+    # (about 40 integer operations); its plain version takes r (it has no
+    # Philox), the same work otherwise
+    skw = dict(quantize=True, ef=ef, return_residual=True)
+    rows["ota_transmit_slab sr_seed"] = (
+        _median_ms(torch, lambda: ota_transmit_slab(grads, h, sr_seed=7,
+                                                    **skw), flush),
+        rows["ota_transmit_slab"][1], bytes_t - 4 * d, ops_t + 10 * d)
+    # S3's quantized finish: one row, h = 1, n_total = 1
+    g1, h1 = grads[:1], torch.ones(1, device=dev)
+    rows[f"ota_transmit_slab 1x{d}"] = (
+        _median_ms(torch, lambda: ota_transmit_slab(g1, h1, n_total=1, **tkw),
+                   flush),
+        _median_ms(torch, lambda: ota_transmit_ref(g1, h1, n_total=1, **tkw),
+                   flush),
+        4 * d + 4 + 3 * 4 * d + d + 4 * (d // 128), 2 * d + 8 * d)
     # receive, R = 1: reads q (int8, or 1 bit a column packed), s, u, e;
     # writes out; 2 an entry to dequantize and about 12 for the CMS
     # transform.
@@ -1874,6 +2070,16 @@ def phase_times(torch, dev):
         _median_ms(torch, lambda: ota_receive_slab(q, s, u, e, **rkw), flush),
         _median_ms(torch, lambda: ota_receive_ref(q, s, u, e, **rkw), flush),
         bytes_r, ops_r)
+    # with pilot statistics: + 12 bytes out, and a log, a square and 3
+    # adds a column; the wrapper's whole call (one launch since the fold
+    # moved into the kernel; two before, the kernel and a torch.sum)
+    rows["ota_receive_slab stats"] = (
+        _median_ms(torch, lambda: ota_receive_slab(q, s, u, e,
+                                                   pilot_stats=True, **rkw),
+                   flush),
+        _median_ms(torch, lambda: ota_receive_ref(q, s, u, e,
+                                                  pilot_stats=True, **rkw),
+                   flush), bytes_r + 12, ops_r + 6 * d)
     rows["ota_receive_slab fold"] = (
         _median_ms(torch, lambda: ota_receive_slab(words, s, u, e,
                                                    packed="fold", **rkw),
@@ -2046,7 +2252,8 @@ def main() -> int:
                                Counter(ota_transmit_slab, "stream_launches",
                                        STREAM))
     launches[STREAM] = 0
-    wire_launches = phase_wire_runs(torch, np, dev, all_counters)
+    wire_launches, wire_by_run = phase_wire_runs(torch, np, dev,
+                                                 all_counters)
     stream_launches = phase_streamed_runs(torch, np, dev, all_counters)
     million_launches = phase_million(torch, dev, all_counters)
     for part in (wire_launches, stream_launches, million_launches):
@@ -2064,6 +2271,18 @@ def main() -> int:
         million_launches["ota_channel_slab"]
     launches[f"adaptive_update_slab d={D_MILLION}"] = \
         million_launches["adaptive_update_slab"]
+    # the quantized wire by variant: the transmit at 50 x 175,104 with
+    # host rounding or the sign quantizer, with in-kernel rounding, and
+    # S3's one-row finish; the receive with pilot statistics (the
+    # alpha="auto" runs) and without
+    tx, rx = "ota_transmit_slab", "ota_receive_slab"
+    launches[f"{tx} sr_seed"] = wire_by_run["int8-srk-ef"][tx]
+    launches[tx] = wire_launches[tx] - launches[f"{tx} sr_seed"]
+    launches[f"{tx} 1x{D_MAIN}"] = stream_launches[tx]
+    launches[f"{rx} stats"] = (wire_by_run["int8-ef-dl8-auto"][rx]
+                               + stream_launches[rx])
+    launches[rx] = wire_launches[rx] + stream_launches[rx] - \
+        launches[f"{rx} stats"]
     from repro_torch.kernels.flash_attention import flash_attention
     hopper = Counter(flash_attention, "hopper_launches", f"{FLASH} hopper")
     for arch in FLASH_MODEL_SHAPES:
@@ -2076,6 +2295,8 @@ def main() -> int:
 
     b1 = ("adaptive_update.cu", "src/repro/kernels/adaptive_update.py:188")
     b2 = ("ota_channel.cu", "src/repro/kernels/ota_channel.py:222")
+    b3c = ("ota_transmit.cu", "src/repro/kernels/ota_channel.py:527")
+    b4 = ("ota_receive.cu", "src/repro/kernels/ota_channel.py:679")
     rows = (("adaptive_update_slab", *b1, err_update[D_MAIN]),
             (f"adaptive_update_slab d={D_MILLION}", *b1,
              err_update[D_MILLION]),
@@ -2083,10 +2304,11 @@ def main() -> int:
             (f"ota_channel_slab 1x{D_MAIN}", *b2, err_channel[(1, D_MAIN)]),
             (f"ota_channel_slab 1x{D_MILLION}", *b2,
              err_channel[(1, D_MILLION)]),
-            ("ota_transmit_slab", "ota_transmit.cu",
-             "src/repro/kernels/ota_channel.py:527", err_transmit),
-            ("ota_receive_slab", "ota_receive.cu",
-             "src/repro/kernels/ota_channel.py:679", err_receive),
+            ("ota_transmit_slab", *b3c, err_transmit),
+            ("ota_transmit_slab sr_seed", *b3c, err_transmit),
+            (f"ota_transmit_slab 1x{D_MAIN}", *b3c, err_transmit),
+            ("ota_receive_slab", *b4, err_receive),
+            ("ota_receive_slab stats", *b4, err_receive),
             (f"{STREAM} {N_CLIENTS}x{D_MAIN}", "ota_transmit_stream.cu",
              "src/repro/kernels/ota_channel.py:447", err_stream),
             (f"{STREAM} {CHUNK_MILLION}x{D_MILLION}", "ota_transmit_stream.cu",

@@ -1,4 +1,4 @@
-// Quantize-on-write OTA transmit: the faded partial sum of one
+// Quantize-on-write OTA transmit (B3c): the faded partial sum of one
 // transmitter's client gradients, quantized per 128-column block.
 //
 // Replaces the TPU kernel src/repro/kernels/ota_channel.py,
@@ -14,34 +14,67 @@
 // Stochastic rounding takes its uniforms r either from the host (a (d,)
 // f32 draw, the parity oracle's) or, with in-kernel draws, from a
 // Philox4x32-10 generator written out below: keyed by the 64-bit seed,
-// counter = the thread's 4-column group, the low 24 bits of each word
-// times 2^-24 as the uniform. That is the twin of the TPU kernel's pltpu
-// PRNG path; its contract against the host-drawn plain version is one
-// quantization step per entry, not bitwise.
+// counter = the 4-column group (global column / 4), the low 24 bits of
+// each word times 2^-24 as the uniform. That is the twin of the TPU
+// kernel's pltpu PRNG path; its contract against the host-drawn plain
+// version is one quantization step per entry, not bitwise.
 //
 // What bounds it on an H100: device-memory bytes. The N x d gradient
-// slab is read once (35 MB at N = 50, d = 175,104) against 2 flops per
-// entry; the epilogue moves a few bytes per column (r, ef, residual in
-// f32, q in int8, one f32 scale per 128 columns).
+// slab is read once (35 MB at N = 50, d = 175,104: 10.5 us at 3.35 TB/s)
+// against 2 flops per entry; the epilogue moves a few bytes per column
+// (r, ef, residual in f32, q in int8, one f32 scale per 128 columns).
 //
-// What the design does about it: as in the channel kernel, each thread
-// owns 4 adjacent columns and walks the N rows itself in a fixed order
-// (16-byte loads, h staged through shared memory in chunks of kHChunk),
-// so the client sum needs no cross-thread reduction. With 4 columns a
-// thread, a warp covers exactly one 128-column quantization block, so
-// the block's max|x| or sum|x| is a warp reduction with __shfl_xor_sync:
-// no shared memory, no atomics, and the payload leaves the kernel in
-// wire format. d must be a multiple of 128 (slabs are), so a warp is
-// either wholly inside the slab or wholly past it.
+// The design, the channel kernel's (ota_channel.cu). A block owns a tile
+// of kTileCols = 512 columns; the grid is ceil(d / 512) tiles (342 at
+// d = 175,104). Its first 4 warps are the walkers of the bulk-copy ring
+// of ota_ring.cuh: one thread copies each 2 KB row of the tile into 4
+// stages of 8 rows (64 KB), G's lines evict-first, h in shared memory
+// 1024 rows at a time; a walker adds its 4 adjacent columns, so walker
+// warp w covers exactly quantization block w of the tile and the
+// block's max|x| or sum|x| is a warp shuffle. The other 4 warps stage
+// the tile's epilogue operands in shared memory at the same time: ef,
+// and the host's r or the Philox uniforms (one 4-column group a thread).
+// One block barrier, then the walkers quantize and write q (char4), s
+// (lane 0) and the residual (float4) from registers and shared memory
+// alone. 3 blocks of 256 threads fit an SM (72 KB of shared memory
+// each). The sum runs per column over rows n = 0, 1, ... in order
+// (part = part + h[n] * G[n, c]; --fmad=false, so every op rounds on
+// its own) and divides by n_total once, as the accumulating transmit's
+// no-carry call does (ota_transmit_stream.cu): x is bitwise that call's
+// output plus ef, and the int8 payload, scales and residual (host SR,
+// RTN) and the sign payload are bitwise the plain quantizer applied to
+// that x. The
+// sign scale's sum|x| runs in another order than torch.mean's. d is a
+// multiple of 128 and G 16-byte aligned (the C entry refuses anything
+// else), so every row of every tile is a legal bulk copy and a walker
+// warp is wholly inside the slab or wholly past it.
+//
+// Measured (chip_smoke.py phase "times", NVIDIA H100 80GB HBM3,
+// 700.00 W): 20.68 us at 50 x 175,104, int8 with host rounding, EF and
+// the residual (0.538 of the byte bound; 0.40 us over the accumulating
+// transmit's no-carry call in turns with it); 20.32 us with in-kernel
+// rounding; 7.66 us at 1 x 175,104 (the streamed finish), where a
+// near-empty launch timed the same way takes 4.88 us. The previous
+// design (each thread walking its 4 columns' rows with plain 16-byte
+// loads, 342 blocks of 128 threads, the epilogue after the walk) took
+// 31.5 us, 32.8 us and 8.3 us in the same call.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ota_ring.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kHChunk = 1024;
+constexpr int kTileCols = 512;
+constexpr int kWalkers = kTileCols / 4;  // 4 warps, 4 columns a thread
+constexpr int kHelpers = kTileCols / 4;  // 4 warps, one 4-column group each
+constexpr int kBlock = kWalkers + kHelpers;
+constexpr int kStageRows = 8;
+constexpr int kStages = 4;
+constexpr int kHRows = 1024;
 constexpr float kInt8Max = 127.f;
+using Ring = ota_ring::Ring<kTileCols, kStageRows, kStages, kHRows>;
 
 enum Quant {
   INT8_SR = 0,           // host-drawn uniforms r
@@ -49,6 +82,20 @@ enum Quant {
   INT8_RTN = 2,          // round half to even
   SIGN = 3,              // {-1, 0, +1}
   SIGN_FOLD = 4          // {-1, +1}, zero blocks scale 0
+};
+
+struct Args {
+  const float* G;
+  const float* h;
+  const float* r;   // INT8_SR only
+  const float* ef;  // may be null
+  int8_t* q;
+  float* s;
+  float* resid;     // may be null
+  uint64_t seed;    // INT8_SR_INKERNEL only
+  int n_rows;
+  int64_t d;
+  float n_total;
 };
 
 // Philox4x32-10 (Salmon et al., SC'11), as in Random123.
@@ -69,42 +116,68 @@ __device__ __forceinline__ float u24(uint32_t bits) {
 }
 
 template <int Q>
-__global__ void __launch_bounds__(kThreads)
-ota_transmit_kernel(const float* __restrict__ G, const float* __restrict__ h,
-                    const float* __restrict__ r, const float* __restrict__ ef,
-                    int8_t* __restrict__ q_out, float* __restrict__ s_out,
-                    float* __restrict__ resid, uint64_t seed, int n_rows,
-                    int64_t d, float n_total) {
-  __shared__ float h_s[kHChunk];
-  const int64_t col0 = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
-  const bool active = col0 < d;
-  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+// 3 blocks an SM: 3 x (64 KB of ring + 8 KB) of shared memory.
+__global__ void __launch_bounds__(kBlock, 3)
+    ota_transmit_kernel(const Args a) {
+  extern __shared__ __align__(128) float ring[];
+  __shared__ __align__(8) uint64_t full[kStages];
+  __shared__ float h_s[kHRows];
+  __shared__ __align__(16) float ef_s[kTileCols];
+  __shared__ __align__(16) float r_s[kTileCols];  // the rounding uniforms
 
-  for (int n0 = 0; n0 < n_rows; n0 += kHChunk) {
-    const int rows = n_rows - n0 < kHChunk ? n_rows - n0 : kHChunk;
-    __syncthreads();
-    for (int i = threadIdx.x; i < rows; i += blockDim.x) h_s[i] = h[n0 + i];
-    __syncthreads();
-    if (!active) continue;
-    const float* row = G + (int64_t)n0 * d + col0;
-#pragma unroll 8
-    for (int k = 0; k < rows; ++k) {
-      const float4 gv = __ldg(reinterpret_cast<const float4*>(row + (int64_t)k * d));
-      const float hv = h_s[k];
-      acc[0] = acc[0] + hv * gv.x;
-      acc[1] = acc[1] + hv * gv.y;
-      acc[2] = acc[2] + hv * gv.z;
-      acc[3] = acc[3] + hv * gv.w;
+  const int tid = threadIdx.x;
+  const int64_t tile0 = (int64_t)blockIdx.x * kTileCols;
+  const int width = (int)(a.d - tile0 < kTileCols ? a.d - tile0 : kTileCols);
+  float part[4] = {0.f, 0.f, 0.f, 0.f};
+  if (tid >= kWalkers) {
+    // The helper warps: the tile's ef and rounding uniforms, while the
+    // walkers stream G.
+    const int c = 4 * (tid - kWalkers);
+    if (c < width) {
+      if (a.ef != nullptr)
+        *reinterpret_cast<float4*>(ef_s + c) =
+            *reinterpret_cast<const float4*>(a.ef + tile0 + c);
+      if constexpr (Q == INT8_SR) {
+        *reinterpret_cast<float4*>(r_s + c) =
+            *reinterpret_cast<const float4*>(a.r + tile0 + c);
+      } else if constexpr (Q == INT8_SR_INKERNEL) {
+        const uint64_t group = (uint64_t)(tile0 + c) >> 2;
+        const uint4 bits = philox4x32_10(
+            make_uint4((uint32_t)group, (uint32_t)(group >> 32), 0u, 0u),
+            make_uint2((uint32_t)a.seed, (uint32_t)(a.seed >> 32)));
+        *reinterpret_cast<float4*>(r_s + c) =
+            make_float4(u24(bits.x), u24(bits.y), u24(bits.z), u24(bits.w));
+      }
     }
+  } else {
+    // The walkers, 4 adjacent columns each.
+    if (tid == 0)
+      Ring::prime(a.G + tile0, a.d, width, 0, a.n_rows, ring, full,
+                  ota_ring::evict_first_policy());
+    const bool on = 4 * tid < width;
+    Ring::stream_primed<kWalkers>(
+        a.G + tile0, a.h, a.d, width, 0, a.n_rows, ring, full, h_s,
+        ota_ring::evict_first_policy(),
+        [&](int, float hv, const float* st) {
+          if (on) {
+            const float4 g = *reinterpret_cast<const float4*>(st + 4 * tid);
+            part[0] = part[0] + hv * g.x;
+            part[1] = part[1] + hv * g.y;
+            part[2] = part[2] + hv * g.z;
+            part[3] = part[3] + hv * g.w;
+          }
+        });
   }
-  // No block-wide barrier follows, and a warp is wholly in or out.
-  if (!active) return;
+  __syncthreads();  // ef_s and r_s are complete
+  // width is a multiple of 128: a walker warp is wholly on or off.
+  if (tid >= kWalkers || 4 * tid >= width) return;
 
+  const int c = 4 * tid;
   float x[4];
 #pragma unroll
-  for (int j = 0; j < 4; ++j) x[j] = acc[j] / n_total;
-  if (ef != nullptr) {
-    const float4 ev = *reinterpret_cast<const float4*>(ef + col0);
+  for (int j = 0; j < 4; ++j) x[j] = part[j] / a.n_total;
+  if (a.ef != nullptr) {
+    const float4 ev = *reinterpret_cast<const float4*>(ef_s + c);
     x[0] = x[0] + ev.x;
     x[1] = x[1] + ev.y;
     x[2] = x[2] + ev.z;
@@ -128,16 +201,9 @@ ota_transmit_kernel(const float* __restrict__ G, const float* __restrict__ h,
   }
 
   float rv[4] = {0.f, 0.f, 0.f, 0.f};
-  if constexpr (Q == INT8_SR) {
-    const float4 v = *reinterpret_cast<const float4*>(r + col0);
+  if constexpr (Q == INT8_SR || Q == INT8_SR_INKERNEL) {
+    const float4 v = *reinterpret_cast<const float4*>(r_s + c);
     rv[0] = v.x; rv[1] = v.y; rv[2] = v.z; rv[3] = v.w;
-  } else if constexpr (Q == INT8_SR_INKERNEL) {
-    const uint64_t group = (uint64_t)col0 >> 2;
-    const uint4 bits = philox4x32_10(
-        make_uint4((uint32_t)group, (uint32_t)(group >> 32), 0u, 0u),
-        make_uint2((uint32_t)seed, (uint32_t)(seed >> 32)));
-    rv[0] = u24(bits.x); rv[1] = u24(bits.y);
-    rv[2] = u24(bits.z); rv[3] = u24(bits.w);
   }
 
   float qf[4];
@@ -157,30 +223,45 @@ ota_transmit_kernel(const float* __restrict__ G, const float* __restrict__ h,
       qf[j] = fminf(fmaxf(y, -kInt8Max), kInt8Max);
     }
   }
+  const int64_t col = tile0 + c;
   char4 qv;
   qv.x = (signed char)qf[0];
   qv.y = (signed char)qf[1];
   qv.z = (signed char)qf[2];
   qv.w = (signed char)qf[3];
-  *reinterpret_cast<char4*>(q_out + col0) = qv;
-  if ((threadIdx.x & 31) == 0) s_out[col0 >> 7] = s;
-  if (resid != nullptr) {
-    *reinterpret_cast<float4*>(resid + col0) =
+  *reinterpret_cast<char4*>(a.q + col) = qv;
+  if ((tid & 31) == 0) a.s[col >> 7] = s;
+  if (a.resid != nullptr) {
+    *reinterpret_cast<float4*>(a.resid + col) =
         make_float4(x[0] - qf[0] * s, x[1] - qf[1] * s, x[2] - qf[2] * s,
                     x[3] - qf[3] * s);
   }
 }
 
 template <int Q>
-void launch(const void* G, const void* h, const void* r, const void* ef,
-            void* q, void* s, void* resid, uint64_t seed, int n_rows,
-            int64_t d, float n_total, cudaStream_t stream) {
-  const int64_t blocks = (d + 4 * kThreads - 1) / (4 * kThreads);
-  ota_transmit_kernel<Q><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const float*>(G), static_cast<const float*>(h),
-      static_cast<const float*>(r), static_cast<const float*>(ef),
-      static_cast<int8_t*>(q), static_cast<float*>(s),
-      static_cast<float*>(resid), seed, n_rows, d, n_total);
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  // The ring and the static arrays pass the 48 KB default: allow the
+  // ring once a device.
+  static bool allowed[64] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!allowed[dev]) {
+    e = cudaFuncSetAttribute(ota_transmit_kernel<Q>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             Ring::kBytes);
+    if (e != cudaSuccess) return e;
+    allowed[dev] = true;
+  }
+  const int64_t blocks = (a.d + kTileCols - 1) / kTileCols;
+  ota_transmit_kernel<Q><<<(unsigned)blocks, kBlock, Ring::kBytes, stream>>>(
+      a);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -194,15 +275,22 @@ extern "C" int repro_ota_transmit(int quant, const void* G, const void* h,
                                   void* s, void* resid,
                                   unsigned long long seed, int n_rows,
                                   long long d, float n_total, void* stream) {
-  if (d <= 0 || d % 128 != 0 || n_rows < 0) return (int)cudaErrorInvalidValue;
+  if (d <= 0 || d % 128 != 0 || n_rows < 0 || !aligned16(G) ||
+      !aligned16(ef) || !aligned16(resid) ||
+      (quant == INT8_SR && (r == nullptr || !aligned16(r))))
+    return (int)cudaErrorInvalidValue;
+  const Args a{static_cast<const float*>(G), static_cast<const float*>(h),
+               static_cast<const float*>(r), static_cast<const float*>(ef),
+               static_cast<int8_t*>(q), static_cast<float*>(s),
+               static_cast<float*>(resid), (uint64_t)seed, n_rows,
+               (int64_t)d, n_total};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (quant) {
-    case INT8_SR: launch<INT8_SR>(G, h, r, ef, q, s, resid, seed, n_rows, d, n_total, st); break;
-    case INT8_SR_INKERNEL: launch<INT8_SR_INKERNEL>(G, h, r, ef, q, s, resid, seed, n_rows, d, n_total, st); break;
-    case INT8_RTN: launch<INT8_RTN>(G, h, r, ef, q, s, resid, seed, n_rows, d, n_total, st); break;
-    case SIGN: launch<SIGN>(G, h, r, ef, q, s, resid, seed, n_rows, d, n_total, st); break;
-    case SIGN_FOLD: launch<SIGN_FOLD>(G, h, r, ef, q, s, resid, seed, n_rows, d, n_total, st); break;
+    case INT8_SR: return (int)launch<INT8_SR>(a, st);
+    case INT8_SR_INKERNEL: return (int)launch<INT8_SR_INKERNEL>(a, st);
+    case INT8_RTN: return (int)launch<INT8_RTN>(a, st);
+    case SIGN: return (int)launch<SIGN>(a, st);
+    case SIGN_FOLD: return (int)launch<SIGN_FOLD>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }

@@ -129,9 +129,11 @@ def load_library() -> ctypes.CDLL:
     lib.repro_ota_transmit_stream.argtypes = ([vp] * 6
                                               + [i, ll, i, i, i, f, vp])
     lib.repro_ota_transmit_stream.restype = i
-    lib.repro_ota_receive.argtypes = ([i, i] + [vp] * 6 + [i, ll, f]
+    lib.repro_ota_receive.argtypes = ([i, i] + [vp] * 8 + [i, ll, f]
                                       + [f] * 6 + [i, vp])
     lib.repro_ota_receive.restype = i
+    lib.repro_ota_receive_blocks_per_sm.argtypes = [i, i]
+    lib.repro_ota_receive_blocks_per_sm.restype = i
     lib.repro_flash_attention.argtypes = [i] + [vp] * 4 + [i] * 8 + [f, vp]
     lib.repro_flash_attention.restype = i
     lib.repro_flash_attention_sm90.argtypes = [vp] * 4 + [i] * 8 + [f, vp]

@@ -21,7 +21,8 @@ PyTorch counterpart of ``repro.kernels.ota_channel``:
 
 The channel and receive kernels carry the optional pilot-statistics
 epilogue ``[count, sum log|r|, sum log^2|r|]`` over the nonzero
-residuals r = scale * xi (the closed alpha loop's input).
+residuals r = scale * xi (the closed alpha loop's input); the receive
+kernel folds its blocks' rows itself, in the same launch.
 
 On a CUDA tensor each wrapper launches its hand-written kernel
 (``csrc/ota_channel.cu``, ``csrc/ota_transmit.cu``,
@@ -46,19 +47,24 @@ from repro_torch.kernels.ref import (INT8_MAX, LANE, ota_channel_ref,
                                      pack_sign_slab, sign_words,
                                      unpack_sign_slab)
 
-__all__ = ["CHANNEL_TILE", "INT8_MAX", "LANE", "channel_blocks",
-           "ota_channel_slab", "ota_receive_slab",
+__all__ = ["CHANNEL_TILE", "INT8_MAX", "LANE", "RECEIVE_THREADS",
+           "channel_blocks", "ota_channel_slab", "ota_receive_slab",
            "ota_transmit_slab", "ota_transmit_split_model", "pack_sign_slab",
-           "row_split", "segment_rows", "sign_words", "unpack_sign_slab"]
+           "receive_blocks", "row_split", "segment_rows", "sign_words",
+           "unpack_sign_slab"]
 
 # The channel kernel (csrc/ota_channel.cu): a block owns CHANNEL_TILE
 # columns and streams every row through them (4 warps, 4 columns a
 # thread) while 8 more warps compute the CMS term; one statistics row a
-# block.
+# block. The quantize transmit (csrc/ota_transmit.cu) takes the same
+# tiles, channel_blocks(d) of them: its 4 walker warps are the tile's 4
+# quantization blocks of LANE columns, and 4 more warps stage ef and the
+# rounding uniforms.
 CHANNEL_TILE = 512
-# The transmit and receive kernels: 128 threads a block, 4 columns a
-# thread (csrc/ota_transmit.cu, csrc/ota_receive.cu).
-WIRE_COLS_PER_BLOCK = 512
+# The receive kernel (csrc/ota_receive.cu): RECEIVE_THREADS a block, one
+# column a thread, so that its whole grid is resident on the card at
+# once.
+RECEIVE_THREADS = 256
 # Quant values of csrc/ota_transmit.cu.
 _QUANT = {("int8", "host"): 0, ("int8", "kernel"): 1, ("int8", "rtn"): 2,
           ("sign", False): 3, ("sign", True): 4}
@@ -125,6 +131,12 @@ def channel_blocks(d: int) -> int:
     """Blocks of a channel-kernel launch over d columns, one column tile
     each; also the rows of its (blocks, 3) statistics buffer."""
     return -(-d // CHANNEL_TILE)
+
+
+def receive_blocks(d: int) -> int:
+    """Blocks of a receive-kernel launch over d columns; also the rows of
+    its (blocks, 3) statistics workspace."""
+    return -(-d // RECEIVE_THREADS)
 
 
 def _check_operand(name: str, t: torch.Tensor, shape, dtype, dev,
@@ -364,10 +376,12 @@ def sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-# (device index, stream) -> the tile counters of the split fold: zeroed
-# once, and every launch leaves them at 0. Launches on one stream run in
-# order, so they never share a counter at the same time. A split call
-# has fewer than 2 sm_count column tiles (row_split).
+# (device index, stream) -> the ticket counters of the in-launch folds:
+# one a column tile for the accumulating transmit's split fold (a split
+# call has fewer than 2 sm_count column tiles, row_split), and the first
+# one for the receive kernel's statistics fold. Zeroed once, and every
+# launch leaves them at 0. Launches on one stream run in order, so they
+# never share a counter at the same time.
 _TILE_COUNTERS = {}
 
 
@@ -438,7 +452,7 @@ def ota_receive_slab(payload: torch.Tensor, scales: torch.Tensor,
     sign_words(d, ...)) uint32 words of ``pack_sign_slab`` (d from
     ``scales``); scales (R, d // 128) f32; u, e (d,). Returns (d,) f32,
     plus the (3,) residual statistics as ``(out, stats)`` with
-    ``pilot_stats=True``.
+    ``pilot_stats=True`` (one launch either way).
     """
     if not (1.0 < alpha <= 2.0):
         raise ValueError(f"tail index alpha must be in (1, 2], got {alpha}")
@@ -472,24 +486,26 @@ def ota_receive_slab(payload: torch.Tensor, scales: torch.Tensor,
     _check_operand("u", u, (d,), f32, dev, 16)
     _check_operand("e", e, (d,), f32, dev, 16)
     out = torch.empty((d,), dtype=f32, device=dev)
-    blocks = -(-d // WIRE_COLS_PER_BLOCK)
-    stats_rows = (torch.empty((blocks, 3), dtype=f32, device=dev)
-                  if pilot_stats else None)
+    blocks = receive_blocks(d)
     a = float(alpha)
     lib = build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        stats_rows = stats = counter = None
+        if pilot_stats:
+            stats_rows = torch.empty((blocks, 3), dtype=f32, device=dev)
+            stats = torch.empty((3,), dtype=f32, device=dev)
+            counter = _tile_counters(dev, stream)
         code = lib.repro_ota_receive(
             _PACKED[packed], int(pilot_stats), payload.data_ptr(),
             scales.data_ptr(), u.data_ptr(), e.data_ptr(), out.data_ptr(),
-            stats_rows.data_ptr() if pilot_stats else None, rows, d,
+            *(None if t is None else t.data_ptr()
+              for t in (stats_rows, stats, counter)), rows, d,
             float(scale), a, 1.0 / a, 1.0 - a, (1.0 - a) / a, CMS_U_BOUND,
             CMS_E_FLOOR, blocks, stream)
     build.check(code, "ota_receive_slab")
     ota_receive_slab.launches += 1
-    if pilot_stats:
-        return out, torch.sum(stats_rows, dim=0)
-    return out
+    return (out, stats) if pilot_stats else out
 
 
 ota_receive_slab.launches = 0

@@ -172,7 +172,11 @@ def ota_transmit_ref(grads: torch.Tensor, h: torch.Tensor, *,
             q = torch.sign(a).to(torch.int8)
     else:
         maxabs = torch.amax(torch.abs(a), dim=1, keepdim=True)
-        s = torch.where(maxabs > 0.0, maxabs / INT8_MAX,
+        # a full divisor: IEEE division on every device (PyTorch divides
+        # a CUDA tensor by a Python number as a product with its
+        # reciprocal, which can round the scale one ulp off the kernel's)
+        s = torch.where(maxabs > 0.0,
+                        maxabs / torch.full_like(maxabs, INT8_MAX),
                         torch.ones_like(maxabs))
         y = a / s
         if stochastic:

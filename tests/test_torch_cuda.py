@@ -14,8 +14,12 @@ channel kernel sums the client rows in another order than the plain
 kernel's payload is held to the wire's contract (equal on >= 99.9 % of
 entries, one quantization step on the rest; scales at 1e-6, the residual
 at 1e-6 of the partial's scale where the payloads agree); its in-kernel
-rounding to one step of x/s and to zero bias. The receive kernel agrees
-to 1e-6 of the output's scale. The accumulating transmit kernel agrees
+rounding to one step of x/s and to zero bias; and its int8 payload,
+scales and residual (host rounding, RTN) and sign payload are bitwise
+the plain quantizer applied to the accumulating transmit's no-carry sum
+plus ef (the same f32 operations in the same order). The receive kernel
+agrees to 1e-6 of the output's scale; its statistics, one launch, to
+1e-5, the same bits from run to run. The accumulating transmit kernel agrees
 to 1e-6 of scale with its plain version and, where its rows split
 across blocks, bitwise with ``ota_transmit_split_model`` (the same f32
 operations in the same order). The flash-attention kernels sum in
@@ -42,8 +46,8 @@ from repro_torch.kernels.ota_channel import (ota_channel_slab,
                                              ota_receive_slab,
                                              ota_transmit_slab,
                                              ota_transmit_split_model,
-                                             pack_sign_slab, row_split,
-                                             sm_count)
+                                             pack_sign_slab, receive_blocks,
+                                             row_split, sm_count)
 from repro_torch.kernels.ref import (adaptive_update_ref, ota_channel_ref,
                                      ota_receive_ref, ota_transmit_ref)
 from repro_torch.models.vision import logistic_regression
@@ -326,6 +330,107 @@ def test_transmit_kernel_in_kernel_rounding(cuda):
     # an ulp of x carries into the residual as it is
     assert torch.all((res - (x - q.float() * sb)).abs()
                      <= 1e-6 * float(x.abs().max()))
+
+
+@pytest.mark.parametrize("qmode,stochastic,zero_fold",
+                         [("int8", True, False), ("int8", False, False),
+                          ("sign", False, False), ("sign", False, True)])
+@pytest.mark.parametrize("shape", [(50, 175104), (1, 175104), (7, 640)])
+def test_transmit_kernel_is_the_plain_quantizer_on_the_no_carry_sum(
+        cuda, shape, qmode, stochastic, zero_fold):
+    """x = the accumulating transmit's no-carry call + ef; the kernel's
+    int8 payload, scales and residual (host rounding, RTN) and its sign
+    payload are bitwise ota_transmit_ref(x[None], 1, n_total=1); the sign
+    scales and residuals within 1e-6 rel + 1e-6 of scale (the warp sums
+    |x| in another order than torch.mean). At 1 x 175,104 as the
+    streamed finish calls it (h = 1, n_total = 1); at 640 columns the
+    last tile holds one quantization block."""
+    n, d = shape
+    grads, h, r, ef = _wire_inputs(cuda, n, d)
+    n_total = None
+    if n == 1:
+        h, n_total = torch.ones_like(h), 1
+    sr = qmode == "int8" and stochastic
+    kw = dict(quantize=True, stochastic=stochastic, qmode=qmode,
+              zero_fold=zero_fold, return_residual=True)
+    got = ota_transmit_slab(grads, h, n_total=n_total, r=r if sr else None,
+                            ef=ef, **kw)
+    x = ota_transmit_slab(grads, h, n_total=n_total) + ef
+    want = ota_transmit_ref(x[None], torch.ones(1, device=cuda), n_total=1,
+                            r=r if sr else None, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    if qmode == "int8":
+        assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    else:
+        _close(got[1], want[1])
+        assert torch.allclose(got[2], want[2], rtol=1e-6,
+                              atol=1e-6 * float(x.abs().max()))
+    assert torch.all(got[0][d - 38:] == (1 if zero_fold else 0))
+
+
+def test_transmit_kernel_refuses_what_the_ring_cannot_read(cuda):
+    """G off a 16-byte boundary and d not a multiple of 128 are refused
+    before any launch; so are an ef or r off a 16-byte boundary."""
+    grads = torch.zeros(2 * 1024 + 1, device=cuda)
+    h = torch.ones(2, device=cuda)
+    n0 = ota_transmit_slab.launches
+    with pytest.raises(ValueError, match="aligned"):
+        ota_transmit_slab(grads[1:].view(2, 1024), h, quantize=True,
+                          stochastic=False)
+    with pytest.raises(ValueError, match="multiple"):
+        ota_transmit_slab(torch.zeros(2, 1000, device=cuda), h,
+                          quantize=True, stochastic=False)
+    ef = torch.zeros(1024 + 1, device=cuda)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        ota_transmit_slab(torch.zeros(2, 1024, device=cuda), h,
+                          quantize=True, stochastic=False, ef=ef)
+    with pytest.raises(ValueError, match="aligned"):
+        ota_transmit_slab(torch.zeros(2, 1024, device=cuda), h,
+                          quantize=True, r=ef)
+    assert ota_transmit_slab.launches == n0
+
+
+@pytest.mark.parametrize("packed", [None, "fold"])
+def test_receive_statistics_are_one_launch_and_the_same_bits(cuda, packed):
+    """With pilot statistics the receive is one kernel launch (the last
+    block folds the blocks' rows: no second launch), its statistics the
+    same bits in two runs, within 1e-5 of the plain version with the
+    count exact, and the ticket counter back at 0; the grid is resident
+    on the card in one wave."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ota_channel import _PACKED, _TILE_COUNTERS
+    d = 175104
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    s = torch.rand(1, d // 128, generator=gen, device=cuda)
+    u = (2 * torch.rand(d, generator=gen, device=cuda) - 1) * CMS_U_BOUND
+    e = -torch.log(torch.rand(d, generator=gen, device=cuda))
+    u[-38:], e[-38:] = 0.0, 1.0
+    q = torch.randint(-127, 128, (1, d), generator=gen, device=cuda,
+                      dtype=torch.int8)
+    q[:, -38:] = 0
+    payload = q if packed is None else pack_sign_slab(
+        torch.where(q < 0, -1, 1).to(torch.int8))
+    kw = dict(alpha=1.5, scale=0.1, packed=packed, pilot_stats=True)
+    first = ota_receive_slab(payload, s, u, e, **kw)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        again = ota_receive_slab(payload, s, u, e, **kw)
+        torch.cuda.synchronize()
+    kernels = [ev.key for ev in prof.key_averages()
+               if ev.device_type == DeviceType.CUDA
+               for _ in range(ev.count)]
+    assert len(kernels) == 1 and "ota_receive_kernel" in kernels[0], kernels
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    _, ws = ota_receive_ref(payload, s, u, e, **kw)
+    assert float(first[1][0]) == float(ws[0]) == d - 38
+    _close(first[1], ws, 1e-5)
+    assert all(int(c.abs().sum()) == 0 for c in _TILE_COUNTERS.values())
+    per_sm = build.load_library().repro_ota_receive_blocks_per_sm(
+        _PACKED[packed], 1)
+    assert per_sm * sm_count(cuda.index or 0) >= receive_blocks(d), per_sm
 
 
 @pytest.mark.parametrize("pilot_stats", [False, True])
