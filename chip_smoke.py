@@ -97,6 +97,26 @@ Phases, each printing its own line(s) before the last line:
    round under set_sync_debug_mode("error"); one more round of the same
    step under torch.profiler: the card time of its accumulating-transmit
    launches, which the counter and the profiler must both count 500;
+14a. the per-round pytree API at full width: ResNet-tiny, 50 clients,
+   batch 8, init_server + make_round_step + run_rounds for each of the
+   six optimizers on the f32 uplink, then adam_ota on the int8 uplink,
+   5 rounds each, beside the resident runner (make_slab_round_runner +
+   run_rounds_slab) on the same draws and batches: every counter set to
+   0 before each run and read after (one channel and one update launch
+   a f32 round; one transmit, one receive and one update an int8
+   round), the final params, optimizer state and history bitwise the
+   resident runner's, ms per round of both on the host clock; then the
+   quickstart twin (examples/quickstart_torch.py) on the card:
+   logistic regression, 20 clients, xi_scale 0.5, 60 rounds, adam_ota
+   and fedavgm, both accuracies printed, the losses finite;
+14b. checkpoint and resume on the card: ResNet-tiny at full width,
+   adam_ota, int8 uplink with error feedback, the int8 downlink and
+   alpha="auto", 6 rounds with chunk_hook writing save_slab_state
+   (blocking=False) at round 3 beside a blocking save, then
+   load_slab_state onto the card and run_rounds_slab(start_round=3):
+   the final state bitwise the uninterrupted run's, the async file's
+   bytes the blocking file's; the file's size and both saves' host
+   times printed;
 15. kernel flash_attention against its plain version: the six
    FLASH_CASES of tests/test_kernels.py in f32 and bf16, then the
    prefill shapes of Qwen3-14B (1 x 4096, 40 heads, 8 kv heads, D 128,
@@ -1574,6 +1594,263 @@ def phase_million(torch, dev, counters):
     return totals
 
 
+ROUND_API_OPTIMIZERS = ("adagrad_ota", "adam_ota", "amsgrad_ota",
+                        "yogi_ota", "fedavgm", "fedavg")
+CKPT_ROUNDS, CKPT_AT = 6, 3
+
+
+def _state_bitwise(torch, a, b) -> bool:
+    """Two SlabTrainStates hold the same bits in every slot."""
+    same_ef = (a.ef is None and b.ef is None) or (
+        a.ef is not None and b.ef is not None and torch.equal(a.ef, b.ef))
+    return (torch.equal(a.step, b.step) and torch.equal(a.w, b.w)
+            and len(a.opt) == len(b.opt)
+            and all(torch.equal(x, y) for x, y in zip(a.opt, b.opt))
+            and torch.equal(a.alpha_hat, b.alpha_hat) and same_ef)
+
+
+def phase_round_api(torch, np, dev, counters):
+    """The per-round pytree API (init_server + make_round_step +
+    run_rounds) at full width: each optimizer on the f32 uplink, then
+    adam_ota on the int8 uplink, 5 rounds each, beside the resident
+    runner (make_slab_round_runner + run_rounds_slab) on the same draws
+    and batches; every counter set to 0 before each run and read after.
+    Both start from the same slab (the per-round API from its pytrees,
+    an exact f32 round trip) and launch the same kernels on the same
+    inputs, so their final states must agree bitwise. Then the
+    quickstart twin on the card. Returns the launches of all the
+    counted runs."""
+    import importlib.util
+
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.core.channel import OTAChannelConfig, UplinkConfig
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.fl import (FLConfig, init_server, make_round_step,
+                                     make_slab_round_runner, run_rounds,
+                                     run_rounds_slab)
+    from repro_torch.core.slab_state import (init_train_state,
+                                             pack_train_state,
+                                             unpack_train_state)
+    from repro_torch.data import FederatedBatcher, synthetic_images
+    from repro_torch.models.vision import resnet_tiny
+
+    model = resnet_tiny(10)
+    batcher = FederatedBatcher(synthetic_images(3000, 32, 3, 10, seed=0),
+                               N_CLIENTS, BATCH, seed=4)
+    # keyed by the absolute round, as both loops take them
+    batches = [batcher(t) for t in range(ROUNDS)]
+    fl = FLConfig(n_clients=N_CLIENTS)
+    f32 = OTAChannelConfig()
+    int8 = OTAChannelConfig(uplink=UplinkConfig(mode="int8"))
+    runs = [(opt, "f32", f32) for opt in ROUND_API_OPTIMIZERS]
+    runs.append(("adam_ota", "int8", int8))
+    kernels = {"f32": {"ota_channel_slab", "adaptive_update_slab"},
+               "int8": {"ota_transmit_slab", "ota_receive_slab",
+                        "adaptive_update_slab"}}
+    totals = {c.__name__: 0 for c in counters}
+
+    def counted(fn, wire, what):
+        for c in counters:
+            c.launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / ROUNDS
+        counts = {c.__name__: c.launches for c in counters}
+        want = {k: ROUNDS if k in kernels[wire] else 0 for k in counts}
+        check(counts == want, f"{what}: launches {counts}, want {want}")
+        for k, v in counts.items():
+            totals[k] += v
+        return out, ms
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for opt, wire, ch in runs:
+            what = f"round API {opt} {wire}"
+            ad = AdaptiveConfig(optimizer=opt, lr=0.01)
+            state0 = init_train_state(ad, model.init(seed=0, device=dev),
+                                      device=dev)
+            draws = TorchDraws(ch, state0.spec, N_CLIENTS, seed=5,
+                               device=dev)
+            step = make_round_step(model.loss_fn, ch, ad, fl, device=dev)
+            runner = make_slab_round_runner(model.loss_fn, ch, ad, fl,
+                                            device=dev)
+            params, _ = unpack_train_state(ad, state0)
+            opt_state = init_server(params, ad)
+            # one warm-up round of each outside the counted runs
+            run_rounds(step, params, opt_state, lambda t: draws(1000 + t),
+                       batches.__getitem__, 1)
+            run_rounds_slab(runner, state0, lambda t: draws(1000 + t),
+                            batches.__getitem__, 1)
+            torch.cuda.synchronize()
+            (params, opt_state, hist), ms_api = counted(
+                lambda: run_rounds(step, params, opt_state, draws,
+                                   batches.__getitem__, ROUNDS), wire, what)
+            (state, rhist), ms_res = counted(
+                lambda: run_rounds_slab(runner, state0, draws,
+                                        batches.__getitem__, ROUNDS,
+                                        chunk=ROUNDS), wire,
+                f"resident {opt} {wire}")
+            packed = pack_train_state(ad, state.spec, params, opt_state)
+            check(_state_bitwise(torch, packed, state),
+                  f"{what}: the final state differs from the resident "
+                  f"runner's: max|dw| "
+                  f"{float((packed.w - state.w).abs().max())}")
+            check(hist == rhist, f"{what}: history differs from the "
+                  f"resident runner's")
+            losses = [h["loss"] for h in hist]
+            check(all(math.isfinite(x) for x in losses),
+                  f"{what}: losses {losses}")
+            print(f"[round API] resnet_tiny full width, {N_CLIENTS} clients "
+                  f"x batch {BATCH}, {opt}, {wire} uplink, {ROUNDS} rounds: "
+                  "losses " + " ".join(f"{x:.4f}" for x in losses)
+                  + f"; {ms_api:.2f} ms/round (per-round API) vs "
+                  f"{ms_res:.2f} (resident runner), host clock, "
+                  f"synchronized; one launch a round of each of "
+                  f"{sorted(kernels[wire])}; params, optimizer state and "
+                  "history bitwise the resident runner's; ok")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+    path = ROOT / "examples" / "quickstart_torch.py"
+    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
+    quickstart = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quickstart)
+    accs = {}
+    for opt, lr in (("adam_ota", 0.05), ("fedavgm", 0.01)):
+        acc, hist = quickstart.train(opt, lr, device=dev, log_every=0)
+        check(len(hist) == 60 and all(math.isfinite(h["loss"])
+                                      for h in hist),
+              f"quickstart {opt}: losses not finite")
+        accs[opt] = acc
+    print(f"[round API] quickstart twin on the card (logistic regression, "
+          f"20 clients, xi_scale 0.5, 60 rounds): adam_ota acc "
+          f"{accs['adam_ota']:.4f}, fedavgm acc {accs['fedavgm']:.4f}; "
+          "losses finite; ok")
+    return totals
+
+
+def phase_checkpoint(torch, np, dev, counters):
+    """Checkpoint and resume on the card: ResNet-tiny at full width,
+    adam_ota, int8 uplink with error feedback, the int8 downlink and
+    alpha="auto" (every slot of the state: two optimizer slabs, ef,
+    alpha_hat). 6 rounds with chunk_hook writing an async checkpoint at
+    round 3 (and a blocking one beside it), then the file loaded back
+    onto the card and the run resumed at start_round=3: bitwise the
+    uninterrupted run, and the async file's bytes the blocking file's.
+    Every counter set to 0 before each run and read after. Returns the
+    launches of both runs."""
+    import hashlib
+    import tempfile
+
+    from repro_torch.checkpoint import (latest_round, load_slab_state,
+                                        save_slab_state,
+                                        wait_for_async_saves)
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.core.channel import OTAChannelConfig, UplinkConfig
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.fl import (FLConfig, make_slab_round_runner,
+                                     run_rounds_slab)
+    from repro_torch.core.slab_state import init_train_state
+    from repro_torch.data import FederatedBatcher, synthetic_images
+    from repro_torch.models.vision import resnet_tiny
+
+    model = resnet_tiny(10)
+    batcher = FederatedBatcher(synthetic_images(3000, 32, 3, 10, seed=0),
+                               N_CLIENTS, BATCH, seed=6)
+    batches = [batcher(t) for t in range(CKPT_ROUNDS)]
+    ch = OTAChannelConfig(uplink=UplinkConfig(mode="int8",
+                                              error_feedback=True),
+                          downlink="int8")
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.01, alpha="auto")
+    runner = make_slab_round_runner(model.loss_fn, ch, ad,
+                                    FLConfig(n_clients=N_CLIENTS), device=dev)
+    state0 = init_train_state(ad, model.init(seed=0, device=dev),
+                              error_feedback=True, device=dev)
+    draws = TorchDraws(ch, state0.spec, N_CLIENTS, seed=6, device=dev)
+    want_kernels = {"ota_transmit_slab", "ota_receive_slab",
+                    "adaptive_update_slab"}
+    totals = {c.__name__: 0 for c in counters}
+
+    def counted(fn, rounds, what):
+        for c in counters:
+            c.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {c.__name__: c.launches for c in counters}
+        want = {k: rounds if k in want_kernels else 0 for k in counts}
+        check(counts == want, f"{what}: launches {counts}, want {want}")
+        for k, v in counts.items():
+            totals[k] += v
+        return out
+
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        run_rounds_slab(runner, state0, lambda t: draws(1000 + t),
+                        batches.__getitem__, 1)     # warm-up, not counted
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            saved = {}
+
+            def hook(t, state, history):
+                if t != CKPT_AT:
+                    return
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                save_slab_state(f"{tmp}/round_{t}.npz", state,
+                                blocking=False)
+                saved["async_ms"] = 1e3 * (time.perf_counter() - t0)
+                t0 = time.perf_counter()
+                save_slab_state(f"{tmp}/blocking_{t}.npz", state)
+                saved["blocking_ms"] = 1e3 * (time.perf_counter() - t0)
+
+            full, hist = counted(
+                lambda: run_rounds_slab(runner, state0, draws,
+                                        batches.__getitem__, CKPT_ROUNDS,
+                                        chunk=CKPT_ROUNDS, align=(CKPT_AT,),
+                                        chunk_hook=hook),
+                CKPT_ROUNDS, "checkpoint: uninterrupted run")
+            wait_for_async_saves()
+            path = latest_round(tmp)
+            check(path == f"{tmp}/round_{CKPT_AT}.npz",
+                  f"latest_round {path}")
+            digests = [hashlib.sha256(Path(p).read_bytes()).hexdigest()
+                       for p in (path, f"{tmp}/blocking_{CKPT_AT}.npz")]
+            check(digests[0] == digests[1],
+                  "the async checkpoint's bytes differ from the blocking's")
+            size = Path(path).stat().st_size
+            loaded, _ = load_slab_state(path, state0.spec, device=dev)
+            check(int(loaded.step) == CKPT_AT and loaded.ef is not None
+                  and len(loaded.opt) == 2 and float(loaded.alpha_hat) > 0
+                  and loaded.w.device == dev,
+                  f"loaded state: step {int(loaded.step)}")
+            resumed, rhist = counted(
+                lambda: run_rounds_slab(runner, loaded, draws,
+                                        batches.__getitem__, CKPT_ROUNDS,
+                                        start_round=CKPT_AT),
+                CKPT_ROUNDS - CKPT_AT, "checkpoint: resumed run")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    check(_state_bitwise(torch, resumed, full),
+          f"the resumed run differs from the uninterrupted one: max|dw| "
+          f"{float((resumed.w - full.w).abs().max())}")
+    check(rhist == hist[CKPT_AT:], "the resumed history differs")
+    print(f"[checkpoint] resnet_tiny full width, {N_CLIENTS} clients, "
+          f"adam_ota, int8 + EF + int8 downlink, alpha=\"auto\": "
+          f"{CKPT_ROUNDS} rounds with an async save at round {CKPT_AT} "
+          f"({size} bytes; {saved['async_ms']:.2f} ms host time for the "
+          f"async call, {saved['blocking_ms']:.2f} ms for a blocking save), "
+          f"loaded onto the card and resumed for "
+          f"{CKPT_ROUNDS - CKPT_AT} rounds: w, opt, ef, alpha_hat "
+          f"({float(full.alpha_hat):.4f}) and history bitwise the "
+          "uninterrupted run's; the async file's bytes the blocking "
+          "file's; ok")
+    return totals
+
+
 def _flash_inputs(torch, dev, case, dtype, seed):
     b, sq, sk, h, kh, d = case[:6]
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -2256,6 +2533,8 @@ def main() -> int:
                                                  all_counters)
     stream_launches = phase_streamed_runs(torch, np, dev, all_counters)
     million_launches = phase_million(torch, dev, all_counters)
+    api_launches = phase_round_api(torch, np, dev, all_counters)
+    ckpt_launches = phase_checkpoint(torch, np, dev, all_counters)
     for part in (wire_launches, stream_launches, million_launches):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
@@ -2283,6 +2562,16 @@ def main() -> int:
                                + stream_launches[rx])
     launches[rx] = wire_launches[rx] + stream_launches[rx] - \
         launches[f"{rx} stats"]
+    # the per-round API's runs and the resident runs beside them (f32:
+    # channel and update; int8: transmit with host rounding, receive
+    # without statistics, update), and the checkpoint runs (alpha="auto":
+    # the receive with statistics)
+    upd, chan = "adaptive_update_slab", "ota_channel_slab"
+    launches[upd] += api_launches[upd] + ckpt_launches[upd]
+    launches[chan] += api_launches[chan]
+    launches[tx] += api_launches[tx] + ckpt_launches[tx]
+    launches[rx] += api_launches[rx]
+    launches[f"{rx} stats"] += ckpt_launches[rx]
     from repro_torch.kernels.flash_attention import flash_attention
     hopper = Counter(flash_attention, "hopper_launches", f"{FLASH} hopper")
     for arch in FLASH_MODEL_SHAPES:

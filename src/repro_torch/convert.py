@@ -25,11 +25,11 @@ PyTree = Any
 def tensor_from_numpy(x, device: DeviceLike = None) -> torch.Tensor:
     """One array -> a tensor on ``device`` with the same dtype and bits."""
     dev = resolve_device(device)
-    a = np.ascontiguousarray(np.asarray(x))
+    # a C-ordered copy; np.ascontiguousarray would make a 0-dim leaf 1-dim
+    a = np.array(x, order="C")
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16).copy()).view(
-            torch.bfloat16).to(dev)
-    return torch.from_numpy(a.copy()).to(dev)
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(a).to(dev)
 
 
 def params_from_numpy(tree: PyTree, device: DeviceLike = None) -> PyTree:

@@ -1,6 +1,6 @@
-"""ADOTA server optimizers (Algorithm 1 of the paper) on slabs.
+"""ADOTA server optimizers (Algorithm 1 of the paper).
 
-PyTorch counterpart of the slab side of ``repro.core.adaptive``:
+PyTorch counterpart of ``repro.core.adaptive``:
 
     Delta_t = beta1 * Delta_{t-1} + (1 - beta1) * g_t            (Eq. 8)
     v_t     = v_{t-1} + |Delta_t|^alpha                          (AdaGrad-OTA, Eq. 9)
@@ -9,22 +9,28 @@ PyTorch counterpart of the slab side of ``repro.core.adaptive``:
 
 plus the AMSGrad-OTA and Yogi-OTA extensions and the FedAvgM / FedAvg
 baselines. The whole model is updated by ONE ``adaptive_update_slab``
-launch over the resident slabs (``slab_update_slabs``). The per-leaf
-pytree optimizers of the JAX package are not ported: the port's round is
-slab-resident only. ``apply_slab_update`` / ``_make_slab_update`` are the
-pytree-per-round API around that launch (tree in, tree out; what
-``kernels.ops.fused_server_update`` calls).
+launch over the resident slabs (``slab_update_slabs``).
+``apply_slab_update`` / ``_make_slab_update`` are the pytree-per-round
+API around that launch (tree in, tree out; what
+``kernels.ops.fused_server_update`` and ``make_server_optimizer`` call).
+
+The six factories (``adagrad_ota`` ... ``fedavg``) are the JAX package's
+per-leaf ``ServerOptimizer``s in plain torch: ``init(params)`` and
+``update(g, state, params, alpha=None)`` over pytrees. They are the
+readable form of each rule; ``make_server_optimizer`` keeps their
+``init`` and routes ``update`` through the fused launch, as the JAX
+package's pallas backend does.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple, Tuple
+from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
 from repro_torch.core.slab import (SlabSpec, make_slab_spec, slab_to_tree,
-                                   tree_to_slab)
+                                   tree_flatten, tree_map, tree_to_slab)
 from repro_torch.kernels.adaptive_update import adaptive_update_slab
 
 PyTree = Any
@@ -37,6 +43,27 @@ class ServerOptState(NamedTuple):
     step: torch.Tensor
     delta: PyTree
     nu: PyTree
+
+
+class ServerOptimizer(NamedTuple):
+    init: Callable[[PyTree], ServerOptState]
+    # update(g, state, params, alpha=None) -> (params, state); ``alpha``
+    # optionally overrides the config's tail index (a float or a 0-dim
+    # tensor); None keeps the static cfg.alpha.
+    update: Callable[..., tuple]
+    name: str
+
+
+def _zeros_like_tree(params: PyTree, dtype=None) -> PyTree:
+    return tree_map(lambda p: torch.zeros_like(p, dtype=dtype or p.dtype),
+                    params)
+
+
+def _scalar_zeros(params: PyTree, dtype) -> torch.Tensor:
+    """A 0-dim zero on the parameters' device (the step counter and the
+    placeholders of modes that carry no delta / nu)."""
+    dev = tree_flatten(params)[0][0].device
+    return torch.zeros((), dtype=dtype, device=dev)
 
 
 def _abs_pow(x: torch.Tensor, alpha) -> torch.Tensor:
@@ -98,6 +125,145 @@ class AdaptiveConfig:
                 'this; the per-round pytree API has no resident alpha_hat '
                 'to carry the EMA across rounds)')
         return self.alpha
+
+
+def _apply_update(params: PyTree, delta: PyTree, nu: PyTree, lr, alpha,
+                  eps) -> PyTree:
+    def upd(w, d, v):
+        denom = _alpha_root(v + eps, alpha)
+        return (w - lr * d / denom).to(w.dtype)
+    return tree_map(upd, params, delta, nu)
+
+
+def _first_moment(cfg: AdaptiveConfig, state: ServerOptState, g: PyTree):
+    return tree_map(lambda d, gi: cfg.beta1 * d + (1.0 - cfg.beta1)
+                    * gi.float(), state.delta, g)
+
+
+def _init_delta_nu(params: PyTree) -> ServerOptState:
+    return ServerOptState(step=_scalar_zeros(params, torch.int32),
+                          delta=_zeros_like_tree(params, torch.float32),
+                          nu=_zeros_like_tree(params, torch.float32))
+
+
+def adagrad_ota(cfg: AdaptiveConfig) -> ServerOptimizer:
+    """AdaGrad-OTA: cumulative alpha-power second moment (Eq. 9)."""
+
+    def update(g, state, params, alpha=None):
+        a = cfg.resolve_alpha(alpha)
+        delta = _first_moment(cfg, state, g)
+        nu = tree_map(lambda v, d: v + _abs_pow(d, a), state.nu, delta)
+        new_params = _apply_update(params, delta, nu, cfg.lr, a, cfg.eps)
+        return new_params, ServerOptState(state.step + 1, delta, nu)
+
+    return ServerOptimizer(_init_delta_nu, update, "adagrad_ota")
+
+
+def adam_ota(cfg: AdaptiveConfig) -> ServerOptimizer:
+    """Adam-OTA: exponential-moving-average alpha-power second moment
+    (Eq. 10)."""
+
+    def update(g, state, params, alpha=None):
+        a = cfg.resolve_alpha(alpha)
+        delta = _first_moment(cfg, state, g)
+        nu = tree_map(lambda v, d: cfg.beta2 * v + (1.0 - cfg.beta2)
+                      * _abs_pow(d, a), state.nu, delta)
+        new_params = _apply_update(params, delta, nu, cfg.lr, a, cfg.eps)
+        return new_params, ServerOptState(state.step + 1, delta, nu)
+
+    return ServerOptimizer(_init_delta_nu, update, "adam_ota")
+
+
+def amsgrad_ota(cfg: AdaptiveConfig) -> ServerOptimizer:
+    """AMSGrad-OTA (beyond the paper): Adam-OTA's EMA v, but the step
+    divides by the running max of v, as AdaGrad-OTA's stepsize never
+    grows."""
+
+    def init(params):
+        return ServerOptState(
+            step=_scalar_zeros(params, torch.int32),
+            delta=_zeros_like_tree(params, torch.float32),
+            nu={"v": _zeros_like_tree(params, torch.float32),
+                "vmax": _zeros_like_tree(params, torch.float32)})
+
+    def update(g, state, params, alpha=None):
+        a = cfg.resolve_alpha(alpha)
+        delta = _first_moment(cfg, state, g)
+        v = tree_map(lambda v_, d: cfg.beta2 * v_ + (1.0 - cfg.beta2)
+                     * _abs_pow(d, a), state.nu["v"], delta)
+        vmax = tree_map(torch.maximum, state.nu["vmax"], v)
+        new_params = _apply_update(params, delta, vmax, cfg.lr, a, cfg.eps)
+        return new_params, ServerOptState(state.step + 1, delta,
+                                          {"v": v, "vmax": vmax})
+
+    return ServerOptimizer(init, update, "amsgrad_ota")
+
+
+def yogi_ota(cfg: AdaptiveConfig) -> ServerOptimizer:
+    """Yogi-OTA (beyond the paper): the sign-controlled additive second
+    moment of Yogi with the alpha-power,
+    v_t = v_{t-1} - (1-beta2) sign(v_{t-1} - |Delta_t|^a) |Delta_t|^a."""
+
+    def update(g, state, params, alpha=None):
+        a = cfg.resolve_alpha(alpha)
+        delta = _first_moment(cfg, state, g)
+
+        def vupd(v, d):
+            da = _abs_pow(d, a)
+            return v - (1.0 - cfg.beta2) * torch.sign(v - da) * da
+
+        nu = tree_map(vupd, state.nu, delta)
+        new_params = _apply_update(params, delta, nu, cfg.lr, a, cfg.eps)
+        return new_params, ServerOptState(state.step + 1, delta, nu)
+
+    return ServerOptimizer(_init_delta_nu, update, "yogi_ota")
+
+
+def fedavgm(cfg: AdaptiveConfig) -> ServerOptimizer:
+    """FedAvgM baseline (Hsu et al. 2019): server momentum SGD on g_t."""
+
+    def init(params):
+        return ServerOptState(step=_scalar_zeros(params, torch.int32),
+                              delta=_zeros_like_tree(params, torch.float32),
+                              nu=_scalar_zeros(params, torch.float32))
+
+    def update(g, state, params, alpha=None):
+        # alpha is accepted for a uniform interface; momentum SGD never
+        # uses the tail index.
+        delta = tree_map(lambda d, gi: cfg.momentum * d + gi.float(),
+                         state.delta, g)
+        new_params = tree_map(lambda w, d: (w - cfg.lr * d).to(w.dtype),
+                              params, delta)
+        return new_params, ServerOptState(state.step + 1, delta, state.nu)
+
+    return ServerOptimizer(init, update, "fedavgm")
+
+
+def fedavg(cfg: AdaptiveConfig) -> ServerOptimizer:
+    """Plain FedAvg / SGD on the OTA gradient."""
+
+    def init(params):
+        return ServerOptState(step=_scalar_zeros(params, torch.int32),
+                              delta=_scalar_zeros(params, torch.float32),
+                              nu=_scalar_zeros(params, torch.float32))
+
+    def update(g, state, params, alpha=None):
+        new_params = tree_map(lambda w, gi: (w - cfg.lr * gi).to(w.dtype),
+                              params, g)
+        return new_params, ServerOptState(state.step + 1, state.delta,
+                                          state.nu)
+
+    return ServerOptimizer(init, update, "fedavg")
+
+
+_REGISTRY = {
+    "adagrad_ota": adagrad_ota,
+    "adam_ota": adam_ota,
+    "amsgrad_ota": amsgrad_ota,
+    "yogi_ota": yogi_ota,
+    "fedavgm": fedavgm,
+    "fedavg": fedavg,
+}
 
 
 # Optimizer name -> fused-kernel mode of repro_torch.kernels.adaptive_update.
@@ -228,3 +394,14 @@ def _make_slab_update(cfg: AdaptiveConfig):
                                  params, alpha=alpha)
 
     return update
+
+
+def make_server_optimizer(cfg: AdaptiveConfig) -> ServerOptimizer:
+    """The optimizer's ``init`` with the fused slab ``update`` (ONE
+    ``adaptive_update_slab`` launch over the whole model), what the JAX
+    package's pallas backend returns; the port has no backend switch."""
+    if cfg.optimizer not in _REGISTRY:
+        raise ValueError(f"unknown server optimizer {cfg.optimizer!r}; "
+                         f"options: {sorted(_REGISTRY)}")
+    opt = _REGISTRY[cfg.optimizer](cfg)
+    return ServerOptimizer(opt.init, _make_slab_update(cfg), opt.name)

@@ -212,3 +212,52 @@ def cms_transform_fast(u: torch.Tensor, e: torch.Tensor, alpha) -> torch.Tensor:
     inner = -torch.log(torch.cos(u)) + (1.0 - a) * torch.log(
         torch.cos((1.0 - a) * u) / e)
     return torch.sin(a * u) * torch.exp(inner * (1.0 / a))
+
+
+def sample_alpha_stable(u: torch.Tensor, e: torch.Tensor, alpha,
+                        scale=1.0) -> torch.Tensor:
+    """Symmetric alpha-stable S(alpha, 0, scale, 0) samples by the
+    Chambers-Mallows-Stuck method from the base draws (u, e) (the port
+    takes its draws as data: ``repro_torch.core.draws``):
+    ``scale * cms_transform(u, e, alpha)``. At alpha == 2 this is
+    N(0, 2 scale^2)."""
+    return scale * cms_transform(u, e, alpha)
+
+
+def sample_interference(u: torch.Tensor, e: torch.Tensor,
+                        cfg: OTAChannelConfig) -> torch.Tensor:
+    """Interference xi_t with i.i.d. symmetric alpha-stable entries from
+    the base draws (u, e); zeros when the channel injects none."""
+    if not cfg.interference:
+        return torch.zeros_like(u)
+    return sample_alpha_stable(u, e, cfg.alpha, cfg.xi_scale)
+
+
+def interference_alpha_moment(cfg: OTAChannelConfig, d: int) -> float:
+    """Upper-bound proxy ``G`` for E[||xi||_alpha^alpha] (Eq. 15).
+
+    E|X|^alpha of a symmetric stable scalar diverges logarithmically, so
+    the theory constant uses the p = 0.95 alpha moment as a finite
+    stand-in, as the JAX package does:
+    E|X|^p = c^p 2^p Gamma((1+p)/2) Gamma(1-p/a) / (Gamma(1-p/2) sqrt(pi)).
+    """
+    a, c = cfg.alpha, cfg.xi_scale
+    p = 0.95 * a
+    num = (2.0**p) * math.gamma((1 + p) / 2) * math.gamma(1 - p / a)
+    den = math.gamma(1 - p / 2) * math.sqrt(math.pi)
+    return d * (c**p) * num / den
+
+
+def upsilon(cfg: OTAChannelConfig, d: int, n_clients: int,
+            grad_bound: float) -> float:
+    """The theory constant Upsilon of Theorem 1 (Eq. 22):
+
+        Upsilon = 4G + d^{1-a/2} E[h^2]^{a/2} C^a / N^{a/2}
+
+    with E[h^2] the second moment of the EFFECTIVE fading (the Bernoulli
+    transmit probability under power control)."""
+    a = cfg.alpha
+    g = interference_alpha_moment(cfg, d) if cfg.interference else 0.0
+    mu2 = cfg.fading_mean**2 + cfg.fading_var
+    return (4.0 * g + d ** (1 - a / 2) * mu2 ** (a / 2) * grad_bound**a
+            / n_clients ** (a / 2))

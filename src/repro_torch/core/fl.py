@@ -29,7 +29,16 @@ round in which nobody took part leaves the server state as it was.
 The round takes its random draws as ``RoundDraws`` instead of a PRNG key
 (``repro_torch.core.draws``). ``make_slab_round_runner`` drives R rounds
 as a host loop (the JAX package scans them), and ``run_rounds_slab`` is
-the host driver over chunks of rounds.
+the host loop over chunks of rounds; it resumes at ``start_round``
+and calls ``chunk_hook`` after each chunk (checkpoints:
+``repro_torch.checkpoint``).
+
+The per-round pytree API, the one the paper's experiments and the
+examples run through, is ``make_round_step`` + ``init_server`` +
+``run_rounds``: params and a ``ServerOptState`` in, the same out, each
+round. It is the JAX package's pallas round: the MAC through
+``ota_aggregate_slab`` and ONE fused server update
+(``apply_slab_update``) on slabs packed from the pytrees.
 
 Configurations the port does not cover yet raise ``NotImplementedError``
 naming the ROADMAP item that brings them; none silently degrades.
@@ -45,12 +54,15 @@ import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
-from repro_torch.core.adaptive import (AdaptiveConfig, slab_update_slabs,
-                                       state_slab_rows)
+from repro_torch.core.adaptive import (AdaptiveConfig, ServerOptState,
+                                       apply_slab_update,
+                                       make_server_optimizer,
+                                       slab_update_slabs, state_slab_rows)
 from repro_torch.core.channel import OTAChannelConfig
 from repro_torch.core.draws import RoundDraws
 from repro_torch.core.ota import downlink_quantize_slab, ota_aggregate_slab
-from repro_torch.core.slab import slab_to_tree, tree_map, tree_to_slab
+from repro_torch.core.slab import (make_slab_spec, slab_to_tree,
+                                   tree_flatten, tree_map, tree_to_slab)
 from repro_torch.core.slab_state import SlabTrainState
 from repro_torch.core.stream import client_weight_array, streamed_round_parts
 from repro_torch.core.tail_index import effective_alpha, update_alpha_ema
@@ -149,8 +161,12 @@ def _client_update(loss_fn: LossFn, fl_cfg: FLConfig
 
 def _check_covered(channel_cfg: OTAChannelConfig,
                    adaptive_cfg: AdaptiveConfig, fl_cfg: FLConfig,
-                   backend: Optional[str], batch_gen) -> None:
+                   backend: Optional[str], batch_gen, mesh=None) -> None:
     """Refuse every configuration this slice does not port yet."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (rounds distributed over a device mesh, the sharded "
+            "engine) is not ported yet: ROADMAP item A12")
     if backend == "pallas_sharded":
         raise NotImplementedError(
             'backend="pallas_sharded" (the sharded engine) is not ported '
@@ -167,6 +183,109 @@ def _check_covered(channel_cfg: OTAChannelConfig,
                          "(FLConfig.client_chunk); the resident path "
                          "consumes materialised client_batches")
     state_slab_rows(adaptive_cfg)    # unknown optimizer names raise here
+
+
+def _fill(x: float, dev: torch.device) -> torch.Tensor:
+    """A 0-dim f32 metric: a fill on the device, not a copy from the host
+    (no sync)."""
+    return torch.full((), x, dtype=torch.float32, device=dev)
+
+
+def _round_metrics(losses: torch.Tensor, grads_slab: torch.Tensor,
+                   g_slab: torch.Tensor, h: torch.Tensor,
+                   alpha_hat: torch.Tensor, n_participants: torch.Tensor
+                   ) -> RoundMetrics:
+    """The metrics of a resident (all-client) round, from its slabs: slab
+    norms are tree norms, the padding tail being zero."""
+    return RoundMetrics(
+        loss=torch.mean(losses),
+        grad_norm=torch.sqrt(torch.sum(torch.square(
+            torch.mean(grads_slab, dim=0)))),
+        noisy_grad_norm=torch.sqrt(torch.sum(torch.square(g_slab))),
+        fading_mean=torch.mean(h),
+        alpha_hat=alpha_hat,
+        n_participants=n_participants,
+    )
+
+
+def make_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
+                    adaptive_cfg: AdaptiveConfig, fl_cfg: FLConfig,
+                    device: DeviceLike = None,
+                    backend: Optional[str] = None, mesh=None):
+    """One ADOTA-FL round over vmapped clients, on ``device`` (default:
+    the card), on pytrees.
+
+    Returns ``round_step(params, opt_state, draws, client_batches) ->
+    (params, opt_state, metrics)``: ``params`` a pytree of tensors on the
+    device, ``opt_state`` the ``ServerOptState`` of ``init_server``,
+    ``draws`` the round's ``RoundDraws``, ``client_batches`` leaves (N,
+    ...) for ``local_steps == 1`` and (N, k, ...) otherwise. The round is
+    the JAX package's ``make_round_step(backend="pallas")``: the MAC
+    through ``ota_aggregate_slab`` (one channel launch on the f32 uplink;
+    one transmit and one receive launch on a quantized one) and ONE fused
+    server update over slabs packed from the pytrees.
+
+    Refused as in the JAX package (``ValueError``): alpha "auto", a
+    dynamic round, error feedback and the int8 downlink, which need the
+    resident loop (``make_slab_round_step``). The sharded engine
+    (``backend="pallas_sharded"``, ``mesh=``) waits for ROADMAP item A12
+    (``NotImplementedError``).
+    """
+    if adaptive_cfg.track_alpha:
+        raise ValueError(
+            'AdaptiveConfig.alpha == "auto" needs the slab-resident loop '
+            '(make_slab_round_step / make_slab_round_runner, or '
+            'launch.train --track-alpha): the per-round pytree API has no '
+            'resident alpha_hat to carry the estimator EMA across rounds')
+    if fl_cfg.dynamic_round:
+        raise ValueError(
+            "client_chunk / sample_rate < 1 / client_weights need the "
+            "slab-resident loop (make_slab_round_step / "
+            "make_slab_round_runner): the per-round pytree API has no "
+            "streamed uplink path")
+    if channel_cfg.uplink.error_feedback or channel_cfg.downlink != "f32":
+        raise ValueError(
+            "error_feedback / downlink != \"f32\" need the slab-resident "
+            "loop (make_slab_round_step / make_slab_round_runner): the "
+            "per-round pytree API has no resident residual slab to carry "
+            "across rounds and no slab broadcast to quantize")
+    _check_covered(channel_cfg, adaptive_cfg, fl_cfg, backend, None, mesh)
+    dev = resolve_device(device)
+    client_fn = vmap(_client_update(loss_fn, fl_cfg), in_dims=(None, 0))
+    alpha = float(adaptive_cfg.alpha)
+    n_clients = float(fl_cfg.n_clients)
+
+    def round_step(params, opt_state: ServerOptState, draws: RoundDraws,
+                   client_batches):
+        leaf = tree_flatten(params)[0][0]
+        if leaf.device != dev:
+            raise ValueError(f"params live on {leaf.device}, the round on "
+                             f"{dev}")
+        draws = draws.to(dev)
+        if draws.mask is not None:
+            raise ValueError("draws.mask is set but the round config is "
+                             "resident (FLConfig.sample_rate is 1)")
+        batches = tree_map(lambda x: torch.as_tensor(x, device=dev),
+                           client_batches)
+        grads, losses = client_fn(params, batches)
+        spec = make_slab_spec(params)
+        # The MAC, then the fused server update with g_t still a slab.
+        g_slab, h, grads_slab, _, _ = ota_aggregate_slab(
+            draws, channel_cfg, grads, spec)
+        new_params, new_state = apply_slab_update(adaptive_cfg, spec, g_slab,
+                                                  opt_state, params)
+        return new_params, new_state, _round_metrics(
+            losses, grads_slab, g_slab, h, _fill(alpha, dev),
+            _fill(n_clients, dev))
+
+    return round_step
+
+
+def init_server(params: PyTree, adaptive_cfg: AdaptiveConfig
+                ) -> ServerOptState:
+    """The optimizer state of ``adaptive_cfg`` for ``params``, on their
+    device."""
+    return make_server_optimizer(adaptive_cfg).init(params)
 
 
 def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
@@ -201,10 +320,6 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
     static_alpha = None if track else float(adaptive_cfg.alpha)
     weights = client_weight_array(fl_cfg, dev)
 
-    def metric(x: float) -> torch.Tensor:
-        # a fill on the device, not a copy from the host (no sync)
-        return torch.full((), x, dtype=torch.float32, device=dev)
-
     def broadcast_slab(state: SlabTrainState, draws: RoundDraws):
         """The weight slab the CLIENTS see: the f32 master, or its int8
         reconstruction under the int8 downlink."""
@@ -235,7 +350,7 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
         else:
             alpha_hat = state.alpha_hat
             alpha_arg = None
-            alpha_metric = metric(static_alpha)
+            alpha_metric = _fill(static_alpha, dev)
         w_in = state.w
         if any(dt != torch.float32 for dt in spec.dtypes):
             # Non-f32 leaves round-trip through their storage dtype each
@@ -323,15 +438,8 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
             ef=state.ef[0] if use_ef else None)
         alpha_hat, alpha_metric, new_opt, w_new = server_half(
             state, params, g_slab, stats)
-        metrics = RoundMetrics(
-            loss=torch.mean(losses),
-            grad_norm=torch.sqrt(torch.sum(torch.square(
-                torch.mean(grads_slab, dim=0)))),
-            noisy_grad_norm=torch.sqrt(torch.sum(torch.square(g_slab))),
-            fading_mean=torch.mean(h),
-            alpha_hat=alpha_metric,
-            n_participants=metric(n_metric),
-        )
+        metrics = _round_metrics(losses, grads_slab, g_slab, h, alpha_metric,
+                                 _fill(n_metric, dev))
         return SlabTrainState(state.step + 1, w_new, new_opt, alpha_hat,
                               spec, ef_new[None] if use_ef else state.ef
                               ), metrics
@@ -417,26 +525,34 @@ def run_rounds_slab(run_chunk, state: SlabTrainState,
                     draws_fn: Callable[[int], RoundDraws],
                     batch_fn: Callable[[int], PyTree], n_rounds: int,
                     chunk: int = 8, eval_fn: Optional[Callable] = None,
-                    eval_every: int = 0, log_every: int = 0, log=print):
+                    eval_every: int = 0, log_every: int = 0, log=print,
+                    start_round: int = 0,
+                    chunk_hook: Optional[Callable] = None,
+                    align: Tuple[int, ...] = ()):
     """Host driver over ``run_chunk`` (from ``make_slab_round_runner``).
 
-    Rounds are dispatched in chunks of up to ``chunk``. Round t takes
-    ``draws_fn(t)`` and ``batch_fn(t)``: both keyed by the ABSOLUTE round
-    index, the port's form of the JAX driver's ``key_fn``. Under
-    ``batch_gen`` ``batch_fn`` returns None. Eval (on the parameter dict)
-    happens only at chunk boundaries; chunks are clipped so every
-    ``eval_every`` multiple is one. Dead rounds (no participants) are
-    logged as one WARNING line per log interval. Returns
-    ``(state, history)`` with one dict per round, as the JAX driver
-    returns.
+    Rounds ``start_round`` .. ``n_rounds - 1`` are dispatched in chunks
+    of up to ``chunk``. Round t takes ``draws_fn(t)`` and
+    ``batch_fn(t)``: both keyed by the ABSOLUTE round index (the port's
+    form of the JAX package's ``key_fn``), so a run resumed at
+    ``start_round`` sees the draws the uninterrupted run saw. Under
+    ``batch_gen`` ``batch_fn`` returns None. Eval (on the parameter
+    dict) happens only at chunk boundaries; chunks are clipped so every
+    ``eval_every`` multiple, and every multiple of each period in
+    ``align``, is one. ``chunk_hook(t, state, history)`` runs after every
+    chunk, t the next round (e.g. for checkpoints). Dead rounds (no
+    participants) are logged as one WARNING line per log interval.
+    Returns ``(state, history)`` with one dict per round run, as the JAX
+    package's ``run_rounds_slab`` returns.
     """
     history = []
     dead = _DeadRoundAggregator(log)
-    t = 0
+    t = start_round
     while t < n_rounds:
         r = min(chunk, n_rounds - t)
-        if eval_every:
-            r = min(r, eval_every - t % eval_every)
+        for period in (eval_every, *align):
+            if period:
+                r = min(r, period - t % period)
         draws = [draws_fn(t + i) for i in range(r)]
         bs = [batch_fn(t + i) for i in range(r)]
         batches = (None if all(b is None for b in bs)
@@ -457,6 +573,45 @@ def run_rounds_slab(run_chunk, state: SlabTrainState,
             for i in range(t - r, t):
                 if (i + 1) % log_every == 0:
                     dead.flush()
-                    _log_round(log, i, history[i])
+                    # history is indexed from start_round, i is absolute
+                    _log_round(log, i, history[i - start_round])
+        if chunk_hook is not None:
+            chunk_hook(t, state, history)
     dead.flush()
     return state, history
+
+
+def run_rounds(round_step, params: PyTree, opt_state: ServerOptState,
+               draws_fn: Callable[[int], RoundDraws],
+               batch_fn: Callable[[int], PyTree], n_rounds: int,
+               eval_fn: Optional[Callable] = None, eval_every: int = 0,
+               log_every: int = 0, log=print):
+    """Host loop over ``round_step`` (from ``make_round_step``).
+
+    Round t takes ``draws_fn(t)`` and ``batch_fn(t)``, keyed by the
+    absolute round as in ``run_rounds_slab``. Eval (``eval_fn(params)``)
+    after every ``eval_every``-th round joins that round's record.
+    Returns ``(params, opt_state, history)``, one dict per round, as the
+    JAX package's ``run_rounds`` returns.
+    """
+    history = []
+    dead = _DeadRoundAggregator(log)
+    for t in range(n_rounds):
+        params, opt_state, m = round_step(params, opt_state, draws_fn(t),
+                                          batch_fn(t))
+        # one read back to the host a round
+        vals = torch.stack([m.loss, m.grad_norm, m.noisy_grad_norm,
+                            m.alpha_hat, m.n_participants]).tolist()
+        rec = {"round": t, **dict(zip(("loss", "grad_norm",
+                                       "noisy_grad_norm", "alpha_hat",
+                                       "n_participants"), vals))}
+        if rec["n_participants"] == 0.0:
+            dead.record(t)
+        if eval_fn is not None and eval_every and (t + 1) % eval_every == 0:
+            rec.update(eval_fn(params))
+        history.append(rec)
+        if log_every and (t + 1) % log_every == 0:
+            dead.flush()
+            _log_round(log, t, rec)
+    dead.flush()
+    return params, opt_state, history

@@ -17,6 +17,13 @@ The JAX function derives its draws from the round key inside the round
 (``kh, kx = split(key)``); here they arrive as ``RoundDraws``
 (``repro_torch.core.draws``), so the same draws can come from the JAX
 package (the parity tests) or from a torch generator (standalone runs).
+
+The per-leaf functions of the pytree API (``add_interference``,
+``interference_log_moment_stats``) draw leaf i's interference from the
+slab's (u, e) sliced at that leaf's ``SlabSpec`` offset: the JAX package
+draws leaf i from ``fold_in(kx, i)``, the same key its slab draw uses
+for that leaf, so the values are the ones the slab MAC injects.
+``ota_aggregate_stacked`` is the pytree face of ``ota_aggregate_slab``.
 """
 
 from __future__ import annotations
@@ -25,9 +32,12 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.core.channel import OTAChannelConfig
+from repro_torch.core.channel import OTAChannelConfig, sample_interference
 from repro_torch.core.draws import RoundDraws
-from repro_torch.core.slab import SlabSpec, stack_to_slab
+from repro_torch.core.slab import (SlabSpec, make_slab_spec, slab_to_tree,
+                                   stack_to_slab, tree_flatten, tree_map,
+                                   tree_unflatten)
+from repro_torch.core.tail_index import log_moment_stats
 from repro_torch.kernels.ota_channel import (INT8_MAX, LANE, ota_channel_slab,
                                              ota_receive_slab,
                                              ota_transmit_slab,
@@ -47,6 +57,56 @@ def _interference_slab_inputs(draws: RoundDraws, cfg: OTAChannelConfig,
     if cfg.interference:
         return draws.u, draws.e, cfg.xi_scale
     return (torch.zeros_like(draws.u), torch.ones_like(draws.e), 0.0)
+
+
+def _leaf_interference(draws: RoundDraws, cfg: OTAChannelConfig,
+                       tree: PyTree):
+    """(leaves, treedef, xi per leaf): leaf i's interference from the
+    draws' (u, e) at its slab offset."""
+    leaves, treedef = tree_flatten(tree)
+    spec = make_slab_spec(tree)
+    if draws.u.shape != (spec.padded,) or draws.e.shape != (spec.padded,):
+        raise ValueError(f"draws.u/e must be ({spec.padded},), got "
+                         f"{tuple(draws.u.shape)}/{tuple(draws.e.shape)}")
+    xis = [sample_interference(draws.u[o:o + n].view(shape),
+                               draws.e[o:o + n].view(shape), cfg)
+           for shape, o, n in zip(spec.shapes, spec.offsets, spec.sizes)]
+    return leaves, treedef, xis
+
+
+def add_interference(draws: RoundDraws, cfg: OTAChannelConfig,
+                     grads: PyTree) -> PyTree:
+    """Add i.i.d. symmetric alpha-stable interference xi_t to every entry."""
+    if not cfg.interference:
+        return grads
+    leaves, treedef, xis = _leaf_interference(draws, cfg, grads)
+    return tree_unflatten(treedef, [(g.float() + xi).to(g.dtype)
+                                    for g, xi in zip(leaves, xis)])
+
+
+def interference_log_moment_stats(draws: RoundDraws, cfg: OTAChannelConfig,
+                                  tree: PyTree) -> torch.Tensor:
+    """The per-leaf mirror of the kernels' pilot-statistics epilogue: the
+    ``[count, sum log|r|, sum log^2|r|]`` of this round's interference
+    over the leaves of ``tree`` (per-leaf 3-vectors add). Zeros when the
+    channel injects none."""
+    return _add_interference_with_stats(draws, cfg, tree)[1]
+
+
+def _add_interference_with_stats(draws: RoundDraws, cfg: OTAChannelConfig,
+                                 grads: PyTree
+                                 ) -> Tuple[PyTree, torch.Tensor]:
+    """``add_interference`` and the statistics from one draw per leaf."""
+    if not cfg.interference:
+        return grads, torch.zeros((3,), dtype=torch.float32,
+                                  device=draws.u.device)
+    leaves, treedef, xis = _leaf_interference(draws, cfg, grads)
+    stats = torch.zeros((3,), dtype=torch.float32, device=draws.u.device)
+    noisy = []
+    for g, xi in zip(leaves, xis):
+        noisy.append((g.float() + xi).to(g.dtype))
+        stats = stats + log_moment_stats(xi)
+    return tree_unflatten(treedef, noisy), stats
 
 
 def restore_zero_tail(x: Optional[torch.Tensor], spec: SlabSpec
@@ -164,3 +224,17 @@ def mac_slab(draws: RoundDraws, cfg: OTAChannelConfig, spec: SlabSpec,
         g_slab = restore_zero_tail(g_slab, spec)
         ef_new = restore_zero_tail(ef_new, spec)
     return g_slab, stats, ef_new
+
+
+def ota_aggregate_stacked(draws: RoundDraws, cfg: OTAChannelConfig,
+                          client_grads: PyTree, pilot_stats: bool = False):
+    """OTA-aggregate gradients stacked on a leading client axis (leaves
+    (N, ...)): through ``ota_aggregate_slab`` (the device decides: the
+    channel kernel on the f32 uplink, transmit + receive on a quantized
+    one), then the pytree restored. Returns ``(g_t, h)``, or ``(g_t, h,
+    stats)`` with ``pilot_stats=True``."""
+    spec = make_slab_spec(tree_map(lambda g: g[0], client_grads))
+    g_slab, h, _, stats, _ = ota_aggregate_slab(draws, cfg, client_grads,
+                                                spec, pilot_stats=pilot_stats)
+    g_t = slab_to_tree(spec, g_slab)
+    return (g_t, h, stats) if pilot_stats else (g_t, h)

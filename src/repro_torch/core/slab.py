@@ -34,12 +34,18 @@ PyTree = Any
 LANE = 128
 
 # A treedef is a nested tuple: ("leaf",), ("dict", keys, children),
-# ("list", children) or ("tuple", children).
+# ("list", children), ("tuple", children) or ("namedtuple", cls,
+# children).
 TreeDef = tuple
 
 
+def _is_namedtuple(tree) -> bool:
+    return isinstance(tree, tuple) and hasattr(type(tree), "_fields")
+
+
 def tree_flatten(tree: PyTree) -> Tuple[List[Any], TreeDef]:
-    """Leaves in ``jax.tree.flatten`` order, plus the structure."""
+    """Leaves in ``jax.tree.flatten`` order, plus the structure. A
+    NamedTuple is a node of its own type, as in ``jax.tree``."""
     if isinstance(tree, dict):
         keys = tuple(sorted(tree))
         leaves, defs = [], []
@@ -54,6 +60,8 @@ def tree_flatten(tree: PyTree) -> Tuple[List[Any], TreeDef]:
             sub, d = tree_flatten(item)
             leaves += sub
             defs.append(d)
+        if _is_namedtuple(tree):
+            return leaves, ("namedtuple", type(tree), tuple(defs))
         kind = "list" if isinstance(tree, list) else "tuple"
         return leaves, (kind, tuple(defs))
     return [tree], ("leaf",)
@@ -68,6 +76,8 @@ def tree_unflatten(treedef: TreeDef, leaves: List[Any]) -> PyTree:
             return next(it)
         if d[0] == "dict":
             return {k: build(c) for k, c in zip(d[1], d[2])}
+        if d[0] == "namedtuple":
+            return d[1](*[build(c) for c in d[2]])
         items = [build(c) for c in d[1]]
         return items if d[0] == "list" else tuple(items)
 
@@ -75,6 +85,28 @@ def tree_unflatten(treedef: TreeDef, leaves: List[Any]) -> PyTree:
     if next(it, None) is not None:
         raise ValueError("more leaves than the treedef holds")
     return out
+
+
+def treedef_str(treedef: TreeDef) -> str:
+    """The structure as ``str(jax.tree.structure(tree))`` prints it, e.g.
+    ``PyTreeDef({'b': *, 'w': *})``: the slab layout's fingerprint
+    (``slab_state.spec_meta``) must read the same in both packages."""
+
+    def render(d):
+        if d[0] == "leaf":
+            return "*"
+        if d[0] == "dict":
+            return "{" + ", ".join(f"{k!r}: {render(c)}"
+                                   for k, c in zip(d[1], d[2])) + "}"
+        if d[0] == "namedtuple":
+            return (f"CustomNode(namedtuple[{d[1].__name__}], ["
+                    + ", ".join(render(c) for c in d[2]) + "])")
+        items = [render(c) for c in d[1]]
+        if d[0] == "list":
+            return "[" + ", ".join(items) + "]"
+        return "(" + ", ".join(items) + (",)" if len(items) == 1 else ")")
+
+    return f"PyTreeDef({render(treedef)})"
 
 
 def tree_map(fn, tree: PyTree, *rest: PyTree) -> PyTree:

@@ -5,6 +5,12 @@ pure slab computation, so the multi-round loop never leaves slab form:
 ``SlabTrainState`` holds the parameter slab, the optimizer-state slabs
 (in ``state_slab_rows`` order), the round counter and the tail-index
 telemetry, with the static ``SlabSpec`` alongside.
+
+Pytrees appear only at the boundaries: ``pack_train_state`` /
+``unpack_train_state`` convert to and from the per-round API's
+``(params, ServerOptState)``, and ``spec_meta`` is the layout's
+fingerprint that checkpoints carry (``repro_torch.checkpoint``), the
+same dict as the JAX package's for the same parameters.
 """
 
 from __future__ import annotations
@@ -14,8 +20,10 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from repro_torch.core.adaptive import AdaptiveConfig, state_slab_rows
-from repro_torch.core.slab import (SlabSpec, make_slab_spec, tree_to_slab,
+from repro_torch.core.adaptive import (AdaptiveConfig, ServerOptState,
+                                       pack_state_slabs, state_slab_rows)
+from repro_torch.core.slab import (SlabSpec, make_slab_spec, slab_to_tree,
+                                   tree_flatten, tree_to_slab, treedef_str,
                                    zeros_slab)
 from repro_torch.device import DeviceLike, resolve_device
 
@@ -64,3 +72,70 @@ def init_train_state(cfg: AdaptiveConfig, params: PyTree,
         ef=(torch.zeros((spec.shards, spec.padded), dtype=torch.float32,
                         device=dev)
             if error_feedback else None))
+
+
+def pack_train_state(cfg: AdaptiveConfig, spec: SlabSpec, params: PyTree,
+                     state: ServerOptState,
+                     alpha_hat: Optional[torch.Tensor] = None
+                     ) -> SlabTrainState:
+    """Boundary: flatten a ``(params, ServerOptState)`` pair into slabs on
+    the parameters' device. ``alpha_hat`` defaults to the unseeded
+    sentinel 0.0 (``ServerOptState`` carries no tail-index telemetry)."""
+    dev = tree_flatten(params)[0][0].device
+    if alpha_hat is None:
+        alpha_hat = torch.zeros((), dtype=torch.float32, device=dev)
+    return SlabTrainState(
+        step=torch.as_tensor(state.step, dtype=torch.int32, device=dev),
+        w=tree_to_slab(spec, params),
+        opt=pack_state_slabs(cfg, spec, state),
+        alpha_hat=torch.as_tensor(alpha_hat, dtype=torch.float32,
+                                  device=dev),
+        spec=spec)
+
+
+def unpack_train_state(cfg: AdaptiveConfig, state: SlabTrainState
+                       ) -> Tuple[PyTree, ServerOptState]:
+    """Boundary: the ``(params, ServerOptState)`` pytrees (params in their
+    leaf dtypes, optimizer state f32; modes that carry no delta / nu get
+    the 0-dim zero placeholders of their ``init``)."""
+    spec = state.spec
+    rows = dict(zip(state_slab_rows(cfg), state.opt))
+    zero = torch.zeros((), dtype=torch.float32, device=state.w.device)
+    delta = (slab_to_tree(spec, rows["delta"], cast=False)
+             if "delta" in rows else zero)
+    if "vmax" in rows:
+        nu = {"v": slab_to_tree(spec, rows["nu"], cast=False),
+              "vmax": slab_to_tree(spec, rows["vmax"], cast=False)}
+    elif "nu" in rows:
+        nu = slab_to_tree(spec, rows["nu"], cast=False)
+    else:
+        nu = zero
+    params = slab_to_tree(spec, state.w)
+    return params, ServerOptState(step=state.step, delta=delta, nu=nu)
+
+
+def spec_meta(spec: SlabSpec) -> dict:
+    """JSON-serialisable fingerprint of a slab layout, stored beside
+    checkpoints so a resume can verify that the current model gives the
+    same layout. Key for key the JAX package's: numpy dtype names and
+    ``jax.tree``'s treedef string. The treedef catches what the leaf
+    metadata cannot: two same-shaped leaves renamed or reordered."""
+    return {"total": spec.total, "padded": spec.padded,
+            "shards": spec.shards,
+            "shapes": [list(s) for s in spec.shapes],
+            "dtypes": [str(d).removeprefix("torch.") for d in spec.dtypes],
+            "offsets": list(spec.offsets),
+            "treedef": treedef_str(spec.treedef)}
+
+
+def check_spec_meta(spec: SlabSpec, meta: dict, where: str = "") -> None:
+    """Raise if ``spec`` does not reproduce the checkpointed layout."""
+    current = spec_meta(spec)
+    if current != meta:
+        diff = [k for k in current if current[k] != meta.get(k)]
+        raise ValueError(
+            f"slab layout mismatch{' in ' + where if where else ''}: "
+            f"checkpoint was written with a different {'/'.join(diff)} "
+            f"(ckpt {[meta.get(k) for k in diff]!r} vs current "
+            f"{[current[k] for k in diff]!r}); resuming would re-pack "
+            "state into a different layout")

@@ -27,18 +27,31 @@ from repro.core.channel import OTAChannelConfig as JOTAChannelConfig
 from repro.core.channel import UplinkConfig as JUplinkConfig
 from repro.core.channel import sample_fading
 from repro.core.fl import FLConfig as JFLConfig
+from repro.core.fl import init_server as j_init_server
+from repro.core.fl import make_round_step as j_make_round_step
 from repro.core.fl import make_slab_round_step as j_make_step
+from repro.core.fl import run_rounds as j_run_rounds
+from repro.core.slab import make_slab_spec as j_make_slab_spec
 from repro.core.slab_state import init_train_state as j_init_train_state
 from repro.core.ota import (_cms_slab_inputs, downlink_sr_slab_inputs,
                             uplink_sr_slab_inputs)
 from repro.core.stream import participation_mask
 from repro_torch.convert import params_from_numpy
+from repro_torch.core.adaptive import ServerOptState
 from repro_torch.core.draws import RoundDraws
-from repro_torch.core.fl import make_slab_round_step
+from repro_torch.core.fl import (init_server, make_round_step,
+                                 make_slab_round_step, run_rounds)
+from repro_torch.core.slab import tree_flatten, treedef_str
 from repro_torch.core.slab_state import init_train_state
+
+# One compiled program for the whole slab's draw (the eager draw compiles
+# one per leaf shape); the same values, bit for bit.
+_cms_slab_inputs_jit = jax.jit(_cms_slab_inputs, static_argnums=1)
 
 METRICS = ("loss", "grad_norm", "noisy_grad_norm", "fading_mean",
            "alpha_hat", "n_participants")
+HISTORY = ("loss", "grad_norm", "noisy_grad_norm", "alpha_hat",
+           "n_participants")
 
 
 def jax_channel_config(ch, backend="pallas"):
@@ -61,7 +74,7 @@ def ref_draws(key, ch, jspec, n: int, sample_rate: float = 1.0
     kh, kx = jax.random.split(key)
     h = sample_fading(kh, jax_channel_config(ch), (n,))
     if ch.interference:
-        u, e = _cms_slab_inputs(kx, jspec)
+        u, e = _cms_slab_inputs_jit(kx, jspec)
     else:
         u = jnp.zeros((jspec.padded,), jnp.float32)
         e = jnp.ones((jspec.padded,), jnp.float32)
@@ -130,3 +143,61 @@ def assert_states(jstate, tstate, tol):
     if jstate.ef is not None:
         assert tuple(tstate.ef.shape) == tuple(jstate.ef.shape)
         assert_close(tstate.ef, jstate.ef, tol, tol, "ef")
+
+
+def round_key_chain(key, n: int):
+    """The round keys of JAX's ``run_rounds`` chain: ``key, k_round, k_data =
+    split(key, 3)`` each round."""
+    out = []
+    for _ in range(n):
+        key, k_round, _ = jax.random.split(key, 3)
+        out.append(k_round)
+    return out
+
+
+def run_rounds_both(jmodel, tmodel, params_np, batches, ch, ad, fl,
+                    n_rounds, draws_cache=None):
+    """Drive JAX's ``make_round_step(backend="pallas")`` + ``run_rounds``
+    and the port's (CPU) over the same params, batches and draws (the
+    JAX ``run_rounds`` key chain rebuilt in the port's ``draws_fn``). Returns
+    ``(jax (params, state, history), port (params, state, history))``.
+    ``draws_cache``, a dict, keeps the draws of each round for runs that
+    share the channel, the model and the client count."""
+    jch, jad, jfl = jax_configs(ch, ad, fl)
+    jstep = j_make_round_step(jmodel.loss_fn, jch, jad, jfl, backend="pallas")
+    jp = jax.tree.map(jnp.asarray, params_np)
+    key = jax.random.key(1)
+    jp_out, js, jhist = j_run_rounds(
+        jstep, jp, j_init_server(jp, jad), key,
+        lambda t, k: jax.tree.map(jnp.asarray, batches[t]), n_rounds)
+    jspec = j_make_slab_spec(jp)
+    keys = round_key_chain(key, n_rounds)
+    cache = {} if draws_cache is None else draws_cache
+
+    def draws_fn(t):
+        if t not in cache:
+            cache[t] = ref_draws(keys[t], ch, jspec, fl.n_clients)
+        return cache[t]
+
+    tstep = make_round_step(tmodel.loss_fn, ch, ad, fl, device="cpu")
+    tp = params_from_numpy(params_np, "cpu")
+    tp, ts, thist = run_rounds(tstep, tp, init_server(tp, ad), draws_fn,
+                               lambda t: batches[t], n_rounds)
+    return (jp_out, js, jhist), (tp, ts, thist)
+
+
+def assert_trajectories(j, t, tol):
+    """Final params, optimizer state (type and structure too) and every
+    history record of the two runs of ``run_rounds_both``."""
+    (jp, js, jhist), (tp, ts, thist) = j, t
+    assert type(ts) is ServerOptState and int(ts.step) == int(js.step)
+    assert treedef_str(tree_flatten((tp, ts))[1]) == \
+        str(jax.tree.structure((jp, js)))
+    for a, b in zip(tree_flatten((tp, ts))[0], jax.tree.leaves((jp, js))):
+        assert_close(a, b, tol, tol)
+    assert [h["round"] for h in thist] == [h["round"] for h in jhist]
+    for th, jh in zip(thist, jhist):
+        assert set(th) == set(jh)
+        for f in HISTORY:
+            np.testing.assert_allclose(th[f], jh[f], rtol=tol, atol=tol,
+                                       err_msg=f)
