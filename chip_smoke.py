@@ -8,7 +8,9 @@ Run from the root of a checkout, with no arguments:
 Phases, each printing its own line(s) before the last line:
 
 1. device: the card's name and power limit (nvidia-smi); TF32 off for
-   matrix products and convolutions (the reference computes in f32);
+   matrix products and convolutions (the reference computes in f32); the
+   allocator's expandable segments on (set before torch allocates on the
+   card; phase 14d's 4 GB slabs fragment the default pool);
 2. build: nvcc builds the kernels from src/repro_torch/csrc, each source
    by its own nvcc, all started together; the update (B1), channel (B2),
    accumulating transmit (B3b), quantize transmit (B3c) and receive (B4)
@@ -82,6 +84,12 @@ Phases, each printing its own line(s) before the last line:
    2000 x 4096 and 1 x 4096;
 11. reference: streamed logistic-regression rounds on the card against
    the same rounds on the CPU: serial, double-buffered, ragged, weighted;
+11b. reference LM: the tiny preset in f32 (4 clients x batch 2 x seq
+   32 of the training CLI's corpus, adam_ota), 3 rounds through
+   make_slab_round_runner on the card and on the CPU with the same
+   parameters, batches and draws, on the f32 wire and on int8 + EF: the
+   losses within 1e-5, the state slabs within the tiers of
+   tests/test_torch_lm_train.py;
 12. streamed equals resident: ResNet-tiny at full width, 50 clients,
    chunk 50, 3 rounds of adam_ota, bitwise the resident round's state;
 13. streamed runs S1-S3 of ResNet-tiny at full width: 200 clients,
@@ -117,6 +125,26 @@ Phases, each printing its own line(s) before the last line:
    the final state bitwise the uninterrupted run's, the async file's
    bytes the blocking file's; the file's size and both saves' host
    times printed;
+14c. LM training: the training CLI (repro_torch.launch.train.main) at
+   --preset 100m (8 layers, d_model 768, 12 heads / 4 kv, d_ff 2048,
+   vocab 8192; 62,928,640 parameters) with its defaults (8 clients x
+   batch 2 x seq 128, adam_ota) but --lr 0.002 (at the default 0.02 the
+   loss rises, in the JAX package too), 6 rounds on each of four wires: f32;
+   int8 + EF + int8 downlink + --track-alpha; folded sign + EF; --client-
+   chunk 4 --sample-rate 0.5 --client-weights datasize. Every counter,
+   B5's among them, set to 0 before and read after each run: one B2 and
+   one B1 a f32 round, one B3c, one B4 and one B1 a quantized round, two
+   B3b (one a chunk), one B2 (the finish) and one B1 a streamed round,
+   and no B5 launch; the losses finite and falling; ms a round, tokens
+   per second and peak memory printed. Then a --ckpt-dir run of 3 rounds
+   resumed to 6, bitwise the uninterrupted f32 run;
+14d. LM at full width: StarCoder2-15B's width at depth 1 (d_model 6144,
+   48 heads / 4 kv, d_ff 24576, vocab 49,152; 987,833,344 parameters, a
+   3.95 GB f32 slab), 4 clients x batch 2 x seq 128, 4 rounds on the f32
+   wire and 4 on int8 + EF (the first cold, the median of the rest
+   quoted) through make_slab_round_runner(model.loss_fn)
+   + run_rounds_slab, the calls the CLI makes: the same launch counts,
+   ms a round, tokens per second and peak memory;
 15. kernel flash_attention against its plain version: the six
    FLASH_CASES of tests/test_kernels.py in f32 and bf16, then the
    prefill shapes of Qwen3-14B (1 x 4096, 40 heads, 8 kv heads, D 128,
@@ -127,6 +155,13 @@ Phases, each printing its own line(s) before the last line:
    128) per element at 2^-7 |ref| + 2^-8 attn(q, k, |v|) + 2e-5, the
    scalar one at 2e-5 in f32 and 2^-7 |ref| + 2e-5 in bf16; before any
    language model is on the card;
+15b. the kernels at the LM runs' shapes against their plain versions:
+   B1 (adam) at d = 62,928,640 and 987,833,344; B2 at 8 x 62,928,640,
+   1 x 62,928,640 (the streamed finish) and 4 x 987,833,344; B3b at 4 x
+   62,928,640 with a carry; B3c int8 + EF at 8 x 62,928,640 and 4 x
+   987,833,344, folded sign + EF at 8 x 62,928,640; B4 at 1 x 62,928,640
+   (int8 with statistics, folded sign) and 1 x 987,833,344 (int8), at
+   the tiers of phases 3-6 and 10;
 16. serve qwen3-14b: full width and depth (40 layers, 14.8 B parameters,
    bf16, random from seed 0) through repro_torch.launch.serve.generate,
    greedy: (a) the serve CLI's defaults, batch 4 x prompt 64, 32 tokens;
@@ -146,7 +181,8 @@ Phases, each printing its own line(s) before the last line:
    flash kernel, one launch a layer in each prefill, none of the Hopper
    one;
 19. times: the launch floor (a near-empty launch, timed as the kernels
-   are); then CUDA events, median of 50 launches, each after an L2 flush
+   are); then CUDA events, first at the LM runs' shapes (those of 15b,
+   torch.addmv beside B3b), then median of 50 launches, each after an L2 flush
    and a device sleep that covers the host's enqueue, of each kernel and
    its plain version at the main path's shapes (B1 also at d = 4096; B2
    at 50 x 175,104 in turns with B3b's no-carry call, with pilot
@@ -1851,6 +1887,625 @@ def phase_checkpoint(torch, np, dev, counters):
     return totals
 
 
+# --------------------------------------------------------------------------
+# LM training (phases 14c-14d): the training CLI's 100m preset through
+# repro_torch.launch.train.main, and StarCoder2-15B's width at depth 1
+# through the calls the CLI makes.
+# --------------------------------------------------------------------------
+
+LM_ROUNDS, LM_CKPT_AT = 6, 3
+# The CLI's default lr (0.02) makes the 100m preset's loss rise in both
+# packages (Adam-OTA moves every coordinate by about lr a round; tests/
+# test_torch_lm_train.py::test_100m_width_round_matches_jax); at 0.002 it
+# falls, so the runs take that and keep every other default.
+LM_LR = 0.002
+LM_PARAMS = 62_928_640        # the 100m preset (8 layers, d_model 768)
+D_LM = 62_928_640             # its slab (a multiple of 128 already)
+LM_TOKENS = 8 * 2 * 128       # the CLI's defaults: clients x batch x seq
+TX, RX, UPD, CHAN = ("ota_transmit_slab", "ota_receive_slab",
+                     "adaptive_update_slab", "ota_channel_slab")
+# (name, flags, launches a round of each kernel)
+LM_RUNS = (
+    ("f32", [], {CHAN: 1, UPD: 1}),
+    ("int8-ef-dl8-auto", ["--uplink", "int8", "--error-feedback",
+                          "--downlink", "int8", "--track-alpha"],
+     {TX: 1, RX: 1, UPD: 1}),
+    ("sign-fold-ef", ["--uplink", "sign", "--sign-pack", "fold",
+                      "--error-feedback"], {TX: 1, RX: 1, UPD: 1}),
+    ("chunk4-sr0.5-datasize", ["--client-chunk", "4", "--sample-rate",
+                               "0.5", "--client-weights", "datasize"],
+     {STREAM: 2, CHAN: 1, UPD: 1}),
+)
+WIDTH_ARCH, WIDTH_PARAMS = "starcoder2-15b", 987_833_344
+D_WIDTH = 987_833_344         # its slab (a multiple of 128 already)
+WIDTH_CLIENTS, WIDTH_ROUNDS = 4, 4
+# (name, uplink, error feedback, launches a round)
+WIDTH_RUNS = (("f32", "f32", False, {CHAN: 1, UPD: 1}),
+              ("int8-ef", "int8", True, {TX: 1, RX: 1, UPD: 1}))
+
+
+def _lm_counted(torch, counters, want_per_round, rounds, what, fn):
+    """Run ``fn`` with every counter set to 0 just before and read just
+    after; the launches must be ``rounds`` x ``want_per_round`` (0 for
+    every other kernel, B5 among them)."""
+    for c in counters:
+        c.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    counts = {c.__name__: c.launches for c in counters}
+    want = {k: rounds * want_per_round.get(k, 0) for k in counts}
+    check(counts == want, f"{what}: launches {counts}, want {want}")
+    return out, counts
+
+
+def phase_lm_train(torch, dev, counters):
+    """Phase 14c: the training CLI at --preset 100m on the card through
+    ``main([...])``, LM_ROUNDS rounds of each LM_RUNS wire, the counters
+    set to 0 before and read after each run (B5 must stay at 0); then a
+    --ckpt-dir run of LM_CKPT_AT rounds resumed to LM_ROUNDS, bitwise the
+    uninterrupted f32 run. Returns the launches by run."""
+    import gc
+    import tempfile
+
+    from repro_torch.configs import preset_config
+    from repro_torch.launch import train
+
+    check(preset_config("qwen3-14b", "100m").n_params() == LM_PARAMS,
+          "the 100m preset's parameter count")
+    base = ["--preset", "100m", "--lr", str(LM_LR), "--rounds",
+            str(LM_ROUNDS), "--log-every", str(LM_CKPT_AT)]
+    train.main(base[:4] + ["--rounds", "1"])      # warm-up, not counted
+    out, results = {}, {}
+    for name, flags, per_round in LM_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        r, out[name] = _lm_counted(torch, counters, per_round, LM_ROUNDS,
+                                   f"LM train {name}",
+                                   lambda: train.main(base + flags))
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        losses = [h["loss"] for h in r["history"]]
+        check(len(losses) == LM_ROUNDS and all(math.isfinite(x)
+                                               for x in losses)
+              and losses[-1] < losses[0], f"LM train {name}: losses {losses}")
+        check(bool(torch.isfinite(r["state"].w).all()),
+              f"LM train {name}: w not finite")
+        ms = 1e3 * r["seconds"] / LM_ROUNDS
+        print(f"[LM train] 100m preset ({LM_PARAMS:,} params, bf16; 8 "
+              f"clients x batch 2 x seq 128, adam_ota, lr {LM_LR}), {name}: "
+              "losses "
+              + " ".join(f"{x:.4f}" for x in losses)
+              + f"; {ms:.2f} ms/round, {LM_TOKENS * 1e3 / ms:.0f} tokens/s "
+              f"(host clock, synchronized); peak memory {peak:.2f} GB; "
+              f"launches {out[name]}: "
+              + ", ".join(f"{v} a round of {k}" for k, v in per_round.items())
+              + f", no {FLASH}; ok")
+        results[name] = r
+    _profile_lm_round(torch, dev, "100m preset, f32", "qwen3-14b", "100m",
+                      results["f32"]["state"], 8)
+    # resume: LM_CKPT_AT rounds with a checkpoint, then --resume to the end
+    full = results["f32"]
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    per_round = LM_RUNS[0][2]
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        ck = ["--ckpt-dir", tmp, "--ckpt-every", str(LM_CKPT_AT)]
+        _, first = _lm_counted(
+            torch, counters, per_round, LM_CKPT_AT, "LM train: first half",
+            lambda: train.main(base[:4] + ["--rounds", str(LM_CKPT_AT),
+                                           "--log-every", str(LM_CKPT_AT),
+                                           *ck]))
+        resumed, second = _lm_counted(
+            torch, counters, per_round, LM_ROUNDS - LM_CKPT_AT,
+            "LM train: resumed", lambda: train.main(base + ck + ["--resume"]))
+    check(_state_bitwise(torch, resumed["state"], full["state"]),
+          "LM train: the resumed run differs from the uninterrupted one: "
+          f"max|dw| {float((resumed['state'].w - full['state'].w).abs().max())}")
+    check(resumed["history"] == full["history"][LM_CKPT_AT:],
+          "LM train: the resumed history differs")
+    out["resume"] = {k: first[k] + second[k] for k in first}
+    print(f"[LM train] 100m preset, f32: {LM_CKPT_AT} rounds with a "
+          f"checkpoint, then --resume to round {LM_ROUNDS}: w, optimizer "
+          "state and history bitwise the uninterrupted run's; ok")
+    del results, full, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profile_lm_round(torch, dev, what, arch, preset, state, n_clients):
+    """One more f32 round of the training CLI's configuration (its
+    defaults, lr LM_LR) from ``state``, under torch.profiler: the card's
+    busy and idle shares. Not counted."""
+    from repro_torch.configs import preset_config
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.core.channel import OTAChannelConfig
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.fl import (FLConfig, make_slab_round_runner,
+                                     run_rounds_slab)
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+
+    cfg = preset_config(arch, preset)
+    ch = OTAChannelConfig(alpha=1.5, xi_scale=0.05)
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=LM_LR, beta2=0.3)
+    run = make_slab_round_runner(build_model(cfg).loss_fn, ch, ad,
+                                 FLConfig(n_clients=n_clients), device=dev)
+    corpus = train.client_corpus(cfg.vocab, 128, n_clients, 2, 0.5, 0)
+    batch_fn = train.make_batch_fn(*corpus, batch=2, seq=128, seed=0)
+    draws = TorchDraws(ch, state.spec, n_clients, seed=1, device=dev)
+    t = int(state.step)
+    _profile(torch, f"LM train {what}: one more round", lambda: (
+        run_rounds_slab(run, state, draws, batch_fn, t + 1, chunk=1,
+                        start_round=t)))
+
+
+def phase_lm_width(torch, dev, counters):
+    """Phase 14d: StarCoder2-15B's width at depth 1 (d_model 6144, 48
+    heads / 4 kv, d_ff 24576, vocab 49,152; 987,833,344 parameters, a
+    3.95 GB f32 slab), WIDTH_CLIENTS clients x batch 2 x seq 128 of the
+    CLI's corpus, adam_ota as the CLI configures it, WIDTH_ROUNDS rounds
+    of each WIDTH_RUNS wire through make_slab_round_runner(model.loss_fn)
+    + run_rounds_slab (one round a chunk: a chunk's draws are 7.9 GB a
+    round), the counters set to 0 before and read after each run. The
+    int8 round peaks near 70 GB of the card's 80: main() turns on the
+    allocator's expandable segments, or the 4 GB slabs fragment the pool.
+    Returns the launches by run."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.core.channel import OTAChannelConfig, UplinkConfig
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.fl import (FLConfig, make_slab_round_runner,
+                                     run_rounds_slab)
+    from repro_torch.core.slab import make_slab_spec
+    from repro_torch.core.slab_state import init_train_state
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(get_config(WIDTH_ARCH), n_layers=1)
+    check(cfg.n_params() == WIDTH_PARAMS, "the width run's parameter count")
+    model = build_model(cfg)
+    corpus = train.client_corpus(cfg.vocab, 128, WIDTH_CLIENTS, 2, 0.5, 0)
+    batch_fn = train.make_batch_fn(*corpus, batch=2, seq=128, seed=0)
+    fl = FLConfig(n_clients=WIDTH_CLIENTS)
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=LM_LR, beta2=0.3)
+    tokens = WIDTH_CLIENTS * 2 * 128
+    out = {}
+    for name, uplink, ef, per_round in WIDTH_RUNS:
+        ch = OTAChannelConfig(xi_scale=0.05, uplink=UplinkConfig(
+            mode=uplink, error_feedback=ef))
+        gc.collect()
+        torch.cuda.empty_cache()
+        # the state is the only copy of the parameters, and the runner's
+        # argument is its only reference (the round's old and new state
+        # are 24 GB together; a third copy would not fit beside int8)
+        params = model.init(seed=0, device=dev)
+        spec = make_slab_spec(params)
+        check(spec.padded == D_WIDTH, f"width slab {spec.padded}")
+        box = [init_train_state(ad, params, spec=spec, error_feedback=ef,
+                                device=dev)]
+        del params
+        draws = TorchDraws(ch, spec, WIDTH_CLIENTS, seed=1, device=dev)
+        run = make_slab_round_runner(model.loss_fn, ch, ad, fl, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        stamps = [time.perf_counter()]
+        (state, hist), out[name] = _lm_counted(
+            torch, counters, per_round, WIDTH_ROUNDS, f"LM width {name}",
+            lambda: run_rounds_slab(
+                run, box.pop(), draws, batch_fn, WIDTH_ROUNDS, chunk=1,
+                chunk_hook=lambda t, st, h: stamps.append(
+                    time.perf_counter())))
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+        losses = [h["loss"] for h in hist]
+        check(all(math.isfinite(x) for x in losses),
+              f"LM width {name}: losses {losses}")
+        check(bool(torch.isfinite(state.w).all()) and int(state.step)
+              == WIDTH_ROUNDS, f"LM width {name}: w not finite")
+        warm = statistics.median(ms[1:])
+        if name == "f32":
+            _profile(torch, f"LM width {name}: one more round", lambda: (
+                run_rounds_slab(run, state, draws, batch_fn, WIDTH_ROUNDS + 1,
+                                chunk=1, start_round=WIDTH_ROUNDS)))
+        print(f"[LM width] {WIDTH_ARCH} width at depth 1 ({WIDTH_PARAMS:,} "
+              f"params, bf16; slab {D_WIDTH:,} f32 = {4 * D_WIDTH / 1e9:.2f} "
+              f"GB), {WIDTH_CLIENTS} clients x batch 2 x seq 128, adam_ota, "
+              f"{name}: losses " + " ".join(f"{x:.4f}" for x in losses)
+              + "; ms a round " + " ".join(f"{x:.1f}" for x in ms)
+              + f" (the first cold), {warm:.1f} ms warm, "
+              f"{tokens * 1e3 / warm:.0f} tokens/s (host clock, "
+              f"synchronized); peak memory {peak:.2f} GB; launches "
+              f"{out[name]}, no {FLASH}; ok")
+        del state, draws, run, hist
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _slabs_within(torch, a_state, b_state, share, everywhere, what):
+    """The state slabs of two runs: within 1e-5 + 1e-5 |x| on all but
+    ``share`` of the entries, within ``everywhere`` on all, mean error at
+    most 1e-6 (the tiers of tests/test_torch_lm_train.py). Returns the
+    largest error."""
+    slabs = [("w", a_state.w, b_state.w)]
+    slabs += [(f"opt[{i}]", a, b) for i, (a, b) in
+              enumerate(zip(a_state.opt, b_state.opt))]
+    if b_state.ef is not None:
+        slabs.append(("ef", a_state.ef, b_state.ef))
+    worst = 0.0
+    for name, a, b in slabs:
+        a, b = a.cpu().float(), b.cpu().float()
+        diff = (a - b).abs()
+        off = int((diff > 1e-5 + 1e-5 * b.abs()).sum())
+        check(off <= share * diff.numel() and float(diff.max()) <= everywhere
+              and float(diff.mean()) <= 1e-6,
+              f"{what} {name}: {off} entries off, max {float(diff.max())}, "
+              f"mean {float(diff.mean())}")
+        worst = max(worst, float(diff.max()))
+    return worst
+
+
+def phase_reference_lm(torch, dev):
+    """The tiny preset in f32 (the CLI's corpus, 4 clients x batch 2 x
+    seq 32, adam_ota), 3 rounds through make_slab_round_runner on the
+    card and on the CPU, same parameters, batches and draws: the losses
+    within 1e-5, the state slabs within the tiers of
+    tests/test_torch_lm_train.py (the gradients differ in their last bits
+    and Adam-OTA's normalised update amplifies them on small
+    coordinates): the f32 wire within 1e-5 on all but 1e-4 of entries
+    and 1e-4 everywhere; int8 + EF on all but 1e-3 and 2 lr R."""
+    import dataclasses
+
+    from repro_torch.configs import preset_config
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.core.channel import OTAChannelConfig, UplinkConfig
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.fl import (FLConfig, make_slab_round_runner,
+                                     run_rounds_slab)
+    from repro_torch.core.slab import make_slab_spec, tree_map
+    from repro_torch.core.slab_state import init_train_state
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+
+    cfg = dataclasses.replace(preset_config("qwen3-14b", "tiny"),
+                              param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    spec = make_slab_spec(params)
+    corpus = train.client_corpus(cfg.vocab, 32, 4, 2, 0.5, 0)
+    batch_fn = train.make_batch_fn(*corpus, batch=2, seq=32, seed=0)
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.02, beta2=0.3)
+    fl = FLConfig(n_clients=4)
+    rounds, worst, worst_loss = 3, 0.0, 0.0
+    for name, ch, share, everywhere in (
+            ("f32", OTAChannelConfig(xi_scale=0.05), 1e-4, 1e-4),
+            ("int8-ef", OTAChannelConfig(xi_scale=0.05, uplink=UplinkConfig(
+                mode="int8", error_feedback=True)), 1e-3, 2 * 0.02 * rounds)):
+        ef = ch.uplink.error_feedback
+        draws = TorchDraws(ch, spec, 4, seed=1, device="cpu")
+        finals = []
+        for where, p in (("cpu", params),
+                         (dev, tree_map(lambda t: t.to(dev), params))):
+            run = make_slab_round_runner(model.loss_fn, ch, ad, fl,
+                                         device=where)
+            state = init_train_state(ad, p, spec=spec, error_feedback=ef,
+                                     device=where)
+            finals.append(run_rounds_slab(run, state, draws, batch_fn,
+                                          rounds, chunk=rounds))
+        (cpu, cpu_hist), (card, card_hist) = finals
+        lc = [h["loss"] for h in cpu_hist]
+        lg = [h["loss"] for h in card_hist]
+        err = max(abs(a - b) / max(abs(b), 1.0) for a, b in zip(lg, lc))
+        check(err <= 1e-5, f"reference LM {name}: losses {lg} vs {lc}")
+        worst_loss = max(worst_loss, err)
+        worst = max(worst, _slabs_within(torch, card, cpu, share, everywhere,
+                                         f"reference LM {name}"))
+    print(f"[reference LM] tiny preset in f32 (qwen3-14b smoke width, vocab "
+          f"257), 4 clients x batch 2 x seq 32, adam_ota, {rounds} rounds on "
+          f"the f32 wire and int8 + EF, card vs cpu on the same parameters, "
+          f"batches and draws: losses within {worst_loss:.2e} (tol 1e-5), "
+          f"state slabs max err {worst:.2e} (within 1e-5 on all but 1e-4 / "
+          f"1e-3 of entries); ok")
+
+
+def _pieces(d: int, cols: int = 1 << 26):
+    """Column ranges [a, b) covering d, each a multiple of 512 columns
+    long but the last: the plain versions are compared a piece at a time,
+    so their temporaries stay ~1 GB at the width run's slab."""
+    return [(a, min(a + cols, d)) for a in range(0, d, cols)]
+
+
+def _lm_draws(torch, gen, d):
+    """(u, e) over a (d,) slab as the round's draws make them
+    (``core.draws.cms_slab_inputs``: e floored, never inf)."""
+    from repro_torch.core.draws import cms_slab_inputs
+    from repro_torch.core.slab import make_slab_spec
+    return cms_slab_inputs(make_slab_spec(
+        {"x": torch.empty(d, device="meta")}), gen)
+
+
+def phase_kernel_lm(torch, dev):
+    """Every kernel of the LM runs against its plain version at the
+    shapes those runs give it, the plain version a piece of columns at a
+    time (``_pieces``; every kernel here is column-separable): B1 (adam,
+    alpha 1.5) at d = D_LM and D_WIDTH; B2 at 8 x D_LM, 1 x D_LM (the
+    streamed finish, n_total 1) and 4 x D_WIDTH; B3b at 4 x D_LM with a
+    carry; B3c at 8 x D_LM (int8 with host rounding + EF, folded sign +
+    EF) and 4 x D_WIDTH (int8 + EF); B4 at 1 x D_LM (int8 with statistics,
+    folded sign) and 1 x D_WIDTH (int8). Tiers as phases 3-6 and 10; B3c
+    also bitwise the plain quantizer on its own sum (phase 5's
+    composition), and its sign payload equal to the plain version's
+    wherever the sum is not within 1e-6 of its scale of 0 (another
+    summation order can flip the sign of a sum that small). Returns the
+    worst error by the JSON line's row name."""
+    import gc
+
+    from repro_torch.kernels.adaptive_update import adaptive_update_slab
+    from repro_torch.kernels.ota_channel import (ota_channel_slab,
+                                                 ota_receive_slab,
+                                                 ota_transmit_slab,
+                                                 pack_sign_slab)
+    from repro_torch.kernels.ref import (adaptive_update_ref, ota_channel_ref,
+                                        ota_receive_ref, ota_transmit_ref)
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    errs, flips = {}, {}
+
+    def close(got, want, what, name):
+        err = (got - want).abs()
+        check(bool(torch.all(err <= 1e-6 * want.abs()
+                             + 1e-6 * float(want.abs().max()))),
+              f"{what}: max err {float(err.max())}")
+        errs[name] = max(errs.get(name, 0.0), float(err.max()))
+
+    kw = dict(lr=0.02, beta1=0.9, beta2=0.3, alpha=1.5, eps=1e-8,
+              mode="adam")
+    for d in (D_LM, D_WIDTH):
+        g, w = (torch.randn(d, generator=gen, device=dev) for _ in range(2))
+        delta = 0.1 * torch.randn(d, generator=gen, device=dev)
+        nu = 0.01 * torch.rand(d, generator=gen, device=dev)
+        got = adaptive_update_slab(g, delta, nu, w, **kw)
+        for a, b in _pieces(d):
+            want = adaptive_update_ref(g[a:b], delta[a:b], nu[a:b], w[a:b],
+                                       **kw)
+            for i, (x, y) in enumerate(zip(got, want)):
+                close(x[a:b], y, f"adaptive_update_slab d={d} output {i}",
+                      f"{UPD} d={d}")
+        del g, w, delta, nu, got, want
+    for n, d in ((8, D_LM), (1, D_LM), (4, D_WIDTH)):
+        grads = torch.randn(n, d, generator=gen, device=dev)
+        h = (torch.ones(1, device=dev) if n == 1 else
+             0.5 + torch.rand(n, generator=gen, device=dev))
+        u, e = _lm_draws(torch, gen, d)
+        ckw = dict(alpha=1.5, scale=0.05, n_total=1 if n == 1 else None)
+        got = ota_channel_slab(grads, h, u, e, **ckw)
+        for a, b in _pieces(d):
+            close(got[a:b], ota_channel_ref(grads[:, a:b], h, u[a:b],
+                                            e[a:b], **ckw),
+                  f"ota_channel_slab {n}x{d}", f"{CHAN} {n}x{d}")
+        del got
+        if n == 8:
+            # the accumulating transmit at the streamed run's chunk
+            acc = torch.randn(d, generator=gen, device=dev)
+            got = ota_transmit_slab(grads[:4], h[:4], n_total=1, acc=acc)
+            for a, b in _pieces(d):
+                close(got[a:b], ota_transmit_ref(grads[:4, a:b], h[:4],
+                                                 n_total=1, acc=acc[a:b]),
+                      f"{STREAM} 4x{d}", f"{STREAM} 4x{d}")
+            del acc, got
+        if n > 1:
+            r = torch.rand(d, generator=gen, device=dev)
+            ef = 0.01 * torch.randn(d, generator=gen, device=dev)
+            name = f"{TX} {n}x{d}"
+            modes = ((("int8", True, False), ("sign", False, True)) if n == 8
+                     else (("int8", True, False),))
+            # the kernel's own sum (the no-carry accumulating call) + ef
+            x = ota_transmit_slab(grads, h) + ef
+            one = torch.ones(1, device=dev)
+            for qmode, sr, fold in modes:
+                tkw = dict(quantize=True, qmode=qmode, stochastic=sr,
+                           zero_fold=fold, return_residual=True)
+                got = ota_transmit_slab(grads, h, r=r if sr else None, ef=ef,
+                                        **tkw)
+                what = f"ota_transmit_slab {n}x{d} {qmode}"
+                for a, b in _pieces(d):
+                    sa, sb = a // 128, b // 128
+                    rr = r[a:b] if sr else None
+                    part = tuple(t[a:b] if i != 1 else t[sa:sb]
+                                 for i, t in enumerate(got))
+                    own = ota_transmit_ref(x[None, a:b], one, n_total=1,
+                                           r=rr, **tkw)
+                    check(torch.equal(part[0], own[0]),
+                          f"{what}: payload differs from the plain quantizer "
+                          f"on its own sum at {int((part[0] != own[0]).sum())}"
+                          " entries")
+                    if qmode == "int8":
+                        check(torch.equal(part[1], own[1])
+                              and torch.equal(part[2], own[2]),
+                              f"{what}: scales / residual differ from the "
+                              "plain quantizer on its own sum")
+                        want = ota_transmit_ref(grads[:, a:b], h, r=rr,
+                                                ef=ef[a:b], **tkw)
+                        xs = ota_transmit_ref(grads[:, a:b], h) + ef[a:b]
+                        w_err, f = _check_transmit(torch, part, want, xs,
+                                                   what)
+                        errs[name] = max(errs.get(name, 0.0), w_err)
+                    else:
+                        for t, o, which in ((part[1], own[1], "scales"),
+                                            (part[2], own[2], "residual")):
+                            close(t, o, f"{what} {which}", name)
+                        want = ota_transmit_ref(grads[:, a:b], h, ef=ef[a:b],
+                                                **tkw)
+                        xs = ota_transmit_ref(grads[:, a:b], h) + ef[a:b]
+                        flip = part[0] != want[0]
+                        f = int(flip.sum())
+                        at = xs[flip].abs()
+                        check(bool(torch.all(at <= 1e-6 * float(
+                            xs.abs().max()))), f"{what}: a sign flipped on "
+                            f"a sum of {float(at.max()) if f else 0.0}")
+                    flips[what] = flips.get(what, 0) + f
+                del got, part, own, want, xs
+            del r, ef, x
+        del grads
+        # the receive of this slab: one row
+        if n > 1:
+            s = torch.rand(1, d // 128, generator=gen, device=dev)
+            q8 = torch.randint(-127, 128, (1, d), generator=gen, device=dev,
+                               dtype=torch.int8)
+            cases = [(q8, None, d == D_LM, f"{RX} 1x{d}")]
+            if d == D_LM:
+                q3 = torch.randint(-1, 2, (1, d), generator=gen, device=dev,
+                                   dtype=torch.int8)
+                cases.append((pack_sign_slab(torch.where(q3 < 0, -1, 1).to(
+                    torch.int8)), "fold", False, f"{RX} fold 1x{d}"))
+            for payload, packed, stats, name in cases:
+                rkw = dict(alpha=1.5, scale=0.05, packed=packed,
+                           pilot_stats=stats)
+                got = ota_receive_slab(payload, s, u, e, **rkw)
+                if stats:
+                    got, gs = got
+                    ws = torch.zeros(3, device=dev)
+                per_col = 32 if packed == "fold" else 1
+                for a, b in _pieces(d):
+                    want = ota_receive_ref(payload[:, a // per_col:
+                                                   b // per_col],
+                                           s[:, a // 128:b // 128], u[a:b],
+                                           e[a:b], **rkw)
+                    if stats:
+                        want, piece_stats = want
+                        ws = ws + piece_stats
+                    close(got[a:b], want, name, name)
+                if stats:
+                    rel = float(((gs - ws).abs()
+                                 / ws.abs().clamp_min(1)).max())
+                    check(float(gs[0]) == float(ws[0]) == d and rel <= 1e-5,
+                          f"{name}: stats {gs.tolist()} vs {ws.tolist()}")
+            del s, q8, cases, got, want
+        del u, e
+        gc.collect()
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    print("[kernel LM shapes] B1 adam at d=" + f"{D_LM} and {D_WIDTH}; B2 "
+          f"at 8x{D_LM}, 1x{D_LM} and 4x{D_WIDTH}; B3b at 4x{D_LM} with a "
+          f"carry; B3c int8 + EF at 8x{D_LM} and 4x{D_WIDTH}, folded sign + "
+          f"EF at 8x{D_LM}; B4 int8 (with statistics) and fold at 1x{D_LM}, "
+          f"int8 at 1x{D_WIDTH}; the plain versions {1 << 26} columns at a "
+          "time: max_abs_err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+          + " (tol 1e-6 rel + 1e-6 of scale); transmit payloads bitwise the "
+          "plain quantizer on the kernel's own sum, and against the plain "
+          "version on the same inputs: "
+          + ", ".join(f"{k} {v} entries apart" for k, v in flips.items())
+          + " (int8: one step, on at most 0.1 %; sign: only sums within "
+          "1e-6 of scale of 0); ok")
+    return errs
+
+
+def _lm_times(torch, dev, gen, flush):
+    """Times (kernel, plain version, bytes, operations) of each kernel at
+    the LM runs' shapes, counted as phase_times counts them; and
+    torch.addmv beside the accumulating transmit. Run first in phase
+    "times", while nothing else is on the card (the plain versions at
+    the width run's slab hold 40-60 GB of temporaries)."""
+    import gc
+
+    from repro_torch.kernels.adaptive_update import adaptive_update_slab
+    from repro_torch.kernels.ota_channel import (ota_channel_slab,
+                                                 ota_receive_slab,
+                                                 ota_transmit_slab,
+                                                 pack_sign_slab)
+    from repro_torch.kernels.ref import (adaptive_update_ref, ota_channel_ref,
+                                        ota_receive_ref, ota_transmit_ref)
+
+    rows, library = {}, {}
+    kw = dict(lr=0.02, beta1=0.9, beta2=0.3, alpha=1.5, eps=1e-8,
+              mode="adam")
+    for d in (D_LM, D_WIDTH):
+        g, w = (torch.randn(d, generator=gen, device=dev) for _ in range(2))
+        delta = 0.1 * torch.randn(d, generator=gen, device=dev)
+        nu = 0.01 * torch.rand(d, generator=gen, device=dev)
+        rows[f"{UPD} d={d}"] = (
+            _median_ms(torch, lambda: adaptive_update_slab(g, delta, nu, w,
+                                                           **kw), flush),
+            _median_ms(torch, lambda: adaptive_update_ref(g, delta, nu, w,
+                                                          **kw), flush),
+            7 * 4 * d, 16 * d)
+        del g, w, delta, nu
+        gc.collect()
+        torch.cuda.empty_cache()
+    for n, d in ((8, D_LM), (1, D_LM), (4, D_WIDTH)):
+        grads = torch.randn(n, d, generator=gen, device=dev)
+        h = (torch.ones(1, device=dev) if n == 1 else
+             torch.rand(n, generator=gen, device=dev))
+        u = torch.rand(d, generator=gen, device=dev) - 0.5
+        e = torch.rand(d, generator=gen, device=dev) + 0.5
+        ckw = dict(alpha=1.5, scale=0.05, n_total=1 if n == 1 else None)
+        rows[f"{CHAN} {n}x{d}"] = (
+            _median_ms(torch, lambda: ota_channel_slab(grads, h, u, e, **ckw),
+                       flush),
+            _median_ms(torch, lambda: ota_channel_ref(grads, h, u, e, **ckw),
+                       flush),
+            4 * (n * d + n + 3 * d), 2 * n * d + 12 * d)
+        if n == 8:
+            gs, hs = grads[:4], h[:4]
+            acc = torch.randn(d, generator=gen, device=dev)
+            skw = dict(n_total=1, acc=acc)
+            name = f"{STREAM} 4x{d}"
+            rows[name] = (
+                _median_ms(torch, lambda: ota_transmit_slab(gs, hs, **skw),
+                           flush),
+                _median_ms(torch, lambda: ota_transmit_ref(gs, hs, **skw),
+                           flush),
+                4 * (4 * d + 4 + 2 * d), 2 * 4 * d + 2 * d)
+            library[name] = ("torch.addmv", _median_ms(
+                torch, lambda: torch.addmv(acc, gs.t(), hs), flush))
+            del gs, acc
+        if n > 1:
+            r = torch.rand(d, generator=gen, device=dev)
+            ef = 0.01 * torch.randn(d, generator=gen, device=dev)
+            tkw = dict(quantize=True, r=r, ef=ef, return_residual=True)
+            rows[f"{TX} {n}x{d}"] = (
+                _median_ms(torch, lambda: ota_transmit_slab(grads, h, **tkw),
+                           flush),
+                _median_ms(torch, lambda: ota_transmit_ref(grads, h, **tkw),
+                           flush),
+                4 * n * d + 4 * n + 3 * 4 * d + d + 4 * (d // 128),
+                2 * n * d + 8 * d)
+            q, s = ota_transmit_slab(grads, h, quantize=True, r=r)
+            del r, ef
+            q, s = q[None], s[None]
+            # the tracked run's receive (statistics) at the 100m slab, the
+            # width run's without
+            stats = d == D_LM
+            rkw = dict(alpha=1.5, scale=0.05, pilot_stats=stats)
+            rows[f"{RX} 1x{d}"] = (
+                _median_ms(torch, lambda: ota_receive_slab(q, s, u, e, **rkw),
+                           flush),
+                _median_ms(torch, lambda: ota_receive_ref(q, s, u, e, **rkw),
+                           flush),
+                d + 4 * (d // 128) + 3 * 4 * d + (12 if stats else 0),
+                14 * d + (6 * d if stats else 0))
+            if d == D_LM:
+                words = pack_sign_slab(torch.where(q < 0, -1, 1).to(
+                    torch.int8))
+                fkw = dict(alpha=1.5, scale=0.05, packed="fold")
+                rows[f"{RX} fold 1x{d}"] = (
+                    _median_ms(torch, lambda: ota_receive_slab(
+                        words, s, u, e, **fkw), flush),
+                    _median_ms(torch, lambda: ota_receive_ref(
+                        words, s, u, e, **fkw), flush),
+                    4 * (d // 32) + 4 * (d // 128) + 3 * 4 * d, 14 * d)
+                del words
+            del q, s
+        del grads, u, e
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rows, library
+
+
 def _flash_inputs(torch, dev, case, dtype, seed):
     b, sq, sk, h, kh, d = case[:6]
     gen = torch.Generator(device=dev).manual_seed(seed)
@@ -2217,9 +2872,9 @@ def phase_times(torch, dev):
     print(f"[times] launch floor: {floor:.4f} ms, the median of "
           f"{TIMED_LAUNCHES} near-empty launches (torch.cuda._sleep(1)) "
           "under the same flush and sleep")
+    rows, library = _lm_times(torch, dev, gen, flush)
     d, n = D_MAIN, N_CLIENTS
     kw = dict(lr=0.01, beta1=0.9, beta2=0.3, alpha=1.5, eps=1e-8, mode="adam")
-    rows = {}
     # adam: reads g, delta, nu, w and writes delta, nu, w (f32); about 16
     # f32 operations an element, counting each powf as one. At the main
     # path's slab and at the million-client stream's.
@@ -2369,7 +3024,6 @@ def phase_times(torch, dev):
     # 4096): reads G, h, acc and writes out; 2 n d flops for the faded
     # sum and 2 d for the carry. torch.addmv is the one PyTorch call that
     # computes the same function (cuBLAS GEMV), the yardstick.
-    library = {}
     for n_s, d_s in ((N_CLIENTS, D_MAIN), (CHUNK_MILLION, D_MILLION)):
         gs = torch.randn(n_s, d_s, generator=gen, device=dev)
         hs = torch.rand(n_s, generator=gen, device=dev)
@@ -2470,6 +3124,10 @@ def phase_times(torch, dev):
 
 
 def main() -> int:
+    import os
+    # before torch allocates on the card: phase 14d's 4 GB slabs leave the
+    # default pool's segments too fragmented for its int8 round
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     import numpy as np
     import torch
 
@@ -2519,9 +3177,11 @@ def main() -> int:
                              phase_runtime_alpha(torch, dev, spec.total))
     err_stream = phase_kernel_stream(torch, dev, spec.total)
     err_flash = phase_kernel_flash(torch, dev)
+    err_lm = phase_kernel_lm(torch, dev)
     phase_reference(torch, np)
     phase_reference_wire(torch, np)
     phase_reference_stream(torch, np)
+    phase_reference_lm(torch, dev)
     phase_stream_equals_resident(torch, np, dev)
     counters = (adaptive_update_slab, ota_channel_slab)
     launches = phase_main_path(torch, np, dev, counters)
@@ -2535,6 +3195,9 @@ def main() -> int:
     million_launches = phase_million(torch, dev, all_counters)
     api_launches = phase_round_api(torch, np, dev, all_counters)
     ckpt_launches = phase_checkpoint(torch, np, dev, all_counters)
+    from repro_torch.kernels.flash_attention import flash_attention
+    lm = phase_lm_train(torch, dev, all_counters + (flash_attention,))
+    wd = phase_lm_width(torch, dev, all_counters + (flash_attention,))
     for part in (wire_launches, stream_launches, million_launches):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
@@ -2572,7 +3235,21 @@ def main() -> int:
     launches[tx] += api_launches[tx] + ckpt_launches[tx]
     launches[rx] += api_launches[rx]
     launches[f"{rx} stats"] += ckpt_launches[rx]
-    from repro_torch.kernels.flash_attention import flash_attention
+    # the LM runs by shape: the 100m preset's (phase 14c: the four wires
+    # and the resume) and the width run's (phase 14d)
+    chunked = lm["chunk4-sr0.5-datasize"]
+    launches[f"{UPD} d={D_LM}"] = sum(r[UPD] for r in lm.values())
+    launches[f"{CHAN} 8x{D_LM}"] = lm["f32"][CHAN] + lm["resume"][CHAN]
+    launches[f"{CHAN} 1x{D_LM}"] = chunked[CHAN]
+    launches[f"{STREAM} 4x{D_LM}"] = chunked[STREAM]
+    launches[f"{TX} 8x{D_LM}"] = (lm["int8-ef-dl8-auto"][TX]
+                                  + lm["sign-fold-ef"][TX])
+    launches[f"{RX} 1x{D_LM}"] = lm["int8-ef-dl8-auto"][RX]
+    launches[f"{RX} fold 1x{D_LM}"] = lm["sign-fold-ef"][RX]
+    launches[f"{UPD} d={D_WIDTH}"] = sum(r[UPD] for r in wd.values())
+    launches[f"{CHAN} 4x{D_WIDTH}"] = wd["f32"][CHAN]
+    launches[f"{TX} 4x{D_WIDTH}"] = wd["int8-ef"][TX]
+    launches[f"{RX} 1x{D_WIDTH}"] = wd["int8-ef"][RX]
     hopper = Counter(flash_attention, "hopper_launches", f"{FLASH} hopper")
     for arch in FLASH_MODEL_SHAPES:
         runs = phase_serve(torch, dev, flash_attention, hopper, arch)
@@ -2602,6 +3279,14 @@ def main() -> int:
              "src/repro/kernels/ota_channel.py:447", err_stream),
             (f"{STREAM} {CHUNK_MILLION}x{D_MILLION}", "ota_transmit_stream.cu",
              "src/repro/kernels/ota_channel.py:447", err_stream))
+    b3b = ("ota_transmit_stream.cu", "src/repro/kernels/ota_channel.py:447")
+    rows += tuple((name, *src, err_lm[name]) for name, src in (
+        (f"{UPD} d={D_LM}", b1), (f"{UPD} d={D_WIDTH}", b1),
+        (f"{CHAN} 8x{D_LM}", b2), (f"{CHAN} 1x{D_LM}", b2),
+        (f"{CHAN} 4x{D_WIDTH}", b2), (f"{STREAM} 4x{D_LM}", b3b),
+        (f"{TX} 8x{D_LM}", b3c), (f"{TX} 4x{D_WIDTH}", b3c),
+        (f"{RX} 1x{D_LM}", b4), (f"{RX} fold 1x{D_LM}", b4),
+        (f"{RX} 1x{D_WIDTH}", b4)))
     rows += tuple((f"{FLASH} hopper {arch}", "flash_attention_sm90.cu",
                    "src/repro/kernels/flash_attention.py:106",
                    err_flash["hopper"]) for arch in FLASH_MODEL_SHAPES)

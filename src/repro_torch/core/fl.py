@@ -191,16 +191,16 @@ def _fill(x: float, dev: torch.device) -> torch.Tensor:
     return torch.full((), x, dtype=torch.float32, device=dev)
 
 
-def _round_metrics(losses: torch.Tensor, grads_slab: torch.Tensor,
+def _round_metrics(losses: torch.Tensor, clean_slab: torch.Tensor,
                    g_slab: torch.Tensor, h: torch.Tensor,
                    alpha_hat: torch.Tensor, n_participants: torch.Tensor
                    ) -> RoundMetrics:
-    """The metrics of a resident (all-client) round, from its slabs: slab
-    norms are tree norms, the padding tail being zero."""
+    """The metrics of a resident (all-client) round, from its slabs
+    (``clean_slab`` the clients' mean gradient): slab norms are tree
+    norms, the padding tail being zero."""
     return RoundMetrics(
         loss=torch.mean(losses),
-        grad_norm=torch.sqrt(torch.sum(torch.square(
-            torch.mean(grads_slab, dim=0)))),
+        grad_norm=torch.sqrt(torch.sum(torch.square(clean_slab))),
         noisy_grad_norm=torch.sqrt(torch.sum(torch.square(g_slab))),
         fading_mean=torch.mean(h),
         alpha_hat=alpha_hat,
@@ -275,7 +275,8 @@ def make_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
         new_params, new_state = apply_slab_update(adaptive_cfg, spec, g_slab,
                                                   opt_state, params)
         return new_params, new_state, _round_metrics(
-            losses, grads_slab, g_slab, h, _fill(alpha, dev),
+            losses, torch.mean(grads_slab, dim=0), g_slab, h,
+            _fill(alpha, dev),
             _fill(n_clients, dev))
 
     return round_step
@@ -436,9 +437,14 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
         g_slab, h, grads_slab, stats, ef_new = ota_aggregate_slab(
             draws, channel_cfg, grads, spec, pilot_stats=track,
             ef=state.ef[0] if use_ef else None)
+        # The client gradients, in both forms, are the round's largest
+        # buffers (4 x 4 GB at a billion parameters): reduce them to the
+        # metric and let them go before the server update allocates.
+        clean_slab = torch.mean(grads_slab, dim=0)
+        del grads, grads_slab
         alpha_hat, alpha_metric, new_opt, w_new = server_half(
             state, params, g_slab, stats)
-        metrics = _round_metrics(losses, grads_slab, g_slab, h, alpha_metric,
+        metrics = _round_metrics(losses, clean_slab, g_slab, h, alpha_metric,
                                  _fill(n_metric, dev))
         return SlabTrainState(state.step + 1, w_new, new_opt, alpha_hat,
                               spec, ef_new[None] if use_ef else state.ef

@@ -187,10 +187,11 @@ def _leaves_of(spec: SlabSpec, tree: PyTree) -> List[torch.Tensor]:
 
 def tree_to_slab(spec: SlabSpec, tree: PyTree,
                  dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Flatten ``tree`` into one (padded,) slab of ``dtype`` (zero tail)."""
-    leaves = _leaves_of(spec, tree)
-    flat = torch.cat([l.reshape(-1).to(dtype) for l in leaves])
-    return torch.nn.functional.pad(flat, (0, spec.padded - spec.total))
+    """Flatten ``tree`` into one (padded,) slab of ``dtype`` (zero tail).
+    Each leaf is cast into its place in the slab, so nothing larger than
+    the slab is allocated."""
+    return stack_to_slab(spec, tree_map(lambda l: l[None], tree),
+                         dtype)[0]
 
 
 def slab_to_tree(spec: SlabSpec, slab: torch.Tensor, cast: bool = True) -> PyTree:
@@ -209,11 +210,16 @@ def slab_to_tree(spec: SlabSpec, slab: torch.Tensor, cast: bool = True) -> PyTre
 
 def stack_to_slab(spec: SlabSpec, tree: PyTree,
                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Flatten a client-stacked tree (leaves ``(N, *shape)``) to (N, padded)."""
+    """Flatten a client-stacked tree (leaves ``(N, *shape)``) to (N,
+    padded). Each leaf is cast into its columns of the zeroed stack, so
+    the stack is the one allocation (a concatenation and a pad would
+    each copy it: at a billion parameters and 4 clients, 16 GB apiece)."""
     leaves = _leaves_of(spec, tree)
     n = leaves[0].shape[0]
-    flat = torch.cat([l.reshape(n, -1).to(dtype) for l in leaves], dim=1)
-    return torch.nn.functional.pad(flat, (0, spec.padded - spec.total))
+    out = torch.zeros((n, spec.padded), dtype=dtype, device=leaves[0].device)
+    for leaf, off, size in zip(leaves, spec.offsets, spec.sizes):
+        out[:, off:off + size].copy_(leaf.reshape(n, size))
+    return out
 
 
 def zeros_slab(spec: SlabSpec, dtype: torch.dtype = torch.float32,

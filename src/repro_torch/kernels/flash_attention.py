@@ -26,7 +26,10 @@ On a CPU tensor it runs the plain version,
 three. ``flash_attention.launches`` counts the kernel launches of both
 variants, ``hopper_launches`` and ``scalar_launches`` each one's. The
 kernels have no backward (the TPU kernel has none), so the wrapper
-refuses inputs that require grad.
+refuses, on either device and before it picks a path, inputs that
+require grad or lie under a ``torch.func`` transform (``grad``,
+``vmap``): on the CPU the plain version could be differentiated and
+batched, and a test there would pass a call the card refuses.
 """
 
 from __future__ import annotations
@@ -102,6 +105,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.requires_grad:
             raise ValueError(f"flash_attention has no backward: {name} "
                              "requires grad")
+        if torch._C._functorch.is_functorch_wrapped_tensor(t):
+            raise ValueError(f"flash_attention has no backward and no batch "
+                             f"rule: {name} lies under a torch.func "
+                             "transform (grad, vmap)")
         if t.dim() != 4:
             raise ValueError(f"{name} must be 4-D (B, S, heads, D), got "
                              f"{tuple(t.shape)}")

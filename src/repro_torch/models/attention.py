@@ -3,19 +3,27 @@
 
 PyTorch counterpart of ``repro.models.attention`` for self-attention.
 
-``attend`` computes masked GQA attention. A call without positions
-(``q_pos = k_pos = None``, meaning 0..S-1 for queries and keys alike)
-and without a key mask is self-attention over the whole sequence: the
-training forward and prefill, whose callers build exactly those
-positions. It goes to the flash-attention kernel
-(``kernels.flash_attention``, B5), which builds the same causal / window
-mask from the indices. That is the function the JAX package computes
-there through its plain, ``kv_chunk`` and ``window_block`` branches (the
-last two are its perf levers; all three give the same result), so the
-port keeps neither lever. A call with positions, one-token decode
-against the cache with ``k_valid`` above all, is plain torch and honours
-any positions, as the JAX package leaves it to XLA. The choice is by the
-call's arguments; there is no switch.
+``attend`` computes masked GQA attention and picks its path by the
+call's arguments; there is no switch:
+
+* without positions (``q_pos = k_pos = None``, meaning 0..S-1 for
+  queries and keys alike) and without a key mask it is self-attention
+  over the whole sequence for inference: prefill and ``forward``, whose
+  callers build exactly those positions. It goes to the flash-attention
+  kernel (``kernels.flash_attention``, B5), which builds the same causal /
+  window mask from the indices. That is the function the JAX package
+  computes there through its plain, ``kv_chunk`` and ``window_block``
+  branches (the last two are its perf levers; all three give the same
+  result), so the port keeps neither lever. B5 has no backward (the TPU
+  kernel has none either), and its wrapper refuses tensors that require
+  grad or lie under a ``torch.func`` transform;
+* with positions it is plain torch and honours any positions, as the
+  JAX package leaves it to XLA. Two callers: the training forward
+  (``models.model``'s ``loss_fn``), which passes 0..S-1 explicitly so
+  that ``torch.func.grad`` and ``vmap`` differentiate the masked plain
+  path, as the JAX training forward computes attention in XLA and never
+  in its Pallas kernel; and one-token decode against the cache, with
+  ``k_valid``.
 
 The decode cache is updated in place: ``decode_self_attention`` writes
 the token's k / v / position into the cache tensors it is given and
@@ -109,7 +117,10 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Masked GQA attention. Shapes: q (B,Sq,H,D); k,v (B,Sk,K,D);
     q_pos (B,Sq) or (Sq,); k_pos (B,Sk) or (Sk,); k_valid optional (B,Sk).
     ``q_pos = k_pos = None`` means positions 0..S-1 for both (Sq == Sk):
-    the flash-attention kernel's call (module docstring).
+    the flash-attention kernel's call, for inference only (it has no
+    backward). Positions given take the masked plain path, which
+    autograd and ``torch.func`` differentiate: the training forward's
+    call (module docstring).
     """
     if q_pos is None or k_pos is None:
         if (q_pos is not k_pos or k_valid is not None
@@ -155,8 +166,10 @@ def _sequence_positions(x: torch.Tensor,
 
 def self_attention(p: dict, cfg: AttentionConfig, x: torch.Tensor,
                    positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Training/prefill self-attention over the whole sequence.
-    ``positions=None`` means 0..S-1, which runs the flash kernel."""
+    """Self-attention over the whole sequence. ``positions=None`` means
+    0..S-1 and runs the flash kernel (prefill, ``forward``); the training
+    forward passes its positions and runs the plain path, which has a
+    backward."""
     pos = _sequence_positions(x, positions)
     q, k, v = _project_qkv(p, cfg, x, x, pos, pos)
     o = attend(q, k, v, positions, positions, cfg.causal, cfg.window)

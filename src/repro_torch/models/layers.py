@@ -9,7 +9,8 @@ PyTorch counterpart of ``repro.models.layers``, with its conventions:
   ``repro_torch.convert``;
 * the compute dtype follows the kernel's storage dtype (bf16 by
   default); norms, softmax-like nonlinearities and rope run in f32;
-* all matmuls go through ``dense`` so dtype promotion is uniform.
+* all matmuls go through ``dense`` so dtype promotion is uniform;
+* ``softmax_xent`` is the training loss of the language models, in f32.
 
 Random leaves are drawn in f32 pieces of at most ``DRAW_CHUNK`` entries
 and written into the leaf, so at full width no f32 temporary is larger
@@ -19,7 +20,7 @@ than one leaf's worth of a piece.
 from __future__ import annotations
 
 import math
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -170,3 +171,33 @@ def gelu_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu``'s default is the tanh approximation; so is this."""
     h = F.gelu(dense(p["up"], x).float(), approximate="tanh").to(x.dtype)
     return dense(p["down"], h)
+
+
+# --------------------------------------------------------------------------
+# Losses.
+# --------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 weights: Optional[torch.Tensor] = None,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted-mean token cross-entropy, as ``repro.models.layers``
+    computes it.
+
+    logits: (..., V) float; labels: (...) integer ids; weights:
+    per-*example* weights broadcastable to labels' shape from the left
+    (the OTA faded-loss formulation); mask: 0/1 validity per token.
+
+    Normalised by the *unweighted* token count (clamped at 1), so that
+    with fading weights h the result is exactly mean_i h_i * nll_i, not
+    a self-normalised ratio.
+    """
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    m = torch.ones_like(nll) if mask is None else mask.float()
+    wn = nll * m
+    if weights is not None:
+        w = weights.reshape(weights.shape + (1,) * (nll.dim() - weights.dim()))
+        wn = wn * torch.broadcast_to(w, nll.shape).float()
+    return torch.sum(wn) / torch.clamp_min(torch.sum(m), 1.0)

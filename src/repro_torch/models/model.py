@@ -1,20 +1,25 @@
 """Model configuration and end-to-end assembly.
 
 PyTorch counterpart of ``repro.models.model``. ``ModelConfig`` mirrors
-the JAX package's field for field. ``build_model(cfg)`` returns a
-``Model`` for the dense family (Qwen3, Qwen2.5, StarCoder2):
+the JAX package's field for field, with ``n_params`` and
+``n_active_params``. ``build_model(cfg)`` returns a ``Model`` for the
+dense family (Qwen3, Qwen2.5, StarCoder2):
 
     init(seed=0, device=None)          -- random parameters on the device
     forward(params, batch)             -- full-sequence logits
+    loss_fn(params, batch, weights=None) -- next-token cross-entropy
     prefill(params, batch, length)     -- last-position logits + caches
     decode_step(params, cache, token, pos) -- one-token serve step
     init_cache(batch, length, device)  -- empty caches
 
 Params are nested dicts with the per-layer parameters stacked on a
-leading layer axis, the JAX package's layout. ``decode_step`` updates
-the cache in place (``models.attention``). Any other family, and the
-training loss ``loss_fn``, raise ``NotImplementedError`` naming their
-ROADMAP item.
+leading layer axis, the JAX package's layout. ``forward`` and
+``prefill`` run attention through the flash-attention kernel (B5), which
+has no backward; ``loss_fn`` runs the same backbone with its positions
+given, so attention takes the masked plain path that ``torch.func``
+differentiates (``models.attention``). ``decode_step`` updates the cache
+in place. Any other family raises ``NotImplementedError`` naming its
+ROADMAP item (A13c).
 """
 
 from __future__ import annotations
@@ -24,11 +29,12 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.slab import tree_map
+from repro_torch.core.slab import tree_flatten, tree_map
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import AttentionConfig
-from repro_torch.models.layers import dense, dense_init, embed, embed_init
+from repro_torch.models.layers import (dense, dense_init, embed, embed_init,
+                                       softmax_xent)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +103,27 @@ class ModelConfig:
             qkv_bias=self.qkv_bias, qk_norm=self.qk_norm,
             rope_theta=self.rope_theta, window=self.window)
 
+    def n_params(self) -> int:
+        """Exact parameter count, from shapes alone: ``init`` runs under
+        ``FakeTensorMode`` and allocates nothing (the JAX package's
+        ``eval_shape``)."""
+        # repro-lint: lazy-import (private module, only for counting)
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        model = build_model(self)
+        with FakeTensorMode():
+            params = model.init(seed=0, device="cpu")
+            return sum(t.numel() for t in tree_flatten(params)[0])
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top_k + shared of n_experts)."""
+        if not self.n_experts:
+            return self.n_params()
+        total = self.n_params()
+        expert_block = 3 * self.d_model * self.d_ff   # gate/up/down per expert
+        moe_total = self.n_layers * self.n_experts * expert_block
+        moe_active = self.n_layers * self.top_k * expert_block
+        return total - moe_total + moe_active
+
 
 class Model(NamedTuple):
     config: ModelConfig
@@ -125,18 +152,32 @@ def build_model(cfg: ModelConfig) -> Model:
             "unembed": dense_init(gen, cfg.d_model, (cfg.vocab,), cfg.dtype),
         }
 
-    def forward(params, batch):
-        x = embed(params["embed"], batch["tokens"], cfg.dtype)
-        x, aux = tfm.stack_apply(b_fwd, params["blocks"], x,
+    def _logits(params, tokens, positions):
+        x = embed(params["embed"], tokens, cfg.dtype)
+        x, aux = tfm.stack_apply(lambda lp, h: b_fwd(lp, h, positions),
+                                 params["blocks"], x,
                                  torch.zeros((), dtype=torch.float32,
                                              device=x.device))
         x = tfm._norm(cfg.norm, params["final_norm"], x)
         return dense(params["unembed"], x), aux
 
+    def forward(params, batch):
+        """Logits over the whole sequence through the flash kernel (no
+        backward: inference)."""
+        return _logits(params, batch["tokens"], None)
+
     def loss_fn(params, batch, weights=None):
-        raise NotImplementedError(
-            "the LM training loss (softmax_xent and an attention backward) "
-            "is ROADMAP A13b")
+        """Next-token cross-entropy plus the blocks' aux loss, as the JAX
+        package's ``loss_fn``. Attention gets the positions 0..S-1 and
+        takes the plain path, so gradients exist (the flash kernel has
+        none)."""
+        tokens = batch["tokens"]
+        positions = torch.arange(tokens.shape[-1], dtype=torch.int32,
+                                 device=tokens.device)
+        logits, aux = _logits(params, tokens, positions)
+        loss = softmax_xent(logits[:, :-1], tokens[:, 1:], weights,
+                            batch.get("mask"))
+        return loss + aux
 
     def init_cache(batch_size: int, length: int, device: DeviceLike = None):
         one = b_cache(batch_size, length, resolve_device(device))

@@ -107,7 +107,7 @@ def stack_prefill(block_fn: Callable, stacked: PyTree, x: torch.Tensor
 
 # --------------------------------------------------------------------------
 # Block definitions. Each returns (init_fn(gen) -> params,
-#                                  fwd(params, x) -> (x, aux),
+#                                  fwd(params, x, positions=None) -> (x, aux),
 #                                  decode(params, cache, x, pos) -> (x, cache),
 #                                  init_cache(batch, length, device) -> cache,
 #                                  pfl(params, x, length) -> (x, cache))
@@ -125,8 +125,11 @@ def dense_block(cfg) -> tuple:
             "mlp": _mlp_init(mlpk, gen, cfg.d_model, cfg.d_ff, cfg.dtype),
         }
 
-    def fwd(p, x):
-        x = x + attn.self_attention(p["attn"], acfg, _norm(norm, p["ln1"], x))
+    def fwd(p, x, positions=None):
+        # positions=None: the flash kernel (inference); the training
+        # forward passes 0..S-1 and takes the plain path (a backward)
+        x = x + attn.self_attention(p["attn"], acfg, _norm(norm, p["ln1"], x),
+                                    positions)
         x = x + _mlp(mlpk, p["mlp"], _norm(norm, p["ln2"], x))
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

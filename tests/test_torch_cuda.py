@@ -1034,3 +1034,33 @@ def test_dense_model_on_the_card_matches_the_cpu(cuda, arch):
     assert flash_attention.launches - n0 == cfg.n_layers   # prefill only
     _close(card["prefill_logits"].cpu(), cpu["prefill_logits"], 1e-4)
     assert torch.equal(card["ids"].cpu(), cpu["ids"])
+
+
+@pytest.mark.parametrize("arch", ["qwen3-14b", "starcoder2-15b"])
+def test_lm_training_round_on_the_card_matches_the_cpu(cuda, arch):
+    """The client step of LM training, vmap(grad_and_value(loss_fn)), on
+    the card: no flash-attention launch (the loss takes the plain
+    attention path, which has a backward), losses within 1e-5 and every
+    gradient leaf within 1e-5 of its largest entry of the CPU's (f32)."""
+    import dataclasses
+    from torch.func import grad_and_value, vmap
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.slab import tree_flatten, tree_map
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(smoke_config(arch), param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (3, 2, 80), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(2))
+    step = vmap(grad_and_value(model.loss_fn), in_dims=(None, 0))
+    g_cpu, l_cpu = step(params, {"tokens": toks})
+    n0 = flash_attention.launches
+    g_card, l_card = step(tree_map(lambda t: t.to(cuda), params),
+                          {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0
+    np.testing.assert_allclose(l_card.cpu().numpy(), l_cpu.numpy(),
+                               rtol=1e-5)
+    for a, b in zip(tree_flatten(g_card)[0], tree_flatten(g_cpu)[0]):
+        _close(a.cpu(), b, 1e-5)

@@ -46,7 +46,7 @@ def test_module_list_covers_the_package():
     for name in ("kernels.flash_attention", "kernels.ops", "configs",
                  "configs.qwen3_14b", "configs.starcoder2_15b",
                  "models.layers", "models.attention", "models.transformer",
-                 "models.model", "launch.serve"):
+                 "models.model", "launch.serve", "launch.train"):
         assert f"repro_torch.{name}" in MODULES
     assert len(MODULES) >= 40
 
@@ -59,6 +59,29 @@ def test_port_and_chip_smoke_import_no_jax(order):
     elif order == "kernels_first":
         names = ["repro_torch.kernels.ota_channel"] + names
     code = CHECK.format(src=str(SRC), root=str(ROOT), names=names)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=str(ROOT))
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.startswith("ok")
+
+
+EXAMPLE_CHECK = """
+import importlib.util, sys
+sys.path[:0] = [{src!r}]
+for path in {paths!r}:
+    spec = importlib.util.spec_from_file_location("example", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+assert not bad, bad
+print("ok")
+"""
+
+
+def test_example_twins_import_no_jax():
+    paths = sorted(str(p) for p in (ROOT / "examples").glob("*_torch.py"))
+    assert any(p.endswith("train_lm_federated_torch.py") for p in paths)
+    code = EXAMPLE_CHECK.format(src=str(SRC), paths=paths)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, cwd=str(ROOT))
     assert r.returncode == 0, r.stdout + r.stderr

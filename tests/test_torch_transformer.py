@@ -382,9 +382,25 @@ def test_other_families_are_refused(arch):
 
 
 def test_loss_fn_is_refused():
-    _, tm, _, tp = _models("qwen3-14b", "float32")
-    with pytest.raises(NotImplementedError, match="A13b"):
-        tm.loss_fn(tp, {"tokens": torch.zeros(1, 4, dtype=torch.long)})
+    """Since the training loss was ported (ROADMAP A13b), what is refused
+    is a loss built on ``forward``: its attention runs the flash kernel,
+    which has no backward, and the wrapper refuses tensors under
+    ``torch.func.grad`` on the CPU as the card would. ``loss_fn`` runs the
+    plain path and gives the JAX package's loss."""
+    jm, tm, jp, tp = _models("qwen3-14b", "float32")
+    toks = np.random.default_rng(0).integers(0, 512, (1, 6)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks)}
+
+    def forward_loss(params):
+        logits, aux = tm.forward(params, batch)
+        return tlayers.softmax_xent(logits[:, :-1], batch["tokens"][:, 1:]) \
+            + aux
+
+    with pytest.raises(ValueError, match="no backward"):
+        torch.func.grad(forward_loss)(tp)
+    want = jm.loss_fn(jp, {"tokens": jnp.asarray(toks)})
+    np.testing.assert_allclose(float(tm.loss_fn(tp, batch)), float(want),
+                               rtol=1e-5)
 
 
 # --------------------------------------------------------------------------
