@@ -82,6 +82,13 @@ Phases, each printing its own line(s) before the last line:
    off a 16-byte boundary) agree bitwise. One chunk with no carry is
    bitwise the channel kernel's faded sum (scale 0) at 50 x 175,104,
    2000 x 4096 and 1 x 4096;
+10b. kernel B3a, the no-carry f32 transmit of the sharded round,
+   against its plain version at 50 x 175,104 (the (1,)-mesh ResNet
+   round), 8 x 62,928,640 (the (1,)-mesh 100m CLI round), 25 x 175,104
+   (a rank's rows at P = 2) and 4 x 987,833,344 (run (b)'s width); past
+   175,104 the plain version a 2^26-column piece at a time; the last
+   two no one-card run launches: checked and timed, not kernels-line
+   rows;
 11. reference: streamed logistic-regression rounds on the card against
    the same rounds on the CPU: serial, double-buffered, ragged, weighted;
 11b. reference LM: the tiny preset in f32 (4 clients x batch 2 x seq
@@ -145,6 +152,25 @@ Phases, each printing its own line(s) before the last line:
    quoted) through make_slab_round_runner(model.loss_fn)
    + run_rounds_slab, the calls the CLI makes: the same launch counts,
    ms a round, tokens per second and peak memory;
+14e. the sharded engine (core/shard.py) on the (1,)-mesh: one rank in
+   this process, NCCL on a HashStore. ResNet-tiny at full width, 5
+   rounds of adam_ota on f32, int8 + EF + int8 downlink + alpha "auto",
+   folded sign + EF and S1 (200 clients, chunk 50, sample_rate 0.25,
+   data-size weights, alpha "auto"), each on the resident and the
+   sharded runner in turns (resident, sharded, sharded, resident) from
+   one state with the same draws and batches: every counter set to 0
+   before each sharded run and read after (f32: one B3a and one B1 a
+   round, no B2; quantized: two B3c, two B4 (one with pilot statistics
+   under alpha "auto", by its own counter), one B1; S1: four B3b, one
+   B1), the f32 state within 1e-5 of the resident runner's, the quantized
+   state bitwise, ms a round of both; one more sharded round under
+   sync_debug_mode("error");
+14f. the training CLI at --preset 100m --lr 0.002, 3 rounds, with
+   --backend pallas_sharded --mesh 1 beside the resident CLI, f32 and
+   int8 + EF, launches counted: the f32 losses within 1e-5 relative and
+   its state within 1e-5 of the resident CLI's (as 14e), the int8 state
+   bitwise; ms a round, tokens per second and peak memory of
+   both;
 15. kernel flash_attention against its plain version: the six
    FLASH_CASES of tests/test_kernels.py in f32 and bf16, then the
    prefill shapes of Qwen3-14B (1 x 4096, 40 heads, 8 kv heads, D 128,
@@ -160,7 +186,8 @@ Phases, each printing its own line(s) before the last line:
    1 x 62,928,640 (the streamed finish) and 4 x 987,833,344; B3b at 4 x
    62,928,640 with a carry; B3c int8 + EF at 8 x 62,928,640 and 4 x
    987,833,344, folded sign + EF at 8 x 62,928,640; B4 at 1 x 62,928,640
-   (int8 with statistics, folded sign) and 1 x 987,833,344 (int8), at
+   (int8 with and without statistics, folded sign) and 1 x 987,833,344
+   (int8), at
    the tiers of phases 3-6 and 10;
 16. serve qwen3-14b: full width and depth (40 layers, 14.8 B parameters,
    bf16, random from seed 0) through repro_torch.launch.serve.generate,
@@ -182,7 +209,9 @@ Phases, each printing its own line(s) before the last line:
    one;
 19. times: the launch floor (a near-empty launch, timed as the kernels
    are); then CUDA events, first at the LM runs' shapes (those of 15b,
-   torch.addmv beside B3b), then median of 50 launches, each after an L2 flush
+   torch.addmv beside B3b), then B3a at the shapes of 10b beside its
+   plain version and torch.addmv, then median of 50 launches, each after
+   an L2 flush
    and a device sleep that covers the host's enqueue, of each kernel and
    its plain version at the main path's shapes (B1 also at d = 4096; B2
    at 50 x 175,104 in turns with B3b's no-carry call, with pilot
@@ -2125,6 +2154,343 @@ def phase_lm_width(torch, dev, counters):
     return out
 
 
+# ---------------------------------------------------------------------------
+# The sharded engine (core/shard.py) at world size 1, over NCCL.
+# ---------------------------------------------------------------------------
+
+B3A = "ota_transmit_slab f32"       # B3a: the f32 transmit with no carry
+NOCARRY = "ota_transmit_slab no-carry"   # its counter
+RXSTATS = "ota_receive_slab(pilot_stats)"   # B4's launches with statistics
+# B3a at the shapes the sharded runs launch it (phase 14e's ResNet round,
+# phase 14f's 100m CLI with its 8 clients), then two that no one-card run
+# launches (a rank's rows at P = 2, run (b)'s width at P = 1): checked and
+# timed, but not rows of the kernels line
+B3A_PATH_SHAPES = ((N_CLIENTS, D_MAIN), (8, D_LM))
+B3A_SHAPES = B3A_PATH_SHAPES + ((N_CLIENTS // 2, D_MAIN), (4, D_WIDTH))
+SHARD_RUNS = ("f32", "int8-ef-dl8-auto", "sign-fold-ef", "S1")
+SHARD_CLI_ROUNDS = 3
+
+
+def phase_kernel_b3a(torch, dev, total):
+    """B3a, the no-carry f32 transmit, against its plain version at the
+    shapes of phase "times": the (1,)-mesh ResNet round (50 x 175,104,
+    the slab's padding columns zero), the (1,)-mesh 100m CLI round (8 x
+    62,928,640), a rank's rows at P = 2 (25 x 175,104) and run (b)'s
+    width at P = 1 (4 x 987,833,344); past D_MAIN the plain version a
+    2^26-column piece at a time. Each call one launch of the no-carry
+    counter; tier 1e-6 of the sum's scale."""
+    from repro_torch.kernels.ota_channel import ota_transmit_slab
+    from repro_torch.kernels.ref import ota_transmit_ref
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    errs = {}
+    for n, d in B3A_SHAPES:
+        grads = torch.randn(n, d, generator=gen, device=dev)
+        h = 0.5 + torch.rand(n, generator=gen, device=dev)
+        if d == D_MAIN:
+            grads[:, total:] = 0.0
+        n0 = ota_transmit_slab.nocarry_launches
+        got = ota_transmit_slab(grads, h)
+        torch.cuda.synchronize()
+        check(ota_transmit_slab.nocarry_launches == n0 + 1,
+              f"B3a {n}x{d} did not launch its kernel")
+        worst, scale, ok = 0.0, 0.0, True
+        for a, b in _pieces(d):
+            want = ota_transmit_ref(grads[:, a:b], h)
+            err = (got[a:b] - want).abs()
+            piece = float(want.abs().max())
+            scale, worst = max(scale, piece), max(worst, float(err.max()))
+            ok &= bool(torch.all(err <= 1e-6 * want.abs() + 1e-6 * piece))
+        check(ok, f"B3a {n}x{d}: max err {worst} (scale {scale})")
+        if d == D_MAIN:
+            check(bool(torch.all(got[total:] == 0.0)),
+                  f"B3a {n}x{d}: padding not 0")
+        errs[f"{B3A} {n}x{d}"] = worst
+        print(f"[kernel B3a] ota_transmit_slab (no carry) {n}x{d}: one "
+              f"launch, max_abs_err={worst:.3e} (scale {scale:.3f}; tier "
+              f"1e-6 of scale"
+              + ("; padding exactly 0" if d == D_MAIN else
+                 "; plain version a 2^26-column piece at a time")
+              + "); ok")
+        del grads, got
+        torch.cuda.empty_cache()
+    return errs
+
+
+def _shard_configs():
+    """The sharded runs: (clients, data images, channel, adaptive, fl
+    keywords, launches a sharded round)."""
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.core.channel import OTAChannelConfig, UplinkConfig
+    adam = dict(optimizer="adam_ota", lr=0.01)
+    return {
+        "f32": (N_CLIENTS, OTAChannelConfig(), AdaptiveConfig(**adam), {},
+                {UPD: 1, STREAM: 1, NOCARRY: 1}),
+        "int8-ef-dl8-auto": (
+            N_CLIENTS, OTAChannelConfig(uplink=UplinkConfig(
+                mode="int8", error_feedback=True), downlink="int8"),
+            AdaptiveConfig(**adam, alpha="auto"), {},
+            {TX: 2, RX: 2, RXSTATS: 1, UPD: 1}),
+        "sign-fold-ef": (
+            N_CLIENTS, OTAChannelConfig(uplink=UplinkConfig(
+                mode="sign", error_feedback=True)), AdaptiveConfig(**adam),
+            {}, {TX: 2, RX: 2, UPD: 1}),
+        "S1": (N_STREAM, OTAChannelConfig(),
+               AdaptiveConfig(**adam, alpha="auto"),
+               dict(client_chunk=50, sample_rate=SAMPLE_RATE),
+               {UPD: 1, STREAM: 4}),
+    }
+
+
+def _sharded_runs(mesh, torch, np, dev, counters):
+    """Phase 14e on this rank (the only one): each run of SHARD_RUNS, 5
+    rounds from one initial state on the resident and on the sharded
+    runner, in turns (resident, sharded, sharded, resident), the same
+    draws and batches; the counters set to 0 just before and read just
+    after each sharded run; one more sharded round under
+    sync_debug_mode("error"). Returns the sharded runs' launches by run."""
+    # cuDNN's convolution backward in a fixed order: runs of one
+    # configuration give the same bits
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _sharded_configs(mesh, torch, np, dev, counters)
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _sharded_configs(mesh, torch, np, dev, counters):
+    from repro_torch.core import shard
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.fl import (FLConfig, make_slab_round_runner,
+                                     make_slab_round_step, run_rounds_slab)
+    from repro_torch.core.slab_state import init_train_state
+    from repro_torch.data import FederatedBatcher, synthetic_images
+    from repro_torch.models.vision import resnet_tiny
+
+    model = resnet_tiny(10)
+    data = {N_CLIENTS: synthetic_images(3000, 32, 3, 10, seed=0),
+            N_STREAM: synthetic_images(10000, 32, 3, 10, seed=0)}
+    weights = tuple(float(len(p)) for p in FederatedBatcher(
+        data[N_STREAM], N_STREAM, BATCH, seed=2).parts)
+    out = {}
+    for name, (n, ch, ad, flkw, per_round) in _shard_configs().items():
+        fl = FLConfig(n_clients=n, client_weights=weights if flkw else None,
+                      **flkw)
+        ef = ch.uplink.error_feedback
+        state0 = init_train_state(ad, model.init(seed=0, device=dev),
+                                  error_feedback=ef, device=dev)
+        spec = state0.spec
+        runners = {
+            "resident": (make_slab_round_runner(model.loss_fn, ch, ad, fl,
+                                                device=dev),
+                         TorchDraws(ch, spec, n, seed=1, device=dev,
+                                    sample_rate=fl.sample_rate)),
+            "sharded": (make_slab_round_runner(model.loss_fn, ch, ad, fl,
+                                               device=dev,
+                                               backend="pallas_sharded",
+                                               mesh=mesh),
+                        TorchDraws(ch, spec, n, seed=1, device=dev,
+                                   sample_rate=fl.sample_rate,
+                                   shard_index=0))}
+        batcher = FederatedBatcher(data[n], n, BATCH, seed=2)
+        batches = [batcher(t) for t in range(ROUNDS + 1)]
+
+        def start(which):
+            return (state0 if which == "resident"
+                    else shard.shard_train_state(state0, mesh))
+
+        for which, (run, draws) in runners.items():   # warm-up rounds
+            run_rounds_slab(run, start(which), lambda t: draws(1000 + t),
+                            lambda t: batches[ROUNDS], 1)
+        torch.cuda.synchronize()
+        finals, times, counts = {}, {}, {}
+        for which in ("resident", "sharded", "sharded", "resident"):
+            run, draws = runners[which]
+            for c in counters:
+                c.launches = 0
+            t0 = time.perf_counter()
+            st, hist = run_rounds_slab(run, start(which), draws,
+                                       lambda t: batches[t], ROUNDS,
+                                       chunk=ROUNDS)
+            torch.cuda.synchronize()
+            times.setdefault(which, []).append(
+                1e3 * (time.perf_counter() - t0) / ROUNDS)
+            got = {c.__name__: c.launches for c in counters}
+            if which == "sharded":
+                want = {k: ROUNDS * per_round.get(k, 0) for k in got}
+                check(got == want, f"sharded {name}: launches {got}, want "
+                      f"{want}")
+                counts = {k: counts.get(k, 0) + v for k, v in got.items()}
+                st = shard.gather_train_state(st, mesh)
+            losses = [h["loss"] for h in hist]
+            check(all(math.isfinite(x) for x in losses),
+                  f"{which} {name}: losses {losses}")
+            if which in finals:
+                check(_state_bitwise(torch, st, finals[which][0]),
+                      f"{which} {name}: two runs differ")
+            finals[which] = (st, losses)
+        (a, la), (b, lb) = finals["resident"], finals["sharded"]
+        if ch.uplink.quantized:
+            check(_state_bitwise(torch, a, b), f"sharded {name}: state "
+                  "differs from the resident runner's")
+            agree = "bitwise"
+        else:
+            worst = _state_off(a, b)
+            check(worst <= 1e-5, f"sharded {name}: state off the resident "
+                  f"runner's by {worst:.3e}")
+            agree = f"within {worst:.2e} (tier 1e-5)"
+        # one more sharded round with no host sync
+        step = make_slab_round_step(model.loss_fn, ch, ad, fl, device=dev,
+                                    backend="pallas_sharded", mesh=mesh)
+        st = shard.shard_train_state(b, mesh)
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in batches[ROUNDS].items()}
+        d = runners["sharded"][1](ROUNDS)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, m = step(st, d, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        check(math.isfinite(float(m.loss)), f"sharded {name}: synced round")
+        out[name] = counts
+        print(f"[sharded] resnet_tiny full width (slab {D_MAIN}), {n} "
+              f"clients x batch {BATCH}, {name}"
+              + (f" (chunk 50, sample_rate {SAMPLE_RATE}, data-size "
+                 "weights)" if flkw else "")
+              + f", {ROUNDS} rounds on the (1,)-mesh over NCCL: the state "
+              f"{agree} of the resident runner's; losses sharded "
+              + " ".join(f"{x:.4f}" for x in lb) + "; ms/round (host clock, "
+              "synchronized) in turns resident, sharded, sharded, resident: "
+              + " ".join(f"{t:.2f}" for t in (times["resident"][0],
+                                              *times["sharded"],
+                                              times["resident"][1]))
+              + f"; launches a sharded round {per_round} (no "
+              f"ota_channel_slab); one more round under "
+              f"sync_debug_mode='error' with no host sync; ok")
+    return out
+
+
+def _state_off(a, b) -> float:
+    """The largest difference of two SlabTrainStates' w, optimizer rows
+    and alpha_hat, each over 1 + the second's largest magnitude."""
+    return max(float((x - y).abs().max() / (1.0 + y.abs().max()))
+               for x, y in zip((a.w, *a.opt, a.alpha_hat),
+                               (b.w, *b.opt, b.alpha_hat)))
+
+
+def phase_sharded(torch, np, dev, counters):
+    """Phase 14e: the sharded engine at world size 1 over NCCL (one rank
+    in this process, on a HashStore)."""
+    from repro_torch.launch.mesh import run_on_mesh
+    return run_on_mesh(_sharded_runs, (1,), "cuda",
+                       args=(torch, np, dev, counters))
+
+
+def phase_sharded_cli(torch, dev, counters):
+    """Phase 14f: the training CLI at --preset 100m with --backend
+    pallas_sharded --mesh 1 beside the resident CLI, SHARD_CLI_ROUNDS
+    rounds each, f32 (resident first) and int8 + EF (sharded first); the
+    counters set to 0 before and read after each run; the int8 state
+    bitwise; the f32 state within 1e-5 of the resident CLI's (each slab
+    over 1 + its largest magnitude, as phase 14e) and its losses within
+    1e-5 relative. Returns the sharded runs' launches."""
+    import gc
+
+    from repro_torch.launch import train
+
+    base = ["--preset", "100m", "--lr", str(LM_LR), "--rounds",
+            str(SHARD_CLI_ROUNDS), "--log-every", str(SHARD_CLI_ROUNDS)]
+    sharded = ["--backend", "pallas_sharded", "--mesh", "1"]
+    runs = (("f32", [], ("resident", "sharded"),
+             {CHAN: 1, UPD: 1}, {UPD: 1, STREAM: 1, NOCARRY: 1}),
+            ("int8-ef", ["--uplink", "int8", "--error-feedback"],
+             ("sharded", "resident"), {TX: 1, RX: 1, UPD: 1},
+             {TX: 2, RX: 2, UPD: 1}))
+    out = {}
+    for name, flags, order, want_res, want_sh in runs:
+        res = {}
+        for which in order:
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            argv = base + flags + (sharded if which == "sharded" else [])
+            r, counts = _lm_counted(
+                torch, counters,
+                want_sh if which == "sharded" else want_res,
+                SHARD_CLI_ROUNDS, f"sharded CLI {name} {which}",
+                lambda: train.main(argv))
+            peak = torch.cuda.max_memory_allocated(dev) / 1e9
+            ms = 1e3 * r["seconds"] / SHARD_CLI_ROUNDS
+            res[which] = (r, ms, peak)
+            if which == "sharded":
+                out[name] = counts
+        (ra, ms_a, pk_a), (rb, ms_b, pk_b) = res["resident"], res["sharded"]
+        la = [h["loss"] for h in ra["history"]]
+        lb = [h["loss"] for h in rb["history"]]
+        check(all(math.isfinite(x) for x in la + lb), f"sharded CLI {name}: "
+              f"losses {la} {lb}")
+        rel = max(abs(x - y) / abs(y) for x, y in zip(lb, la))
+        if name == "f32":
+            check(rel <= 1e-5, f"sharded CLI f32: losses {lb} vs {la}")
+            off = _state_off(rb["state"], ra["state"])
+            check(off <= 1e-5, f"sharded CLI f32: state off the resident "
+                  f"CLI's by {off:.3e}")
+            same = _state_bitwise(torch, ra["state"], rb["state"])
+            agree = (f"losses within {rel:.2e} relative of the resident "
+                     f"CLI's, the state "
+                     + ("bitwise" if same else f"within {off:.2e}")
+                     + " of its state (tier 1e-5)")
+        else:
+            check(_state_bitwise(torch, ra["state"], rb["state"]),
+                  "sharded CLI int8-ef: state differs from the resident's")
+            agree = "state bitwise the resident CLI's"
+        print(f"[sharded CLI] 100m preset ({LM_PARAMS:,} params), {name}, "
+              f"{SHARD_CLI_ROUNDS} rounds, --backend pallas_sharded --mesh 1 "
+              f"(run {order.index('sharded') + 1} of 2) beside the resident "
+              f"CLI: {agree}; ms/round sharded {ms_b:.2f} vs resident "
+              f"{ms_a:.2f} (host clock, synchronized, the first round and "
+              f"the sharded run's NCCL set-up included), tokens/s "
+              f"{LM_TOKENS * 1e3 / ms_b:.0f} vs {LM_TOKENS * 1e3 / ms_a:.0f}, "
+              f"peak memory {pk_b:.2f} vs {pk_a:.2f} GB; launches a sharded "
+              f"round {want_sh}; ok")
+        del res, ra, rb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _b3a_times(torch, dev, gen, flush):
+    """B3a's times at B3A_SHAPES: the kernel, its plain version and
+    torch.addmv computing the same h^T G / n (one cuBLAS GEMV, the
+    yardstick, never called by the port); bytes (n d + n + d) x 4, 2 n d
+    + d operations. Returns the rows and the library times by name."""
+    from repro_torch.kernels.ota_channel import ota_transmit_slab
+    from repro_torch.kernels.ref import ota_transmit_ref
+
+    rows, library = {}, {}
+    for n, d in B3A_SHAPES:
+        name = f"{B3A} {n}x{d}"
+        gs = torch.randn(n, d, generator=gen, device=dev)
+        hs = torch.rand(n, generator=gen, device=dev)
+        zero = torch.zeros(d, device=dev)
+        ms = _median_ms(torch, lambda: ota_transmit_slab(gs, hs), flush)
+        plain_ms = _median_ms(torch, lambda: ota_transmit_ref(gs, hs), flush)
+        lib_ms = _median_ms(torch, lambda: torch.addmv(
+            zero, gs.t(), hs, beta=0.0, alpha=1.0 / n), flush)
+        diff = float((torch.addmv(zero, gs.t(), hs, beta=0.0, alpha=1.0 / n)
+                      - ota_transmit_slab(gs, hs)).abs().max())
+        rows[name] = (ms, plain_ms, 4 * (n * d + n + d), 2 * n * d + d)
+        library[name] = ("torch.addmv", lib_ms)
+        print(f"[times] {name}: {ms / lib_ms:.3f} x torch.addmv's time, "
+              f"which differs from the kernel by {diff:.3e} at most")
+        del gs, zero
+        torch.cuda.empty_cache()
+    return rows, library
+
+
 def _slabs_within(torch, a_state, b_state, share, everywhere, what):
     """The state slabs of two runs: within 1e-5 + 1e-5 |x| on all but
     ``share`` of the entries, within ``everywhere`` on all, mean error at
@@ -2234,8 +2600,8 @@ def phase_kernel_lm(torch, dev):
     alpha 1.5) at d = D_LM and D_WIDTH; B2 at 8 x D_LM, 1 x D_LM (the
     streamed finish, n_total 1) and 4 x D_WIDTH; B3b at 4 x D_LM with a
     carry; B3c at 8 x D_LM (int8 with host rounding + EF, folded sign +
-    EF) and 4 x D_WIDTH (int8 + EF); B4 at 1 x D_LM (int8 with statistics,
-    folded sign) and 1 x D_WIDTH (int8). Tiers as phases 3-6 and 10; B3c
+    EF) and 4 x D_WIDTH (int8 + EF); B4 at 1 x D_LM (int8 with and
+    without statistics, folded sign) and 1 x D_WIDTH (int8). Tiers as phases 3-6 and 10; B3c
     also bitwise the plain quantizer on its own sum (phase 5's
     composition), and its sign payload equal to the plain version's
     wherever the sum is not within 1e-6 of its scale of 0 (another
@@ -2357,6 +2723,8 @@ def phase_kernel_lm(torch, dev):
                                dtype=torch.int8)
             cases = [(q8, None, d == D_LM, f"{RX} 1x{d}")]
             if d == D_LM:
+                # the sharded CLI's receives: int8 without statistics
+                cases.append((q8, None, False, f"{RX} no-stats 1x{d}"))
                 q3 = torch.randint(-1, 2, (1, d), generator=gen, device=dev,
                                    dtype=torch.int8)
                 cases.append((pack_sign_slab(torch.where(q3 < 0, -1, 1).to(
@@ -2391,7 +2759,8 @@ def phase_kernel_lm(torch, dev):
     print("[kernel LM shapes] B1 adam at d=" + f"{D_LM} and {D_WIDTH}; B2 "
           f"at 8x{D_LM}, 1x{D_LM} and 4x{D_WIDTH}; B3b at 4x{D_LM} with a "
           f"carry; B3c int8 + EF at 8x{D_LM} and 4x{D_WIDTH}, folded sign + "
-          f"EF at 8x{D_LM}; B4 int8 (with statistics) and fold at 1x{D_LM}, "
+          f"EF at 8x{D_LM}; B4 int8 (with and without statistics) and "
+          f"fold at 1x{D_LM}, "
           f"int8 at 1x{D_WIDTH}; the plain versions {1 << 26} columns at a "
           "time: max_abs_err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
@@ -2489,6 +2858,14 @@ def _lm_times(torch, dev, gen, flush):
                 d + 4 * (d // 128) + 3 * 4 * d + (12 if stats else 0),
                 14 * d + (6 * d if stats else 0))
             if d == D_LM:
+                # the sharded CLI's receive: int8, no statistics
+                nkw = dict(alpha=1.5, scale=0.05)
+                rows[f"{RX} no-stats 1x{d}"] = (
+                    _median_ms(torch, lambda: ota_receive_slab(q, s, u, e,
+                                                               **nkw), flush),
+                    _median_ms(torch, lambda: ota_receive_ref(q, s, u, e,
+                                                              **nkw), flush),
+                    d + 4 * (d // 128) + 3 * 4 * d, 14 * d)
                 words = pack_sign_slab(torch.where(q < 0, -1, 1).to(
                     torch.int8))
                 fkw = dict(alpha=1.5, scale=0.05, packed="fold")
@@ -2873,6 +3250,9 @@ def phase_times(torch, dev):
           f"{TIMED_LAUNCHES} near-empty launches (torch.cuda._sleep(1)) "
           "under the same flush and sleep")
     rows, library = _lm_times(torch, dev, gen, flush)
+    b3a_rows, b3a_library = _b3a_times(torch, dev, gen, flush)
+    rows.update(b3a_rows)
+    library.update(b3a_library)
     d, n = D_MAIN, N_CLIENTS
     kw = dict(lr=0.01, beta1=0.9, beta2=0.3, alpha=1.5, eps=1e-8, mode="adam")
     # adam: reads g, delta, nu, w and writes delta, nu, w (f32); about 16
@@ -3176,6 +3556,7 @@ def main() -> int:
     err_update[D_MAIN] = max(err_update[D_MAIN],
                              phase_runtime_alpha(torch, dev, spec.total))
     err_stream = phase_kernel_stream(torch, dev, spec.total)
+    err_b3a = phase_kernel_b3a(torch, dev, spec.total)
     err_flash = phase_kernel_flash(torch, dev)
     err_lm = phase_kernel_lm(torch, dev)
     phase_reference(torch, np)
@@ -3198,6 +3579,11 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     lm = phase_lm_train(torch, dev, all_counters + (flash_attention,))
     wd = phase_lm_width(torch, dev, all_counters + (flash_attention,))
+    nocarry = Counter(ota_transmit_slab, "nocarry_launches", NOCARRY)
+    rxstats = Counter(ota_receive_slab, "stats_launches", RXSTATS)
+    sh = phase_sharded(torch, np, dev, all_counters + (nocarry, rxstats))
+    sh_cli = phase_sharded_cli(torch, dev,
+                               all_counters + (nocarry, rxstats))
     for part in (wire_launches, stream_launches, million_launches):
         for k, v in part.items():
             launches[k] = launches.get(k, 0) + v
@@ -3250,6 +3636,24 @@ def main() -> int:
     launches[f"{CHAN} 4x{D_WIDTH}"] = wd["f32"][CHAN]
     launches[f"{TX} 4x{D_WIDTH}"] = wd["int8-ef"][TX]
     launches[f"{RX} 1x{D_WIDTH}"] = wd["int8-ef"][RX]
+    # the sharded runs (phases 14e-14f): B3a's launches at each of its
+    # two shapes (phase 14e's ResNet rounds, phase 14f's 100m CLI), and
+    # the other kernels' on their rows; the receive's launches with
+    # statistics by their own counter
+    for (n, d), runs in zip(B3A_PATH_SHAPES, (sh, sh_cli)):
+        launches[f"{B3A} {n}x{d}"] = sum(r[NOCARRY] for r in runs.values())
+    rx_sh = sum(r[RX] for r in sh.values())
+    stats_sh = sum(r[RXSTATS] for r in sh.values())
+    launches[UPD] += sum(r[UPD] for r in sh.values())
+    launches[TX] += sh["int8-ef-dl8-auto"][TX] + sh["sign-fold-ef"][TX]
+    launches[f"{RX} stats"] += stats_sh
+    launches[RX] += rx_sh - stats_sh
+    launches[f"{STREAM} {N_CLIENTS}x{D_MAIN}"] += sh["S1"][STREAM]
+    launches[f"{UPD} d={D_LM}"] += sum(r[UPD] for r in sh_cli.values())
+    launches[f"{TX} 8x{D_LM}"] += sh_cli["int8-ef"][TX]
+    launches[f"{RX} 1x{D_LM}"] += sum(r[RXSTATS] for r in sh_cli.values())
+    launches[f"{RX} no-stats 1x{D_LM}"] = sum(r[RX] - r[RXSTATS]
+                                              for r in sh_cli.values())
     hopper = Counter(flash_attention, "hopper_launches", f"{FLASH} hopper")
     for arch in FLASH_MODEL_SHAPES:
         runs = phase_serve(torch, dev, flash_attention, hopper, arch)
@@ -3285,8 +3689,12 @@ def main() -> int:
         (f"{CHAN} 8x{D_LM}", b2), (f"{CHAN} 1x{D_LM}", b2),
         (f"{CHAN} 4x{D_WIDTH}", b2), (f"{STREAM} 4x{D_LM}", b3b),
         (f"{TX} 8x{D_LM}", b3c), (f"{TX} 4x{D_WIDTH}", b3c),
-        (f"{RX} 1x{D_LM}", b4), (f"{RX} fold 1x{D_LM}", b4),
+        (f"{RX} 1x{D_LM}", b4), (f"{RX} no-stats 1x{D_LM}", b4),
+        (f"{RX} fold 1x{D_LM}", b4),
         (f"{RX} 1x{D_WIDTH}", b4)))
+    rows += tuple((f"{B3A} {n}x{d}", "ota_transmit_stream.cu",
+                   "src/repro/kernels/ota_channel.py:419",
+                   err_b3a[f"{B3A} {n}x{d}"]) for n, d in B3A_PATH_SHAPES)
     rows += tuple((f"{FLASH} hopper {arch}", "flash_attention_sm90.cu",
                    "src/repro/kernels/flash_attention.py:106",
                    err_flash["hopper"]) for arch in FLASH_MODEL_SHAPES)

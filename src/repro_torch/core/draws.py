@@ -29,14 +29,35 @@ participation (``FLConfig.sample_rate < 1``):
   (``repro.core.stream.participation_mask(key, N, rate)``); None means
   every client takes part.
 
+On the sharded engine (``repro_torch.core.shard``) each rank is one
+transmitter and quantizes two payloads of its own: the noisy faded
+partial sum and the clean diagnostic sum. Its draws are the full
+round's fields (equal on every rank) plus that transmitter's rounding
+(``repro.core.ota.uplink_sr_slab_inputs(key, spec, shard_index)``, a
+(2, padded) draw, and ``repro.core.channel.sr_kernel_seed(key,
+shard_index)``, a pair of seeds):
+
+* ``shard`` — the transmitter's linear shard index; None for the
+  single-device round;
+* ``r_up`` / ``sr_seed`` — row 0: the noisy payload's rounding;
+* ``r_clean`` (padded,) / ``sr_seed_clean`` — row 1: the clean
+  payload's.
+
+Transmitter 0's row 0 is the single-device draw, so the (1,)-mesh
+consumes exactly the draws of the single-device round.
+
 ``TorchDraws`` is the port's own provider: a Philox ``torch.Generator``
 on the device (the CPU generator when the caller runs on the CPU),
 reseeded from a mix of ``(seed, round index)`` so round t's draws do not
 depend on how many rounds ran before it. It draws h, u and e first, the
 wire's fields after them and the participation mask last, so a config
 without a quantized wire or without sampling gets the same h, u and e
-(and wire fields) as it always did. The parity tests feed the round the
-JAX package's own draws through the same seam.
+(and wire fields) as it always did. ``shard_index=p`` makes transmitter
+p's draws: the same full-round fields, transmitter 0's noisy rounding
+from the round's generator as the single-device round draws it, every
+other rounding row and seed from generators keyed by ``(seed, round,
+p, row)``. The parity tests feed the round the JAX package's own draws
+through the same seam.
 """
 
 from __future__ import annotations
@@ -67,9 +88,13 @@ class RoundDraws:
     r_dl: Optional[torch.Tensor] = None
     sr_seed: Optional[int] = None
     mask: Optional[torch.Tensor] = None
+    r_clean: Optional[torch.Tensor] = None
+    sr_seed_clean: Optional[int] = None
+    shard: Optional[int] = None
 
     def wire(self, name: str, length: int) -> torch.Tensor:
-        """The (length,) wire field ``r_up`` or ``r_dl``; raises when the
+        """The (length,) wire field ``r_up``, ``r_dl`` or ``r_clean``;
+        raises when the
         draws were made for a config that does not use it."""
         x = getattr(self, name)
         if x is None or tuple(x.shape) != (length,):
@@ -84,7 +109,9 @@ class RoundDraws:
             return None if t is None else t.to(device)
         return RoundDraws(self.h.to(device), self.u.to(device),
                           self.e.to(device), move(self.r_up),
-                          move(self.r_dl), self.sr_seed, move(self.mask))
+                          move(self.r_dl), self.sr_seed, move(self.mask),
+                          move(self.r_clean), self.sr_seed_clean,
+                          self.shard)
 
 
 def sample_fading(cfg: OTAChannelConfig, n: int,
@@ -130,14 +157,16 @@ def participation_mask(n_clients: int, sample_rate: float,
     return (u < sample_rate).to(torch.float32)
 
 
+_M64 = (1 << 64) - 1
+
+
 def _mix64(x: int) -> int:
     """splitmix64's finalizer: a bijection on 64-bit ints whose low 32
     bits depend on every input bit (the CPU generator keeps only the low
     32 bits of a seed; Philox on the card keeps all 64)."""
-    m = (1 << 64) - 1
-    z = (x + 0x9E3779B97F4A7C15) & m
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & m
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & m
+    z = (x + 0x9E3779B97F4A7C15) & _M64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _M64
     return z ^ (z >> 31)
 
 
@@ -152,14 +181,22 @@ class TorchDraws:
     ``sr_inkernel``, mixed on the host from ``(seed, t)`` so that making
     it reads nothing back from the card; ``mask`` for ``sample_rate < 1``
     (pass ``FLConfig.sample_rate``), drawn after everything else.
+    ``shard_index`` (a rank of the sharded engine) adds that
+    transmitter's ``r_clean`` / ``sr_seed_clean`` and sets ``shard``.
     """
 
     def __init__(self, cfg: OTAChannelConfig, spec: SlabSpec, n_clients: int,
                  seed: int = 0, device: DeviceLike = None,
-                 sample_rate: float = 1.0):
+                 sample_rate: float = 1.0,
+                 shard_index: Optional[int] = None):
         if not 0.0 < sample_rate <= 1.0:
             raise ValueError(f"sample_rate must be in (0, 1], got "
                              f"{sample_rate}")
+        if shard_index is not None and not 0 <= shard_index < spec.shards:
+            raise ValueError(f"shard_index must be in [0, {spec.shards}) for "
+                             f"a spec laid out for {spec.shards} shards, got "
+                             f"{shard_index}")
+        self.shard_index = shard_index
         self.cfg = cfg
         self.spec = spec
         self.n_clients = n_clients
@@ -195,4 +232,28 @@ class TorchDraws:
         mask = (participation_mask(self.n_clients, self.sample_rate,
                                    self.generator)
                 if self.sample_rate < 1.0 else None)
-        return RoundDraws(h, u, e, r_up, r_dl, sr_seed, mask)
+        p = self.shard_index
+        r_clean = sr_seed_clean = None
+        if p is not None and sr:
+            # Transmitter p's rounding rows: row 0 of transmitter 0 is
+            # the single-device draw above; the others come from their
+            # own generators, so the full-round fields stay equal on
+            # every rank.
+            key = _mix64(mixed ^ _SR_SALT)
+            if r_up is not None:
+                if p > 0:
+                    r_up = self._row(key, p, 0, padded)
+                r_clean = self._row(key, p, 1, padded)
+            if up.sr_inkernel:
+                if p > 0:
+                    sr_seed = _mix64((key + 2 * p) & _M64)
+                sr_seed_clean = _mix64((key + 2 * p + 1) & _M64)
+        return RoundDraws(h, u, e, r_up, r_dl, sr_seed, mask, r_clean,
+                          sr_seed_clean, p)
+
+    def _row(self, key: int, p: int, row: int, n: int) -> torch.Tensor:
+        """Transmitter p's rounding row ``row``: (n,) uniforms from a
+        generator of its own, keyed by the round and (p, row)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(_mix64((key + 2 * p + row) & _M64))
+        return torch.rand((n,), generator=gen, device=self.device)

@@ -40,8 +40,10 @@ round. It is the JAX package's pallas round: the MAC through
 ``ota_aggregate_slab`` and ONE fused server update
 (``apply_slab_update``) on slabs packed from the pytrees.
 
-Configurations the port does not cover yet raise ``NotImplementedError``
-naming the ROADMAP item that brings them; none silently degrades.
+``backend="pallas_sharded"`` with ``mesh=`` (a ``DeviceMesh`` over a
+started process group) takes each of these entry points to the sharded
+engine, ``core.shard``, called on every rank; ``make_sharded_round_step``
+is the per-leaf collective round (``core.ota.ota_psum``).
 """
 
 from __future__ import annotations
@@ -60,7 +62,8 @@ from repro_torch.core.adaptive import (AdaptiveConfig, ServerOptState,
                                        slab_update_slabs, state_slab_rows)
 from repro_torch.core.channel import OTAChannelConfig
 from repro_torch.core.draws import RoundDraws
-from repro_torch.core.ota import downlink_quantize_slab, ota_aggregate_slab
+from repro_torch.core.ota import (downlink_quantize_slab, ota_aggregate_slab,
+                                  ota_psum, psum_axes)
 from repro_torch.core.slab import (make_slab_spec, slab_to_tree,
                                    tree_flatten, tree_map, tree_to_slab)
 from repro_torch.core.slab_state import SlabTrainState
@@ -162,22 +165,32 @@ def _client_update(loss_fn: LossFn, fl_cfg: FLConfig
 def _check_covered(channel_cfg: OTAChannelConfig,
                    adaptive_cfg: AdaptiveConfig, fl_cfg: FLConfig,
                    backend: Optional[str], batch_gen, mesh=None) -> None:
-    """Refuse every configuration this slice does not port yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (rounds distributed over a device mesh, the sharded "
-            "engine) is not ported yet: ROADMAP item A12")
-    if backend == "pallas_sharded":
-        raise NotImplementedError(
-            'backend="pallas_sharded" (the sharded engine) is not ported '
-            "yet: ROADMAP item A12")
-    if backend is not None:
+    """Refuse what the round cannot run: a backend switch (the device
+    decides; ``"pallas_sharded"`` with ``mesh=`` selects the sharded
+    engine), a mesh or bucketed collectives without the sharded engine,
+    and ``batch_gen`` outside the single-device streamed round."""
+    if backend not in (None, "pallas_sharded"):
         raise ValueError(f"backend={backend!r}: the port has no backend "
-                         "switch; the device decides")
-    if channel_cfg.comm_buckets > 1:
-        raise NotImplementedError(
-            "comm_buckets > 1 (bucketed MAC collectives of the sharded "
-            "engine) is not ported yet: ROADMAP item A12")
+                         "switch; the device decides (backend="
+                         "'pallas_sharded' with mesh= selects the sharded "
+                         "engine)")
+    if backend == "pallas_sharded":
+        if mesh is None:
+            raise ValueError('backend="pallas_sharded" needs a mesh; pass '
+                             "mesh= (a torch.distributed DeviceMesh)")
+        if batch_gen is not None:
+            raise ValueError('batch_gen= is only supported by the streamed '
+                             'single-device backends, not "pallas_sharded"')
+    elif mesh is not None:
+        raise ValueError(
+            'mesh= was given but the backend is not "pallas_sharded": the '
+            "round runs single-device and would silently ignore it; use "
+            'backend="pallas_sharded" for distributed rounds')
+    elif channel_cfg.comm_buckets > 1:
+        raise ValueError(
+            "comm_buckets > 1 buckets the sharded MAC collective; the "
+            'single-device round has none: use backend="pallas_sharded" '
+            "with mesh=, or comm_buckets=1")
     if batch_gen is not None and not fl_cfg.dynamic_round:
         raise ValueError("batch_gen= needs a streamed round config "
                          "(FLConfig.client_chunk); the resident path "
@@ -227,9 +240,10 @@ def make_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
 
     Refused as in the JAX package (``ValueError``): alpha "auto", a
     dynamic round, error feedback and the int8 downlink, which need the
-    resident loop (``make_slab_round_step``). The sharded engine
-    (``backend="pallas_sharded"``, ``mesh=``) waits for ROADMAP item A12
-    (``NotImplementedError``).
+    resident loop (``make_slab_round_step``). ``backend="pallas_sharded"``
+    with ``mesh=`` (a ``DeviceMesh``) runs the round on the sharded
+    engine (``core.shard.shard_round_step``), called on every rank with
+    the rank's draws.
     """
     if adaptive_cfg.track_alpha:
         raise ValueError(
@@ -250,6 +264,11 @@ def make_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
             "per-round pytree API has no resident residual slab to carry "
             "across rounds and no slab broadcast to quantize")
     _check_covered(channel_cfg, adaptive_cfg, fl_cfg, backend, None, mesh)
+    if backend == "pallas_sharded":
+        # repro-lint: lazy-import (cycle: core.shard imports core.fl)
+        from repro_torch.core.shard import shard_round_step
+        return shard_round_step(loss_fn, channel_cfg, adaptive_cfg, fl_cfg,
+                                mesh, device)
     dev = resolve_device(device)
     client_fn = vmap(_client_update(loss_fn, fl_cfg), in_dims=(None, 0))
     alpha = float(adaptive_cfg.alpha)
@@ -292,7 +311,8 @@ def init_server(params: PyTree, adaptive_cfg: AdaptiveConfig
 def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
                          adaptive_cfg: AdaptiveConfig, fl_cfg: FLConfig,
                          device: DeviceLike = None,
-                         backend: Optional[str] = None, batch_gen=None):
+                         backend: Optional[str] = None, batch_gen=None,
+                         mesh=None):
     """Slab-resident ADOTA round on ``device`` (default: the card).
 
     Returns ``step(state, draws, client_batches) -> (state, metrics)``:
@@ -310,8 +330,16 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
     device, with no read back to the host), only ``step`` advances, and
     the metrics record ``n_participants == 0``. ``batch_gen(draws, idx)``
     replaces the materialised batches (pass ``client_batches=None``).
+    ``backend="pallas_sharded"`` with ``mesh=`` is the sharded engine's
+    step (``core.shard.make_shard_slab_step``).
     """
-    _check_covered(channel_cfg, adaptive_cfg, fl_cfg, backend, batch_gen)
+    _check_covered(channel_cfg, adaptive_cfg, fl_cfg, backend, batch_gen,
+                   mesh)
+    if backend == "pallas_sharded":
+        # repro-lint: lazy-import (cycle: core.shard imports core.fl)
+        from repro_torch.core.shard import make_shard_slab_step
+        return make_shard_slab_step(loss_fn, channel_cfg, adaptive_cfg,
+                                    fl_cfg, mesh, device)
     dev = resolve_device(device)
     client_fn = vmap(_client_update(loss_fn, fl_cfg), in_dims=(None, 0))
     track = adaptive_cfg.track_alpha
@@ -456,7 +484,8 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
 def make_slab_round_runner(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
                            adaptive_cfg: AdaptiveConfig, fl_cfg: FLConfig,
                            device: DeviceLike = None,
-                           backend: Optional[str] = None, batch_gen=None):
+                           backend: Optional[str] = None, batch_gen=None,
+                           mesh=None):
     """R rounds as a host loop over the resident state.
 
     Returns ``run(state, draws, client_batches) -> (state, metrics)``
@@ -464,10 +493,19 @@ def make_slab_round_runner(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
     leaves shaped (R, N, ...); metrics come back stacked (R,). With
     ``batch_gen`` (see ``make_slab_round_step``) there are no
     materialised batches: call ``run(state, draws)``.
+    ``backend="pallas_sharded"`` with ``mesh=`` is the sharded engine's
+    runner (``core.shard.make_shard_slab_runner``).
     """
+    if backend == "pallas_sharded":
+        _check_covered(channel_cfg, adaptive_cfg, fl_cfg, backend, batch_gen,
+                       mesh)
+        # repro-lint: lazy-import (cycle: core.shard imports core.fl)
+        from repro_torch.core.shard import make_shard_slab_runner
+        return make_shard_slab_runner(loss_fn, channel_cfg, adaptive_cfg,
+                                      fl_cfg, mesh, device)
     step = make_slab_round_step(loss_fn, channel_cfg, adaptive_cfg, fl_cfg,
                                 device=device, backend=backend,
-                                batch_gen=batch_gen)
+                                batch_gen=batch_gen, mesh=mesh)
 
     def run(state: SlabTrainState, draws: Sequence[RoundDraws],
             client_batches=None):
@@ -585,6 +623,29 @@ def run_rounds_slab(run_chunk, state: SlabTrainState,
             chunk_hook(t, state, history)
     dead.flush()
     return state, history
+
+
+def make_sharded_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
+                            adaptive_cfg: AdaptiveConfig, mesh,
+                            client_axes: Tuple[str, ...] = ("data",)):
+    """The per-leaf collective round, called on every rank of ``mesh``:
+    ``body(params, opt_state, draws, local_batch) -> (params, opt_state,
+    loss)``. Each rank along ``client_axes`` is one client: it computes
+    the gradient of its own batch, ``core.ota.ota_psum`` aggregates over
+    the air (f32 wire only), and the server update runs on every rank
+    (the fused slab update). The loss is the clients' mean."""
+    server_opt = make_server_optimizer(adaptive_cfg)
+    n = math.prod(mesh.size(mesh.mesh_dim_names.index(a))
+                  for a in client_axes)
+
+    def body(params, opt_state: ServerOptState, draws: RoundDraws,
+             local_batch):
+        local_grad, loss = grad_and_value(loss_fn)(params, local_batch)
+        g_t = ota_psum(local_grad, draws, channel_cfg, mesh, client_axes)
+        new_params, new_state = server_opt.update(g_t, opt_state, params)
+        return new_params, new_state, psum_axes(loss, mesh, client_axes) / n
+
+    return body
 
 
 def run_rounds(round_step, params: PyTree, opt_state: ServerOptState,

@@ -24,13 +24,20 @@ slab's (u, e) sliced at that leaf's ``SlabSpec`` offset: the JAX package
 draws leaf i from ``fold_in(kx, i)``, the same key its slab draw uses
 for that leaf, so the values are the ones the slab MAC injects.
 ``ota_aggregate_stacked`` is the pytree face of ``ota_aggregate_slab``.
+
+``ota_psum`` is the JAX package's per-leaf collective round over a
+client mesh (``torch.distributed``), each rank one client group: the
+fading of rank n is row n of the round's (P,) draw, the superposition an
+all-reduce, the interference the round's, equal on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+import math
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.channel import OTAChannelConfig, sample_interference
 from repro_torch.core.draws import RoundDraws
@@ -109,8 +116,8 @@ def _add_interference_with_stats(draws: RoundDraws, cfg: OTAChannelConfig,
     return tree_unflatten(treedef, noisy), stats
 
 
-def restore_zero_tail(x: Optional[torch.Tensor], spec: SlabSpec
-                      ) -> Optional[torch.Tensor]:
+def restore_zero_tail(x: Optional[torch.Tensor], spec: SlabSpec,
+                      offset: int = 0) -> Optional[torch.Tensor]:
     """Re-pin the slab's zero padding tail after the folded sign wire.
 
     The 1-bit ``fold`` container cannot carry a 0: padding coordinates
@@ -118,10 +125,12 @@ def restore_zero_tail(x: Optional[torch.Tensor], spec: SlabSpec
     +scale. Padding is layout, not model state, so the slab layer
     re-masks the fold wire's outputs here, as the JAX package does. The
     pilot statistics are taken before this mask. None passes through.
+    ``offset`` places ``x`` in the slab: a rank of the sharded engine
+    masks its own slice.
     """
     if x is None:
         return x
-    pos = torch.arange(x.shape[-1], device=x.device)
+    pos = torch.arange(x.shape[-1], device=x.device) + offset
     return torch.where(pos < spec.total, x, torch.zeros((), dtype=x.dtype,
                                                         device=x.device))
 
@@ -238,3 +247,60 @@ def ota_aggregate_stacked(draws: RoundDraws, cfg: OTAChannelConfig,
                                                 spec, pilot_stats=pilot_stats)
     g_t = slab_to_tree(spec, g_slab)
     return (g_t, h, stats) if pilot_stats else (g_t, h)
+
+
+# ---------------------------------------------------------------------------
+# The per-leaf collective round over a client mesh.
+# ---------------------------------------------------------------------------
+
+def linear_shard_index(mesh, axis_names: Sequence[str]) -> int:
+    """Row-major linear index of this rank over ``axis_names`` of the
+    ``DeviceMesh`` (first axis major): the order in which the sharded
+    engine lays the client rows and slab slices out. A host int: the
+    rank's coordinate, no device value."""
+    idx = 0
+    for a in axis_names:
+        dim = mesh.mesh_dim_names.index(a)
+        idx = idx * mesh.size(dim) + mesh.get_local_rank(dim)
+    return idx
+
+
+def psum_axes(x: torch.Tensor, mesh, axis_names: Sequence[str]
+              ) -> torch.Tensor:
+    """Sum of ``x`` over the ranks of ``axis_names``: one all-reduce a
+    mesh axis, on a copy (the caller's tensor is left as it was)."""
+    x = x.clone()
+    for a in axis_names:
+        dist.all_reduce(x, group=mesh.get_group(a))
+    return x
+
+
+def ota_psum(local_grad: PyTree, draws: RoundDraws, cfg: OTAChannelConfig,
+             mesh, axis_names: Sequence[str]) -> PyTree:
+    """OTA aggregation as a collective over ``axis_names`` of ``mesh``:
+    each rank holds the gradient of its own client (group). Rank n
+    transmits with fading ``draws.h[n]`` (the (P,) draw, n the linear
+    shard index), the all-reduce over ``axis_names`` realises the
+    superposition, and the interference comes from the round's (u, e),
+    identical on every rank, as the server's single RF front end.
+
+    The f32 wire only, as in the JAX package: the quantized uplink is a
+    slab concept (per-128-block payloads) and lives in the sharded slab
+    engine, ``repro_torch.core.shard``.
+    """
+    if cfg.uplink.quantized:
+        raise NotImplementedError(
+            "ota_psum / make_sharded_round_step do not implement the "
+            f"quantized uplink (uplink={cfg.uplink.mode!r}); use the "
+            "slab engine (backend='pallas_sharded', repro_torch.core.shard) "
+            "for the int8 MAC")
+    axis_names = tuple(axis_names)
+    n = math.prod(mesh.size(mesh.mesh_dim_names.index(a))
+                  for a in axis_names)
+    if tuple(draws.h.shape) != (n,):
+        raise ValueError(f"draws.h must hold one fading draw a client "
+                         f"group, ({n},), got {tuple(draws.h.shape)}")
+    h_n = draws.h[linear_shard_index(mesh, axis_names)]
+    g_t = tree_map(lambda g: psum_axes(h_n.to(g.dtype) * g, mesh,
+                                       axis_names) / n, local_grad)
+    return add_interference(draws, cfg, g_t)

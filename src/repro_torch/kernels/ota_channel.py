@@ -30,7 +30,10 @@ On a CUDA tensor each wrapper launches its hand-written kernel
 a CPU tensor it runs the plain version in ``kernels.ref``. Nothing else
 selects between the two. ``ota_transmit_slab`` counts its two kernels
 apart: ``launches`` for the quantize-on-write kernel, ``stream_launches``
-for the f32 (accumulating) one.
+for the f32 (accumulating) one, of which ``nocarry_launches`` are the
+calls without a carry (the TPU package's separate no-carry kernel, B3a).
+``ota_receive_slab.stats_launches`` counts its launches that fold the
+pilot statistics.
 """
 
 from __future__ import annotations
@@ -271,6 +274,7 @@ def ota_transmit_slab(grads: torch.Tensor, h: torch.Tensor, *,
 
 ota_transmit_slab.launches = 0
 ota_transmit_slab.stream_launches = 0
+ota_transmit_slab.nocarry_launches = 0
 
 
 # The accumulating kernel (csrc/ota_transmit_stream.cu): a block owns
@@ -438,6 +442,8 @@ def _transmit_f32(grads, h, n, d, n_total, acc, row_chunk):
             seg, n_seg, float(n_total), stream)
     build.check(code, "ota_transmit_slab")
     ota_transmit_slab.stream_launches += 1
+    if acc is None:
+        ota_transmit_slab.nocarry_launches += 1
     return out
 
 
@@ -505,7 +511,10 @@ def ota_receive_slab(payload: torch.Tensor, scales: torch.Tensor,
             CMS_E_FLOOR, blocks, stream)
     build.check(code, "ota_receive_slab")
     ota_receive_slab.launches += 1
+    if pilot_stats:
+        ota_receive_slab.stats_launches += 1
     return (out, stats) if pilot_stats else out
 
 
 ota_receive_slab.launches = 0
+ota_receive_slab.stats_launches = 0

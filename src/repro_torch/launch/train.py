@@ -20,17 +20,29 @@ round. ``--uplink`` / ``--downlink`` / ``--error-feedback`` /
 streamed client axis, and ``--alpha-opt`` / ``--track-alpha`` the
 optimizer's tail index (a float, or tracked online), as in the JAX CLI.
 
+``--backend pallas_sharded --mesh P`` (or ``A,B``) runs the sharded
+engine (``repro_torch.core.shard``) on a client mesh of that shape
+(default ``2``, as in the JAX CLI), with ``--comm-buckets`` for its
+overlap engine. Each rank is a process with one device
+(``launch.mesh.run_on_mesh``): under ``--device cpu`` P workers over
+gloo; on the cards one rank a card over NCCL, so one H100 runs
+``--mesh 1`` (in this process) and a larger mesh is refused. Rank 0
+prints and writes the checkpoints, which hold the gathered (resident)
+state, the same file whatever the mesh; a resume hands each rank its
+slices again.
+
 What has no meaning here is refused by name: ``--no-interpret`` (the
 port has no Pallas interpret mode), ``--no-donate`` and
 ``--donation-report`` (no XLA buffer donation: the slabs update in
-place), ``--backend jnp`` (no backend switch: the device decides), and
-``--backend pallas_sharded``, ``--mesh`` and ``--comm-buckets`` above 1
-(the sharded engine, ROADMAP A12). ``--backend`` accepts ``pallas``, its
-default. A family other than dense raises ``NotImplementedError``
-naming ROADMAP A13c.
+place) and ``--backend jnp`` (no backend switch: the device decides).
+``--backend`` accepts ``pallas``, its default, and ``pallas_sharded``.
+A family other than dense raises ``NotImplementedError`` naming
+ROADMAP A13c.
 
     PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
         --rounds 3 --clients 4 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
+        --rounds 3 --clients 4 --device cpu --backend pallas_sharded --mesh 2
     PYTHONPATH=src python -m repro_torch.launch.train --preset 100m --rounds 300
 """
 
@@ -39,12 +51,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import repro_torch.checkpoint as ckpt
 from repro_torch.configs import ARCHS, preset_config
@@ -53,10 +67,14 @@ from repro_torch.core.channel import OTAChannelConfig, UplinkConfig
 from repro_torch.core.draws import TorchDraws
 from repro_torch.core.fl import (FLConfig, make_slab_round_runner,
                                  run_rounds_slab)
+from repro_torch.core.shard import (client_axes_of, gather_train_state,
+                                    linear_shard_index, n_client_shards,
+                                    shard_train_state)
 from repro_torch.core.slab import make_slab_spec
-from repro_torch.core.slab_state import init_train_state
+from repro_torch.core.slab_state import SlabTrainState, init_train_state
 from repro_torch.data import dirichlet_partition, token_stream
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import check_cards, parse_mesh, run_on_mesh
 from repro_torch.models.model import build_model
 
 CORPUS_TOKENS = 2_000_000
@@ -219,7 +237,8 @@ def build_parser() -> argparse.ArgumentParser:
 def refuse_unported(ap: argparse.ArgumentParser,
                     args: argparse.Namespace) -> None:
     """``ap.error`` for each flag that has no meaning in the port, naming
-    the reason or the ROADMAP item that brings it."""
+    the reason, and for the JAX CLI's sharded-only flags without
+    ``--backend pallas_sharded``."""
     if args.no_interpret:
         ap.error("--no-interpret: the port has no Pallas interpret mode; "
                  "the device decides (the CUDA kernels on the card, their "
@@ -233,15 +252,13 @@ def refuse_unported(ap: argparse.ArgumentParser,
         ap.error("--backend jnp: the port has no backend switch; the "
                  "device decides (the CUDA kernels on the card, their plain "
                  "versions under --device cpu), so --backend takes pallas")
-    if args.backend == "pallas_sharded":
-        ap.error("--backend pallas_sharded: the sharded engine is not "
-                 "ported yet (ROADMAP A12)")
-    if args.mesh is not None:
-        ap.error("--mesh: a client mesh belongs to the sharded engine, "
-                 "which is not ported yet (ROADMAP A12)")
-    if args.comm_buckets > 1:
-        ap.error("--comm-buckets > 1 buckets the sharded MAC collective, "
-                 "which is not ported yet (ROADMAP A12)")
+    if args.mesh is not None and args.backend != "pallas_sharded":
+        ap.error(f"--mesh only applies to --backend pallas_sharded "
+                 f"(got --backend {args.backend}); it would be silently "
+                 f"ignored on a single-device backend")
+    if args.comm_buckets > 1 and args.backend != "pallas_sharded":
+        ap.error("--comm-buckets > 1 buckets the sharded MAC collective; "
+                 f"it needs --backend pallas_sharded (got {args.backend})")
 
 
 def client_corpus(vocab: int, seq: int, n_clients: int, batch: int,
@@ -310,7 +327,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
         if args.track_alpha:
             ap.error("--track-alpha conflicts with a fixed --alpha-opt "
                      f"{alpha_opt}; drop one of the two")
-    track = alpha_opt == "auto"
     if args.error_feedback and args.uplink == "f32":
         ap.error("--error-feedback needs a quantized uplink "
                  "(--uplink int8 or sign); the f32 payload has no residual")
@@ -321,12 +337,63 @@ def main(argv: Optional[List[str]] = None) -> dict:
         ap.error("--double-buffer pipelines the streamed client scan; "
                  "it needs --client-chunk")
 
+    if args.backend != "pallas_sharded":
+        return _train(args, alpha_opt)
+    try:
+        mesh_shape = parse_mesh(args.mesh or "2")
+    except ValueError:
+        ap.error(f"--mesh must be comma-separated positive ints "
+                 f"(e.g. '2' or '4,2'), got {args.mesh!r}")
+    try:
+        check_cards(math.prod(mesh_shape),
+                    torch.device(args.device or "cuda").type)
+    except ValueError as e:
+        ap.error(f"--mesh {args.mesh or '2'}: {e}")
+    out = run_on_mesh(_train_rank, mesh_shape, args.device,
+                      args=(args, alpha_opt))
+    if isinstance(out["state"], dict):       # from a worker process
+        out["state"] = _state_from_numpy(out["state"])
+    return out
+
+
+def _state_to_numpy(state: SlabTrainState) -> dict:
+    return {"step": state.step.cpu().numpy(), "w": state.w.cpu().numpy(),
+            "opt": [o.cpu().numpy() for o in state.opt],
+            "alpha_hat": state.alpha_hat.cpu().numpy(), "spec": state.spec,
+            "ef": None if state.ef is None else state.ef.cpu().numpy()}
+
+
+def _state_from_numpy(d: dict) -> SlabTrainState:
+    return SlabTrainState(
+        torch.from_numpy(d["step"]), torch.from_numpy(d["w"]),
+        tuple(torch.from_numpy(o) for o in d["opt"]),
+        torch.from_numpy(d["alpha_hat"]), d["spec"],
+        None if d["ef"] is None else torch.from_numpy(d["ef"]))
+
+
+def _train_rank(mesh, args: argparse.Namespace, alpha_opt) -> dict:
+    """Worker entry point of ``--backend pallas_sharded``: the run on
+    this rank of ``mesh`` (rank 0's result is the caller's; a worker
+    process's state comes back as numpy)."""
+    out = _train(args, alpha_opt, mesh)
+    if dist.get_world_size() > 1:
+        out["state"] = _state_to_numpy(out["state"])
+    return out
+
+
+def _train(args: argparse.Namespace, alpha_opt, mesh=None) -> dict:
+    """The run: on this process's device, or on this rank of ``mesh``
+    (the sharded engine; every rank runs it, rank 0 prints and writes).
+    Returns the history, the final (gathered) state and the seconds."""
+    track = alpha_opt == "auto"
+    rank0 = mesh is None or dist.get_rank() == 0
+    say = print if rank0 else (lambda *a, **k: None)
     dev = resolve_device(args.device)
     cfg = preset_config(args.arch, args.preset)
     model = build_model(cfg)
-    print(f"arch={cfg.arch} params={cfg.n_params()/1e6:.1f}M "
-          f"vocab={cfg.vocab} clients={args.clients} "
-          f"alpha={args.alpha} alpha_opt={alpha_opt}")
+    say(f"arch={cfg.arch} params={cfg.n_params()/1e6:.1f}M "
+        f"vocab={cfg.vocab} clients={args.clients} "
+        f"alpha={args.alpha} alpha_opt={alpha_opt}")
 
     toks, starts_all, parts = client_corpus(cfg.vocab, args.seq,
                                             args.clients, args.batch,
@@ -340,19 +407,27 @@ def main(argv: Optional[List[str]] = None) -> dict:
                               error_feedback=args.error_feedback,
                               sign_pack=args.sign_pack,
                               sr_inkernel=args.sr_inkernel),
-                          downlink=args.downlink)
+                          downlink=args.downlink,
+                          comm_buckets=args.comm_buckets)
     ad = AdaptiveConfig(optimizer=args.optimizer, lr=args.lr,
                         alpha=alpha_opt, beta2=0.3)
+    n_shards, shard_index = 1, None
+    if mesh is not None:
+        n_shards = n_client_shards(mesh)
+        shard_index = linear_shard_index(mesh, client_axes_of(mesh))
+        shape = {a: mesh.size(i) for i, a in enumerate(mesh.mesh_dim_names)}
+        say(f"client mesh {shape} ({dist.get_world_size()} devices visible)")
     weights = None
     if args.client_weights == "datasize":
         weights = tuple(float(len(p)) for p in parts)
     fl = FLConfig(n_clients=args.clients, client_chunk=args.client_chunk,
                   sample_rate=args.sample_rate, client_weights=weights,
                   double_buffer=args.double_buffer)
-    run_chunk = make_slab_round_runner(model.loss_fn, ch, ad, fl,
-                                       device=dev)
+    run_chunk = make_slab_round_runner(
+        model.loss_fn, ch, ad, fl, device=dev,
+        backend=None if mesh is None else "pallas_sharded", mesh=mesh)
     params = model.init(args.seed, dev)
-    spec = make_slab_spec(params)
+    spec = make_slab_spec(params, shards=n_shards)
     state = init_train_state(ad, params, spec=spec,
                              error_feedback=args.error_feedback, device=dev)
     del params   # resident from here on; pytrees only at boundaries
@@ -361,32 +436,38 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if args.resume:
         latest = ckpt.latest_round(args.ckpt_dir)
         if latest is None:
-            print(f"no checkpoint under {args.ckpt_dir}; starting fresh")
+            say(f"no checkpoint under {args.ckpt_dir}; starting fresh")
         else:
             state, _ = ckpt.load_slab_state(latest, spec, device=dev)
             start_round = int(state.step)
-            print(f"resumed from {latest} at round {start_round}")
+            say(f"resumed from {latest} at round {start_round}")
             # Reconcile the EF slab with this run's flags: a pre-EF (or
             # EF-off) checkpoint resumed WITH --error-feedback starts
             # the residual loop fresh (zeros); an EF checkpoint resumed
             # WITHOUT the flag drops the carried residual.
             if args.error_feedback and state.ef is None:
-                print("checkpoint carries no error-feedback residual; "
-                      "starting the EF loop from zeros")
+                say("checkpoint carries no error-feedback residual; "
+                    "starting the EF loop from zeros")
                 state = dataclasses.replace(
                     state, ef=torch.zeros((spec.shards, spec.padded),
                                           dtype=torch.float32, device=dev))
             elif not args.error_feedback and state.ef is not None:
-                print("checkpoint carries an error-feedback residual but "
-                      "--error-feedback is off; dropping it")
+                say("checkpoint carries an error-feedback residual but "
+                    "--error-feedback is off; dropping it")
                 state = dataclasses.replace(state, ef=None)
+    if mesh is not None:
+        state = shard_train_state(state, mesh)
 
     draws = TorchDraws(ch, spec, args.clients, seed=args.seed + 1,
-                       device=dev, sample_rate=args.sample_rate)
+                       device=dev, sample_rate=args.sample_rate,
+                       shard_index=shard_index)
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+    def full(st):
+        return st if mesh is None else gather_train_state(st, mesh)
 
     sync()
     t0 = time.time()
@@ -398,24 +479,27 @@ def main(argv: Optional[List[str]] = None) -> dict:
             rec = history[-1]
             dt = time.time() - t0
             a_col = (f"  a^ {rec['alpha_hat']:.3f}" if track else "")
-            print(f"round {t:5d}  loss {rec['loss']:.4f}  "
-                  f"|g| {rec['grad_norm']:.3e}{a_col}  "
-                  f"({dt / (t - start_round):.2f}s/round)", flush=True)
+            say(f"round {t:5d}  loss {rec['loss']:.4f}  "
+                f"|g| {rec['grad_norm']:.3e}{a_col}  "
+                f"({dt / (t - start_round):.2f}s/round)", flush=True)
         if args.ckpt_dir and args.ckpt_every and t % args.ckpt_every == 0:
-            ckpt.save_slab_state(os.path.join(args.ckpt_dir,
-                                              f"round_{t}.npz"), st,
-                                 blocking=not args.ckpt_async)
+            st = full(st)            # a collective: every rank gathers
+            if rank0:
+                ckpt.save_slab_state(os.path.join(args.ckpt_dir,
+                                                  f"round_{t}.npz"), st,
+                                     blocking=not args.ckpt_async)
 
     state, history = run_rounds_slab(
         run_chunk, state, draws, batch_fn, args.rounds,
         chunk=args.scan_rounds, start_round=start_round,
-        chunk_hook=chunk_hook,
+        chunk_hook=chunk_hook, log=say,
         align=(args.log_every, args.ckpt_every if args.ckpt_dir else 0))
     sync()
     seconds = time.time() - t0
-    if args.ckpt_async:
+    state = full(state)
+    if args.ckpt_async and rank0:
         ckpt.wait_for_async_saves()
-    if args.history_out:
+    if args.history_out and rank0:
         os.makedirs(os.path.dirname(os.path.abspath(args.history_out)),
                     exist_ok=True)
         with open(args.history_out, "w") as f:
@@ -423,11 +507,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
     if history:
         a_col = (f"  alpha_hat {history[-1]['alpha_hat']:.4f} "
                  f"(true {args.alpha})" if track else "")
-        print(f"done: final loss {history[-1]['loss']:.4f} "
-              f"(started {history[0]['loss']:.4f}){a_col}")
+        say(f"done: final loss {history[-1]['loss']:.4f} "
+            f"(started {history[0]['loss']:.4f}){a_col}")
     else:
-        print(f"done: nothing to do (resumed at round {start_round} "
-              f">= --rounds {args.rounds})")
+        say(f"done: nothing to do (resumed at round {start_round} "
+            f">= --rounds {args.rounds})")
     return {"history": history, "state": state, "seconds": seconds}
 
 

@@ -67,10 +67,13 @@ def jax_configs(ch, ad, fl, backend="pallas"):
             JFLConfig(**dataclasses.asdict(fl)))
 
 
-def ref_draws(key, ch, jspec, n: int, sample_rate: float = 1.0
-              ) -> RoundDraws:
+def ref_draws(key, ch, jspec, n: int, sample_rate: float = 1.0,
+              shard_index=None) -> RoundDraws:
     """The draws the JAX round makes from ``key``, as tensors; the wire's
-    fields and the participation mask only for a config that uses them."""
+    fields and the participation mask only for a config that uses them.
+    ``shard_index=p`` makes a rank's draws for the sharded engine:
+    transmitter p's rounding rows ``uplink_sr_slab_inputs(key, jspec,
+    p)`` (row 0 ``r_up``, row 1 ``r_clean``) and ``shard=p``."""
     kh, kx = jax.random.split(key)
     h = sample_fading(kh, jax_channel_config(ch), (n,))
     if ch.interference:
@@ -78,9 +81,12 @@ def ref_draws(key, ch, jspec, n: int, sample_rate: float = 1.0
     else:
         u = jnp.zeros((jspec.padded,), jnp.float32)
         e = jnp.ones((jspec.padded,), jnp.float32)
-    r_up = r_dl = None
+    r_up = r_dl = r_clean = None
     if ch.uplink.mode == "int8" and ch.uplink.stochastic_rounding:
-        r_up = uplink_sr_slab_inputs(key, jspec)[0]
+        rows = uplink_sr_slab_inputs(key, jspec, shard_index or 0)
+        r_up = rows[0]
+        if shard_index is not None:
+            r_clean = rows[1]
     if ch.downlink == "int8":
         r_dl = downlink_sr_slab_inputs(key, jspec.padded)
 
@@ -89,7 +95,8 @@ def ref_draws(key, ch, jspec, n: int, sample_rate: float = 1.0
 
     mask = (participation_mask(key, n, sample_rate) if sample_rate < 1.0
             else None)
-    return RoundDraws(t(h), t(u), t(e), t(r_up), t(r_dl), mask=t(mask))
+    return RoundDraws(t(h), t(u), t(e), t(r_up), t(r_dl), mask=t(mask),
+                      r_clean=t(r_clean), shard=shard_index)
 
 
 def to_np(x) -> np.ndarray:

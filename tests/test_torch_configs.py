@@ -182,22 +182,26 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(name, monkeypatch):
         entry()                           # the default is the card
 
 
-# Explicit ids: each case keeps its name as entries come and go.
+# Explicit ids: each case keeps its name as entries come and go. The
+# sharded engine (ROADMAP A12) is ported: its options are refused only
+# without a mesh.
 REFUSED = [
-    pytest.param("A12", dict(ch=dict(comm_buckets=2)), id="A12-ch-3"),
-    pytest.param("A12", dict(backend="pallas_sharded"), id="A12-backend-9"),
+    pytest.param("comm_buckets > 1 buckets the sharded MAC collective",
+                 dict(ch=dict(comm_buckets=2)), id="A12-ch-3"),
+    pytest.param('backend="pallas_sharded" needs a mesh',
+                 dict(backend="pallas_sharded"), id="A12-backend-9"),
 ]
 
 
-@pytest.mark.parametrize("item,kw", REFUSED)
-def test_uncovered_configs_raise_not_implemented(item, kw):
+@pytest.mark.parametrize("match,kw", REFUSED)
+def test_sharded_options_without_a_mesh_are_refused(match, kw):
     model = tvision.logistic_regression(4, 3)
     ch = tchannel.OTAChannelConfig(**kw.get("ch", {}))
     ad = tadaptive.AdaptiveConfig(**kw.get("ad", {}))
     fl = tfl.FLConfig(n_clients=2, **kw.get("fl", {}))
     extra = {k: v for k, v in kw.items() if k in ("backend", "batch_gen")}
     for make in (tfl.make_slab_round_step, tfl.make_slab_round_runner):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+        with pytest.raises(ValueError, match=match):
             make(model.loss_fn, ch, ad, fl, device="cpu", **extra)
 
 

@@ -397,9 +397,14 @@ def test_receive_statistics_are_one_launch_and_the_same_bits(cuda, packed):
     block folds the blocks' rows: no second launch), its statistics the
     same bits in two runs, within 1e-5 of the plain version with the
     count exact, and the ticket counter back at 0; the grid is resident
-    on the card in one wave."""
+    on the card in one wave.
+
+    The kernels are counted in the active step of a profiler schedule
+    with one warm-up step, CPU and CUDA activities on: the warm-up step
+    sets up CUPTI's activity tracing, whose first kernel records a
+    capture of one step with CUDA activity alone could miss."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.kernels.ota_channel import _PACKED, _TILE_COUNTERS
     d = 175104
@@ -416,11 +421,20 @@ def test_receive_statistics_are_one_launch_and_the_same_bits(cuda, packed):
     kw = dict(alpha=1.5, scale=0.1, packed=packed, pilot_stats=True)
     first = ota_receive_slab(payload, s, u, e, **kw)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        again = ota_receive_slab(payload, s, u, e, **kw)
-        torch.cuda.synchronize()
-    kernels = [ev.key for ev in prof.key_averages()
+    traces = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traces.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            again = ota_receive_slab(payload, s, u, e, **kw)
+            torch.cuda.synchronize()
+            prof.step()
+    assert len(traces) == 1
+    # the step's own annotation shows on the card's timeline too
+    kernels = [ev.key for ev in traces[0]
                if ev.device_type == DeviceType.CUDA
+               and not ev.key.startswith("ProfilerStep")
                for _ in range(ev.count)]
     assert len(kernels) == 1 and "ota_receive_kernel" in kernels[0], kernels
     assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
@@ -458,8 +472,10 @@ def test_receive_kernel_matches_plain(cuda, d, rows, packed, pilot_stats):
         kw = dict(alpha=alpha, scale=0.1, packed=packed,
                   pilot_stats=pilot_stats)
         n0 = ota_receive_slab.launches
+        s0 = ota_receive_slab.stats_launches
         got = ota_receive_slab(payload, s, u, e, **kw)
         assert ota_receive_slab.launches == n0 + 1
+        assert ota_receive_slab.stats_launches == s0 + int(pilot_stats)
         want = ota_receive_ref(payload, s, u, e, **kw)
         torch.cuda.synchronize()
         if pilot_stats:
@@ -1064,3 +1080,74 @@ def test_lm_training_round_on_the_card_matches_the_cpu(cuda, arch):
                                rtol=1e-5)
     for a, b in zip(tree_flatten(g_card)[0], tree_flatten(g_cpu)[0]):
         _close(a.cpu(), b, 1e-5)
+
+
+SHARD_WIRES = [
+    ("f32", dict(), 1.5),
+    ("int8-ef-dl8-auto", dict(uplink=UplinkConfig(mode="int8",
+                                                  error_feedback=True),
+                              downlink="int8"), "auto"),
+    ("sign-fold-ef", dict(uplink=UplinkConfig(mode="sign",
+                                              error_feedback=True)), 1.5),
+]
+
+
+@pytest.mark.parametrize("name,chkw,alpha", SHARD_WIRES,
+                         ids=[w[0] for w in SHARD_WIRES])
+def test_one_rank_nccl_mesh_matches_the_resident_round(cuda, name, chkw,
+                                                       alpha):
+    """The sharded engine on the (1,)-mesh over NCCL (one rank in this
+    process) against the resident round on the card, 3 rounds on the
+    same draws: f32 within 1e-5 (B3a, a reduce-scatter and plain CMS
+    against B2's one pass), the quantized state bitwise (the same
+    transmit on the same draws); one B3a (or two B3c and two B4) and one
+    B1 launch a round, no B2."""
+    from repro_torch.core.fl import make_slab_round_runner
+    from repro_torch.core.shard import gather_train_state, shard_train_state
+    from repro_torch.launch.mesh import run_on_mesh
+
+    d, c, n, b = 16, 4, 8, 6
+    model = logistic_regression(d, c)
+    rng = np.random.default_rng(1)
+    params = {"w": torch.from_numpy(0.1 * rng.normal(size=(d, c)).astype(
+        np.float32)).to(cuda), "b": torch.zeros(c, device=cuda)}
+    ch = OTAChannelConfig(**chkw)
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.05, alpha=alpha)
+    fl = FLConfig(n_clients=n)
+    ef = ch.uplink.error_feedback
+    state = init_train_state(ad, params, error_feedback=ef, device=cuda)
+    batches = {"x": rng.normal(size=(3, n, b, d)).astype(np.float32),
+               "y": rng.integers(0, c, (3, n, b)).astype(np.int64)}
+    plain = TorchDraws(ch, state.spec, n, seed=2, device=cuda)
+    mine = TorchDraws(ch, state.spec, n, seed=2, device=cuda, shard_index=0)
+    want, _ = make_slab_round_runner(model.loss_fn, ch, ad, fl, device=cuda)(
+        state, [plain(t) for t in range(3)], batches)
+
+    def sharded(mesh):
+        run = make_slab_round_runner(model.loss_fn, ch, ad, fl, device=cuda,
+                                     backend="pallas_sharded", mesh=mesh)
+        counts = (ota_channel_slab.launches, ota_transmit_slab.launches,
+                  ota_receive_slab.launches,
+                  ota_transmit_slab.nocarry_launches,
+                  adaptive_update_slab.launches)
+        got, _ = run(shard_train_state(state, mesh),
+                     [mine(t) for t in range(3)], batches)
+        got = gather_train_state(got, mesh)
+        torch.cuda.synchronize()
+        after = (ota_channel_slab.launches, ota_transmit_slab.launches,
+                 ota_receive_slab.launches,
+                 ota_transmit_slab.nocarry_launches,
+                 adaptive_update_slab.launches)
+        return got, tuple(a - b for a, b in zip(after, counts))
+
+    got, launched = run_on_mesh(sharded, (1,), cuda)
+    per_round = (0, 0, 0, 1, 1) if name == "f32" else (0, 2, 2, 0, 1)
+    assert launched == tuple(3 * k for k in per_round)
+    for x, y in zip([got.w, *got.opt, got.alpha_hat],
+                    [want.w, *want.opt, want.alpha_hat]):
+        if name == "f32":
+            _close(x, y, 1e-5)
+        else:
+            assert torch.equal(x, y)
+    if ef:
+        assert torch.equal(got.ef, want.ef)

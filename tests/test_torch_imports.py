@@ -31,6 +31,8 @@ from repro_torch.kernels.ota_channel import (ota_receive_slab,
 assert adaptive_update_slab.launches == ota_channel_slab.launches == 0
 assert ota_transmit_slab.launches == ota_receive_slab.launches == 0
 assert ota_transmit_slab.stream_launches == 0
+assert ota_transmit_slab.nocarry_launches == 0
+assert ota_receive_slab.stats_launches == 0
 from repro_torch.kernels.flash_attention import flash_attention
 assert flash_attention.launches == 0
 assert flash_attention.hopper_launches == flash_attention.scalar_launches == 0
@@ -46,7 +48,8 @@ def test_module_list_covers_the_package():
     for name in ("kernels.flash_attention", "kernels.ops", "configs",
                  "configs.qwen3_14b", "configs.starcoder2_15b",
                  "models.layers", "models.attention", "models.transformer",
-                 "models.model", "launch.serve", "launch.train"):
+                 "models.model", "launch.serve", "launch.train",
+                 "core.shard", "launch.mesh", "launch.shard_check"):
         assert f"repro_torch.{name}" in MODULES
     assert len(MODULES) >= 40
 

@@ -408,8 +408,10 @@ def test_refusals_are_jax_value_errors(case):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(backend="pallas_sharded"), NotImplementedError, "A12"),
-    (dict(mesh=object()), NotImplementedError, "A12"),
+    (dict(backend="pallas_sharded"), ValueError, "needs a mesh"),
+    (dict(mesh=object()), ValueError, "mesh= was given but the backend"),
+    (dict(backend="pallas_sharded", mesh=object()), ValueError,
+     "DeviceMesh over an initialised process group"),
     (dict(backend="pallas"), ValueError, "the device decides"),
     (dict(backend="jnp"), ValueError, "the device decides"),
 ])

@@ -421,12 +421,19 @@ def test_streamed_round_refusals():
     with pytest.raises(ValueError, match="streamed round config"):
         make_slab_round_runner(model.loss_fn, ch, ad, FLConfig(n_clients=N),
                                device="cpu", batch_gen=lambda d, i: None)
-    for fl, kw, item in (
-            (stream_fl, dict(backend="pallas_sharded"), "A12"),
-            (FLConfig(n_clients=N, sample_rate=0.5), {}, "A12")):
+    # the sharded engine's options without its mesh
+    for fl, kw, match in (
+            (stream_fl, dict(backend="pallas_sharded"), "needs a mesh"),
+            (FLConfig(n_clients=N, sample_rate=0.5), {},
+             "comm_buckets > 1 buckets the sharded MAC collective")):
         c = ch if kw else OTAChannelConfig(comm_buckets=2)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP item {item}"):
+        with pytest.raises(ValueError, match=match):
             make_slab_round_step(model.loss_fn, c, ad, fl, device="cpu", **kw)
+    with pytest.raises(ValueError, match="only supported by the streamed "
+                                         "single-device backends"):
+        make_slab_round_step(model.loss_fn, ch, ad, stream_fl, device="cpu",
+                             backend="pallas_sharded", mesh=object(),
+                             batch_gen=lambda d, i: None)
     state = init_train_state(ad, model.init(device="cpu"), device="cpu")
     provider = TorchDraws(ch, state.spec, N, device="cpu")
     step = make_slab_round_step(model.loss_fn, ch, ad, stream_fl,

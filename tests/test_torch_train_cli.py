@@ -5,7 +5,7 @@ The JAX CLI builds its parser and its batch function inside ``main``;
 the tests reach them by stopping its ``main`` at ``parse_args`` and at
 ``run_rounds_slab``. Held: the flags, defaults, choices and help texts
 (all but ``--device``, which the port adds, and ``--backend``, whose
-default is ``pallas``, the one backend the port accepts); each refusal
+default is ``pallas``, the port's single-device engine); each refusal
 and its reason; the printed lines of a tiny run (the same lines, the
 numbers aside: the two packages draw other random weights); the token
 batches, bitwise; ``n_params`` of every dense arch at each preset; a
@@ -96,11 +96,14 @@ REFUSALS = {
     "no-donate": (["--no-donate"], "no XLA buffer donation"),
     "donation-report": (["--donation-report"], "no XLA buffer donation"),
     "backend jnp": (["--backend", "jnp"], "no backend switch"),
+    # the default mesh (2) on the card: one rank a card, and this
+    # machine has fewer
     "backend pallas_sharded": (["--backend", "pallas_sharded"],
-                               r"ROADMAP A12"),
-    "mesh": (["--mesh", "2"], r"ROADMAP A12"),
-    "comm-buckets": (["--comm-buckets", "2"], r"ROADMAP A12"),
+                               r"needs 2 cards.*--mesh 1"),
     # the JAX CLI's own refusals, kept
+    "mesh": (["--mesh", "2"], "only applies to --backend pallas_sharded"),
+    "comm-buckets": (["--comm-buckets", "2"],
+                     "needs --backend pallas_sharded"),
     "resume": (["--resume"], "--resume needs --ckpt-dir"),
     "scan-rounds": (["--scan-rounds", "0"], "must be >= 1"),
     "comm-buckets 0": (["--comm-buckets", "0"], "must be >= 1"),
