@@ -152,6 +152,22 @@ Phases, each printing its own line(s) before the last line:
    quoted) through make_slab_round_runner(model.loss_fn)
    + run_rounds_slab, the calls the CLI makes: the same launch counts,
    ms a round, tokens per second and peak memory;
+14g. (after 14d) the moe and mla families trained: the training CLI at
+   --preset tiny for qwen3-moe-235b-a22b, kimi-k2-1t-a32b and
+   minicpm3-4b (its defaults otherwise: 8 clients x batch 2 x seq 128,
+   adam_ota), 4 rounds on the f32 wire and 4 on int8 + EF, every counter
+   (B5's among them) set to 0 before and read after each run: one B2
+   and one B1 a f32 round, one B3c, one B4 and one B1 an int8 round, no
+   B5 launch; the losses finite;
+14h. run (c): MiniCPM3-4B's full width (MLA) at depth 8 (877,455,872
+   parameters, a 3.51 GB f32 slab), as 14d: 4 clients x batch 2 x seq
+   128, 4 rounds on the f32 wire and 4 on int8 + EF through
+   make_slab_round_runner(model.loss_fn) + run_rounds_slab, launches
+   counted, ms a round, tokens per second and peak memory;
+14i. examples/alpha_mismatch_torch.py on the card: AdaGrad-OTA on a
+   true-alpha 1.2 channel, matched, alpha 2.0 and alpha="auto", 80
+   rounds each (one B2 and one B1 a round, counted); the tracked
+   alpha_hat within 0.1 of 1.2, the example's verdict line printed;
 14e. the sharded engine (core/shard.py) on the (1,)-mesh: one rank in
    this process, NCCL on a HashStore. ResNet-tiny at full width, 5
    rounds of adam_ota on f32, int8 + EF + int8 downlink + alpha "auto",
@@ -174,39 +190,57 @@ Phases, each printing its own line(s) before the last line:
 15. kernel flash_attention against its plain version: the six
    FLASH_CASES of tests/test_kernels.py in f32 and bf16, then the
    prefill shapes of Qwen3-14B (1 x 4096, 40 heads, 8 kv heads, D 128,
-   causal) and StarCoder2-15B (1 x 6144, 48 heads, 4 kv heads, D 128,
-   causal, window 4096), then two cases with query rows that see no key,
+   causal), StarCoder2-15B (1 x 6144, 48 heads, 4 kv heads, D 128,
+   causal, window 4096), Qwen3-MoE-235B-A22B (1 x 4096, 64 heads, 4 kv
+   heads, D 128, causal) and Kimi-K2 (1 x 4096, 64 heads, 8 kv heads,
+   D 112, causal: the scalar variant in bf16), then two cases with query
+   rows that see no key,
    each in f32 and bf16 through the variant the wrapper picks (printed,
    and checked against flash_variant): the Hopper kernel (bf16, D 64 or
    128) per element at 2^-7 |ref| + 2^-8 attn(q, k, |v|) + 2e-5, the
    scalar one at 2e-5 in f32 and 2^-7 |ref| + 2e-5 in bf16; before any
    language model is on the card;
 15b. the kernels at the LM runs' shapes against their plain versions:
-   B1 (adam) at d = 62,928,640 and 987,833,344; B2 at 8 x 62,928,640,
-   1 x 62,928,640 (the streamed finish) and 4 x 987,833,344; B3b at 4 x
-   62,928,640 with a carry; B3c int8 + EF at 8 x 62,928,640 and 4 x
-   987,833,344, folded sign + EF at 8 x 62,928,640; B4 at 1 x 62,928,640
-   (int8 with and without statistics, folded sign) and 1 x 987,833,344
-   (int8), at
+   B1 (adam) at d = 62,928,640, 987,833,344 and 877,455,872; B2 at 8 x
+   62,928,640, 1 x 62,928,640 (the streamed finish), 4 x 987,833,344 and
+   4 x 877,455,872; B3b at 4 x 62,928,640 with a carry; B3c int8 + EF
+   at 8 x 62,928,640, 4 x 987,833,344 and 4 x 877,455,872, folded sign +
+   EF at 8 x 62,928,640; B4 at 1 x 62,928,640 (int8 with and without
+   statistics, folded sign), 1 x 987,833,344 and 1 x 877,455,872 (int8),
+   at
    the tiers of phases 3-6 and 10;
 16. serve qwen3-14b: full width and depth (40 layers, 14.8 B parameters,
    bf16, random from seed 0) through repro_torch.launch.serve.generate,
    greedy: (a) the serve CLI's defaults, batch 4 x prompt 64, 32 tokens;
    (b) batch 1 x prompt 4096, 8 tokens. Each shape runs cold (its
    first run), then warm (the timed run), with the same ids; the flash
-   counters are set to 0 before and read after each run: one launch per
-   layer in the prefill, all of the Hopper variant, and none in decode;
-   logits finite; then one prefill and one decode step under
-   torch.profiler, each printed with its own host-clock time and the
-   card's busy and idle shares;
+   counters are set to 0 before and read after each run, by variant: one
+   launch per layer in the prefill, of the variant flash_variant picks
+   (here Hopper), and none in decode; logits finite; then one prefill and
+   one decode step under torch.profiler, each printed with its own
+   host-clock time and the card's busy and idle shares;
 17. serve starcoder2-15b: full width (40 layers, 16.0 B parameters),
    batch 1 x prompt 6144 (past the 4096 window: the ring cache and the
    window mask both run), 8 tokens, the same checks;
-18. reference serve: the qwen3 and starcoder2 smoke configs in f32 on the
+17b. serve qwen3-moe-235b-a22b at full width, 12 of 94 layers (31.1 B
+   parameters, 62.2 GB), 4 x 64 -> 32 and 1 x 4096 -> 8, the same
+   checks (12 Hopper launches a prefill); first its expert product (bf16
+   operands, f32 result: cuBLAS with an f32 output) against the f32
+   product at the 1 x 4096 prefill's dispatch shape; batch-4 decode runs
+   at capacity 1 (the JAX package's rule: a second token routed to an
+   expert is dropped);
+17c. serve kimi-k2-1t-a32b at full width, 1 of 61 layers (19.4 B
+   parameters, 38.8 GB; 384 experts and a shared one), 1 x 4096 -> 8, the
+   same checks (1 scalar launch a prefill: head_dim 112);
+17d. serve minicpm3-4b at full width and depth (62 layers, 4.26 B
+   parameters, MLA), 4 x 64 -> 32 and 1 x 4096 -> 8, the same checks with
+   no flash launch (MLA attention is plain torch);
+18. reference serve: the smoke configs of qwen3-14b, starcoder2-15b,
+   qwen3-moe-235b-a22b, kimi-k2-1t-a32b and minicpm3-4b in f32 on the
    card against the same parameters on the CPU (plain versions):
    prefill logits, caches and 8 greedy ids; the f32 path of the scalar
-   flash kernel, one launch a layer in each prefill, none of the Hopper
-   one;
+   flash kernel, one launch a layer in each prefill (none in minicpm3's),
+   none of the Hopper one;
 19. times: the launch floor (a near-empty launch, timed as the kernels
    are); then CUDA events, first at the LM runs' shapes (those of 15b,
    torch.addmv beside B3b), then B3a at the shapes of 10b beside its
@@ -222,9 +256,10 @@ Phases, each printing its own line(s) before the last line:
    and the launch floor (and, where one
    PyTorch call computes the same function, that call: torch.addmv for
    the accumulating transmit, scaled_dot_product_attention for flash
-   attention: the Hopper variant at both prefill shapes in bf16, with its
-   TFLOP/s and its ratio to scaled_dot_product_attention, and the scalar
-   one at Qwen3-14B's in f32); the accumulating transmit's S, and at the
+   attention: the variant flash_variant picks at each of the four
+   prefill shapes in bf16, with its TFLOP/s and its ratio to
+   scaled_dot_product_attention, and the scalar one at Qwen3-14B's in
+   f32); the accumulating transmit's S, and at the
    million-client chunk the same kernel on the same grid without a fold,
    to show what the fold costs;
 then one JSON line listing the kernels (and the launch floor), and the
@@ -280,12 +315,23 @@ FLASH_CASES = [
 FLASH_MODEL_SHAPES = {
     "qwen3-14b": (1, 4096, 4096, 40, 8, 128, True, None),
     "starcoder2-15b": (1, 6144, 6144, 48, 4, 128, True, 4096),
+    "qwen3-moe-235b-a22b": (1, 4096, 4096, 64, 4, 128, True, None),
+    "kimi-k2-1t-a32b": (1, 4096, 4096, 64, 8, 112, True, None),
 }
 # serve runs: (name, arch, batch, prompt, tokens generated)
 SERVE_RUNS = (("qwen3-14b a", "qwen3-14b", 4, 64, 32),
               ("qwen3-14b b", "qwen3-14b", 1, 4096, 8),
-              ("starcoder2-15b", "starcoder2-15b", 1, 6144, 8))
+              ("starcoder2-15b", "starcoder2-15b", 1, 6144, 8),
+              ("qwen3-moe a", "qwen3-moe-235b-a22b", 4, 64, 32),
+              ("qwen3-moe b", "qwen3-moe-235b-a22b", 1, 4096, 8),
+              ("kimi-k2", "kimi-k2-1t-a32b", 1, 4096, 8),
+              ("minicpm3 a", "minicpm3-4b", 4, 64, 32),
+              ("minicpm3 b", "minicpm3-4b", 1, 4096, 8))
 SERVE_PRESET = "full"
+# Depth cuts of the served configs at full width (bf16 weights on one
+# 80 GB card): Qwen3-MoE 12 of 94 layers (62.2 GB), Kimi-K2 1 of 61
+# (38.8 GB); the dense ones and MiniCPM3 at full depth.
+SERVE_LAYERS = {"qwen3-moe-235b-a22b": 12, "kimi-k2-1t-a32b": 1}
 FLASH = "flash_attention"
 # Query rows that see no key (a window, Sq > Sk + window - 1): each
 # variant must give them the plain version's mean of v over all keys.
@@ -1947,6 +1993,12 @@ LM_RUNS = (
 )
 WIDTH_ARCH, WIDTH_PARAMS = "starcoder2-15b", 987_833_344
 D_WIDTH = 987_833_344         # its slab (a multiple of 128 already)
+# run (c): MiniCPM3-4B's full width (MLA) with its depth cut to 8 layers
+C_ARCH, C_PARAMS = "minicpm3-4b", 877_455_872
+D_C = 877_455_872             # its slab (a multiple of 128 already)
+# run: (its tag, layers, parameters, slab)
+WIDTH_CUTS = {WIDTH_ARCH: ("LM width", 1, WIDTH_PARAMS, D_WIDTH),
+              C_ARCH: ("LM run (c)", 8, C_PARAMS, D_C)}
 WIDTH_CLIENTS, WIDTH_ROUNDS = 4, 4
 # (name, uplink, error feedback, launches a round)
 WIDTH_RUNS = (("f32", "f32", False, {CHAN: 1, UPD: 1}),
@@ -2069,17 +2121,18 @@ def _profile_lm_round(torch, dev, what, arch, preset, state, n_clients):
                         start_round=t)))
 
 
-def phase_lm_width(torch, dev, counters):
-    """Phase 14d: StarCoder2-15B's width at depth 1 (d_model 6144, 48
-    heads / 4 kv, d_ff 24576, vocab 49,152; 987,833,344 parameters, a
-    3.95 GB f32 slab), WIDTH_CLIENTS clients x batch 2 x seq 128 of the
-    CLI's corpus, adam_ota as the CLI configures it, WIDTH_ROUNDS rounds
-    of each WIDTH_RUNS wire through make_slab_round_runner(model.loss_fn)
-    + run_rounds_slab (one round a chunk: a chunk's draws are 7.9 GB a
-    round), the counters set to 0 before and read after each run. The
-    int8 round peaks near 70 GB of the card's 80: main() turns on the
-    allocator's expandable segments, or the 4 GB slabs fragment the pool.
-    Returns the launches by run."""
+def phase_lm_width(torch, dev, counters, run=WIDTH_ARCH):
+    """Phases 14d and 14h: a language model at full width with its depth
+    cut (WIDTH_CUTS: run (b), StarCoder2-15B's width at depth 1, 987.8 M
+    parameters; run (c), MiniCPM3-4B's at depth 8, 877.5 M),
+    WIDTH_CLIENTS clients x batch 2 x seq 128 of the CLI's corpus,
+    adam_ota as the CLI configures it, WIDTH_ROUNDS rounds of each
+    WIDTH_RUNS wire through make_slab_round_runner(model.loss_fn) +
+    run_rounds_slab (one round a chunk: a chunk's draws are 7.9 GB a
+    round at run (b)'s slab), the counters set to 0 before and read after
+    each run. Run (b)'s int8 round peaks near 70 GB of the card's 80:
+    main() turns on the allocator's expandable segments, or the 4 GB
+    slabs fragment the default pool. Returns the launches by run."""
     import dataclasses
     import gc
 
@@ -2094,8 +2147,9 @@ def phase_lm_width(torch, dev, counters):
     from repro_torch.launch import train
     from repro_torch.models.model import build_model
 
-    cfg = dataclasses.replace(get_config(WIDTH_ARCH), n_layers=1)
-    check(cfg.n_params() == WIDTH_PARAMS, "the width run's parameter count")
+    tag, n_layers, n_params, d_slab = WIDTH_CUTS[run]
+    cfg = dataclasses.replace(get_config(run), n_layers=n_layers)
+    check(cfg.n_params() == n_params, f"{tag}: the parameter count")
     model = build_model(cfg)
     corpus = train.client_corpus(cfg.vocab, 128, WIDTH_CLIENTS, 2, 0.5, 0)
     batch_fn = train.make_batch_fn(*corpus, batch=2, seq=128, seed=0)
@@ -2110,37 +2164,39 @@ def phase_lm_width(torch, dev, counters):
         torch.cuda.empty_cache()
         # the state is the only copy of the parameters, and the runner's
         # argument is its only reference (the round's old and new state
-        # are 24 GB together; a third copy would not fit beside int8)
+        # are 24 GB together at run (b); a third copy would not fit
+        # beside int8)
         params = model.init(seed=0, device=dev)
         spec = make_slab_spec(params)
-        check(spec.padded == D_WIDTH, f"width slab {spec.padded}")
+        check(spec.padded == d_slab, f"{tag} slab {spec.padded}")
         box = [init_train_state(ad, params, spec=spec, error_feedback=ef,
                                 device=dev)]
         del params
         draws = TorchDraws(ch, spec, WIDTH_CLIENTS, seed=1, device=dev)
-        run = make_slab_round_runner(model.loss_fn, ch, ad, fl, device=dev)
+        runner = make_slab_round_runner(model.loss_fn, ch, ad, fl, device=dev)
         torch.cuda.reset_peak_memory_stats(dev)
         stamps = [time.perf_counter()]
         (state, hist), out[name] = _lm_counted(
-            torch, counters, per_round, WIDTH_ROUNDS, f"LM width {name}",
+            torch, counters, per_round, WIDTH_ROUNDS, f"{tag} {name}",
             lambda: run_rounds_slab(
-                run, box.pop(), draws, batch_fn, WIDTH_ROUNDS, chunk=1,
+                runner, box.pop(), draws, batch_fn, WIDTH_ROUNDS, chunk=1,
                 chunk_hook=lambda t, st, h: stamps.append(
                     time.perf_counter())))
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
         ms = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
         losses = [h["loss"] for h in hist]
         check(all(math.isfinite(x) for x in losses),
-              f"LM width {name}: losses {losses}")
+              f"{tag} {name}: losses {losses}")
         check(bool(torch.isfinite(state.w).all()) and int(state.step)
-              == WIDTH_ROUNDS, f"LM width {name}: w not finite")
+              == WIDTH_ROUNDS, f"{tag} {name}: w not finite")
         warm = statistics.median(ms[1:])
         if name == "f32":
-            _profile(torch, f"LM width {name}: one more round", lambda: (
-                run_rounds_slab(run, state, draws, batch_fn, WIDTH_ROUNDS + 1,
-                                chunk=1, start_round=WIDTH_ROUNDS)))
-        print(f"[LM width] {WIDTH_ARCH} width at depth 1 ({WIDTH_PARAMS:,} "
-              f"params, bf16; slab {D_WIDTH:,} f32 = {4 * D_WIDTH / 1e9:.2f} "
+            _profile(torch, f"{tag} {name}: one more round", lambda: (
+                run_rounds_slab(runner, state, draws, batch_fn,
+                                WIDTH_ROUNDS + 1, chunk=1,
+                                start_round=WIDTH_ROUNDS)))
+        print(f"[{tag}] {run} width at depth {n_layers} ({n_params:,} "
+              f"params, bf16; slab {d_slab:,} f32 = {4 * d_slab / 1e9:.2f} "
               f"GB), {WIDTH_CLIENTS} clients x batch 2 x seq 128, adam_ota, "
               f"{name}: losses " + " ".join(f"{x:.4f}" for x in losses)
               + "; ms a round " + " ".join(f"{x:.1f}" for x in ms)
@@ -2148,10 +2204,86 @@ def phase_lm_width(torch, dev, counters):
               f"{tokens * 1e3 / warm:.0f} tokens/s (host clock, "
               f"synchronized); peak memory {peak:.2f} GB; launches "
               f"{out[name]}, no {FLASH}; ok")
-        del state, draws, run, hist
+        del state, draws, runner, hist
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+FAMILY_ARCHS = ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "minicpm3-4b")
+FAMILY_ROUNDS = 4
+# (name, flags, launches a round of each kernel)
+FAMILY_RUNS = (("f32", [], {CHAN: 1, UPD: 1}),
+               ("int8-ef", ["--uplink", "int8", "--error-feedback"],
+                {TX: 1, RX: 1, UPD: 1}))
+
+
+def phase_families_train(torch, counters):
+    """Phase 14g: the training CLI (repro_torch.launch.train.main) at
+    --preset tiny for each FAMILY_ARCHS (the moe and mla families; the
+    CLI's defaults otherwise: 8 clients x batch 2 x seq 128, adam_ota,
+    lr 0.02), FAMILY_ROUNDS rounds on each FAMILY_RUNS wire, every
+    counter (B5's among them) set to 0 before and read after each run:
+    one B2 and one B1 a f32 round, one B3c, one B4 and one B1 an int8 +
+    EF round, no B5 launch; the losses finite. Returns the launches by
+    run."""
+    from repro_torch.launch import train
+
+    out = {}
+    for arch in FAMILY_ARCHS:
+        for name, flags, per_round in FAMILY_RUNS:
+            what = f"train {arch} tiny {name}"
+            r, out[what] = _lm_counted(
+                torch, counters, per_round, FAMILY_ROUNDS, what,
+                lambda: train.main(["--arch", arch, "--preset", "tiny",
+                                    "--rounds", str(FAMILY_ROUNDS),
+                                    "--log-every", str(FAMILY_ROUNDS)]
+                                   + flags))
+            losses = [h["loss"] for h in r["history"]]
+            check(len(losses) == FAMILY_ROUNDS
+                  and all(math.isfinite(x) for x in losses)
+                  and bool(torch.isfinite(r["state"].w).all()),
+                  f"{what}: losses {losses}")
+            print(f"[families train] {arch} --preset tiny, {name}: losses "
+                  + " ".join(f"{x:.4f}" for x in losses)
+                  + f"; {1e3 * r['seconds'] / FAMILY_ROUNDS:.2f} ms/round "
+                  f"(host clock); launches {out[what]}: "
+                  + ", ".join(f"{v} a round of {k}"
+                              for k, v in per_round.items())
+                  + f", no {FLASH}; ok")
+    return out
+
+
+ALPHA_ROUNDS = 80
+
+
+def phase_alpha_mismatch(torch, counters):
+    """Phase 14i: examples/alpha_mismatch_torch.py (the twin of the JAX
+    example, paper Remark 3) on the card: three AdaGrad-OTA trainings of
+    ALPHA_ROUNDS rounds on a true-alpha 1.2 channel (matched, alpha 2.0,
+    alpha="auto"), 20 clients, the counters set to 0 before and read
+    after (one B2 and one B1 a round); its lines printed, the tracked
+    alpha_hat within 0.1 of 1.2 (PERF.md section 2's tier). Returns the
+    launches."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "alpha_mismatch_torch", ROOT / "examples" / "alpha_mismatch_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    r, counts = _lm_counted(
+        torch, counters, {CHAN: 1, UPD: 1}, 3 * ALPHA_ROUNDS,
+        "alpha mismatch", lambda: example.main(["--rounds",
+                                                 str(ALPHA_ROUNDS)]))
+    err = abs(r["alpha_hat"] - example.TRUE_ALPHA)
+    check(err <= 0.1 and all(math.isfinite(r[k]) for k in
+                             ("matched", "mismatched", "tracked")),
+          f"alpha mismatch: alpha_hat {r['alpha_hat']}, losses {r}")
+    print(f"[alpha mismatch] 3 x {ALPHA_ROUNDS} rounds: tracked alpha_hat "
+          f"{r['alpha_hat']:.4f}, {err:.4f} from {example.TRUE_ALPHA} (tol "
+          f"0.1); the verdict line above says "
+          f"{'OK' if r['recovered'] else 'VIOLATED'}; launches {counts}; ok")
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -2597,11 +2729,12 @@ def phase_kernel_lm(torch, dev):
     """Every kernel of the LM runs against its plain version at the
     shapes those runs give it, the plain version a piece of columns at a
     time (``_pieces``; every kernel here is column-separable): B1 (adam,
-    alpha 1.5) at d = D_LM and D_WIDTH; B2 at 8 x D_LM, 1 x D_LM (the
-    streamed finish, n_total 1) and 4 x D_WIDTH; B3b at 4 x D_LM with a
-    carry; B3c at 8 x D_LM (int8 with host rounding + EF, folded sign +
-    EF) and 4 x D_WIDTH (int8 + EF); B4 at 1 x D_LM (int8 with and
-    without statistics, folded sign) and 1 x D_WIDTH (int8). Tiers as phases 3-6 and 10; B3c
+    alpha 1.5) at d = D_LM, D_WIDTH and D_C; B2 at 8 x D_LM, 1 x D_LM
+    (the streamed finish, n_total 1), 4 x D_WIDTH and 4 x D_C; B3b at
+    4 x D_LM with a carry; B3c at 8 x D_LM (int8 with host rounding + EF,
+    folded sign + EF), 4 x D_WIDTH and 4 x D_C (int8 + EF); B4 at 1 x D_LM
+    (int8 with and without statistics, folded sign), 1 x D_WIDTH and
+    1 x D_C (int8). Tiers as phases 3-6 and 10; B3c
     also bitwise the plain quantizer on its own sum (phase 5's
     composition), and its sign payload equal to the plain version's
     wherever the sum is not within 1e-6 of its scale of 0 (another
@@ -2629,7 +2762,7 @@ def phase_kernel_lm(torch, dev):
 
     kw = dict(lr=0.02, beta1=0.9, beta2=0.3, alpha=1.5, eps=1e-8,
               mode="adam")
-    for d in (D_LM, D_WIDTH):
+    for d in (D_LM, D_WIDTH, D_C):
         g, w = (torch.randn(d, generator=gen, device=dev) for _ in range(2))
         delta = 0.1 * torch.randn(d, generator=gen, device=dev)
         nu = 0.01 * torch.rand(d, generator=gen, device=dev)
@@ -2641,7 +2774,7 @@ def phase_kernel_lm(torch, dev):
                 close(x[a:b], y, f"adaptive_update_slab d={d} output {i}",
                       f"{UPD} d={d}")
         del g, w, delta, nu, got, want
-    for n, d in ((8, D_LM), (1, D_LM), (4, D_WIDTH)):
+    for n, d in ((8, D_LM), (1, D_LM), (4, D_WIDTH), (4, D_C)):
         grads = torch.randn(n, d, generator=gen, device=dev)
         h = (torch.ones(1, device=dev) if n == 1 else
              0.5 + torch.rand(n, generator=gen, device=dev))
@@ -2756,12 +2889,12 @@ def phase_kernel_lm(torch, dev):
         gc.collect()
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    print("[kernel LM shapes] B1 adam at d=" + f"{D_LM} and {D_WIDTH}; B2 "
-          f"at 8x{D_LM}, 1x{D_LM} and 4x{D_WIDTH}; B3b at 4x{D_LM} with a "
-          f"carry; B3c int8 + EF at 8x{D_LM} and 4x{D_WIDTH}, folded sign + "
-          f"EF at 8x{D_LM}; B4 int8 (with and without statistics) and "
-          f"fold at 1x{D_LM}, "
-          f"int8 at 1x{D_WIDTH}; the plain versions {1 << 26} columns at a "
+    print("[kernel LM shapes] B1 adam at d=" + f"{D_LM}, {D_WIDTH} and "
+          f"{D_C}; B2 at 8x{D_LM}, 1x{D_LM}, 4x{D_WIDTH} and 4x{D_C}; B3b at "
+          f"4x{D_LM} with a carry; B3c int8 + EF at 8x{D_LM}, 4x{D_WIDTH} "
+          f"and 4x{D_C}, folded sign + EF at 8x{D_LM}; B4 int8 (with and "
+          f"without statistics) and fold at 1x{D_LM}, int8 at 1x{D_WIDTH} "
+          f"and 1x{D_C}; the plain versions {1 << 26} columns at a "
           "time: max_abs_err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + " (tol 1e-6 rel + 1e-6 of scale); transmit payloads bitwise the "
@@ -2792,7 +2925,7 @@ def _lm_times(torch, dev, gen, flush):
     rows, library = {}, {}
     kw = dict(lr=0.02, beta1=0.9, beta2=0.3, alpha=1.5, eps=1e-8,
               mode="adam")
-    for d in (D_LM, D_WIDTH):
+    for d in (D_LM, D_WIDTH, D_C):
         g, w = (torch.randn(d, generator=gen, device=dev) for _ in range(2))
         delta = 0.1 * torch.randn(d, generator=gen, device=dev)
         nu = 0.01 * torch.rand(d, generator=gen, device=dev)
@@ -2805,7 +2938,7 @@ def _lm_times(torch, dev, gen, flush):
         del g, w, delta, nu
         gc.collect()
         torch.cuda.empty_cache()
-    for n, d in ((8, D_LM), (1, D_LM), (4, D_WIDTH)):
+    for n, d in ((8, D_LM), (1, D_LM), (4, D_WIDTH), (4, D_C)):
         grads = torch.randn(n, d, generator=gen, device=dev)
         h = (torch.ones(1, device=dev) if n == 1 else
              torch.rand(n, generator=gen, device=dev))
@@ -2951,46 +3084,72 @@ def phase_kernel_flash(torch, dev):
               f"{share:.3f} of its tier ({tier}); ok")
         del q, k, v, got, want, diff, tol
     torch.cuda.empty_cache()
-    print(f"[kernel flash_attention] {len(cases)} cases (6 FLASH_CASES, 2 "
-          f"model shapes and {len(FLASH_KEYLESS)} with rows without keys, "
+    print(f"[kernel flash_attention] {len(cases)} cases (6 FLASH_CASES, "
+          f"{len(FLASH_MODEL_SHAPES)} model shapes and {len(FLASH_KEYLESS)} "
+          "with rows without keys, "
           "each f32 and bf16): "
           + "; ".join(f"{v}: max_abs_err {e:.3e}, worst element {sh:.3f} of "
                       "its tier" for v, (e, sh) in worst.items()) + "; ok")
     return {v: e for v, (e, _) in worst.items()}
 
 
-def _serve_run(torch, model, params, dev, batch, prompt, gen, counter,
-               hopper):
+def _flash_per_prefill(cfg, prompt):
+    """The flash launches a prefill of ``prompt`` tokens makes, by variant:
+    one a layer, of the variant ``flash_variant`` picks for the config's
+    dtype and head dim (fresh allocations are 16-byte aligned); none in
+    the mla family, whose attention is plain torch."""
+    from repro_torch.kernels.flash_attention import flash_variant
+
+    want = {"hopper": 0, "scalar": 0}
+    if cfg.family != "mla":
+        want[flash_variant(cfg.dtype, cfg.resolved_head_dim, prompt,
+                           (0, 0, 0, 0))] = cfg.n_layers
+    return want
+
+
+def _flash_row(torch, arch):
+    """The kernels-line row of B5 at an arch's prefill shape in bf16,
+    named by the variant ``flash_variant`` picks for it."""
+    from repro_torch.kernels.flash_attention import flash_variant
+
+    variant = flash_variant(torch.bfloat16, FLASH_MODEL_SHAPES[arch][5], 1,
+                            (0, 0, 0, 0))
+    return f"{FLASH} {variant} {arch}"
+
+
+def _serve_run(torch, model, params, dev, batch, prompt, gen, variants):
     """One greedy serve shape through the CLI's generate: a cold run (the
-    shape's first), then the timed warm run, each with the flash counters
-    (both variants', ``counter``, and the Hopper variant's, ``hopper``)
-    set to 0 just before and read just after; then one more decode step
-    with the counter at 0, and a prefill and a decode step under the
-    profiler. Returns the warm run's numbers and the cold prefill."""
+    shape's first), then the timed warm run, each with the flash
+    counters by variant (``variants``: "hopper" and "scalar") set to 0
+    just before and read just after, which must be ``_flash_per_prefill``;
+    then one more decode step with the counters at 0, and a prefill and
+    a decode step under the profiler. Returns the warm run's numbers and
+    the cold prefill."""
     from repro_torch.launch.serve import generate
 
     cfg = model.config
+    want = _flash_per_prefill(cfg, prompt)
     tokens = torch.randint(0, cfg.vocab, (batch, prompt), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(1))
-    runs, counts = [], []
+    runs = []
     for _ in ("cold", "warm"):
-        counter.launches = hopper.launches = 0
+        for c in variants.values():
+            c.launches = 0
         runs.append(generate(model, params, tokens, gen))
-        counts.append(counter.launches)
-        check(counts[-1] == cfg.n_layers == hopper.launches,
-              f"{cfg.arch} {batch}x{prompt}: {counter.launches} flash "
-              f"launches, {hopper.launches} of the Hopper variant, want "
-              f"{cfg.n_layers} of it (one a layer in the prefill, none in "
-              "decode)")
+        counts = {v: c.launches for v, c in variants.items()}
+        check(counts == want, f"{cfg.arch} {batch}x{prompt}: flash launches "
+              f"by variant {counts}, want {want} (one a layer in the "
+              "prefill, of the variant flash_variant picks; none in decode)")
     cold, r = runs
     check(torch.equal(cold["ids"], r["ids"]),
           f"{cfg.arch} {batch}x{prompt}: the warm run's ids differ")
-    counter.launches = 0
+    for c in variants.values():
+        c.launches = 0
     logits, cache = model.decode_step(params, r["cache"], r["ids"][:, -1:],
                                       prompt + gen - 1)
     torch.cuda.synchronize()
-    check(counter.launches == 0, f"{cfg.arch}: decode launched flash "
-          f"{counter.launches} times")
+    check(all(c.launches == 0 for c in variants.values()),
+          f"{cfg.arch}: decode launched flash")
     check(bool(torch.isfinite(r["prefill_logits"]).all())
           and bool(torch.isfinite(logits).all()),
           f"{cfg.arch} {batch}x{prompt}: logits not finite")
@@ -3007,7 +3166,7 @@ def _serve_run(torch, model, params, dev, batch, prompt, gen, counter,
     # where the time goes: one more prefill and one decode step under the
     # profiler (not counted above), each with its own host clock
     batch_in = {"tokens": tokens}
-    length = cache["layers"]["kv"]["k"].shape[2]
+    length = pos.shape[0]
     _profile(torch, f"{cfg.arch} {batch}x{prompt} prefill",
              lambda: model.prefill(params, batch_in, length=length))
     _profile(torch, f"{cfg.arch} {batch}x{prompt} decode step",
@@ -3019,8 +3178,7 @@ def _serve_run(torch, model, params, dev, batch, prompt, gen, counter,
                 cold_prefill_ms=1e3 * cold["t_prefill"],
                 cold_decode_ms_per_token=1e3 * cold["t_decode"]
                 / max(gen - 1, 1),
-                launches=counts[-1], hopper_launches=counts[-1],
-                ids=r["ids"][0, :8].tolist())
+                launches=counts, ids=r["ids"][0, :8].tolist())
 
 
 def _profile_run(torch, fn):
@@ -3063,10 +3221,42 @@ def _profile(torch, what, fn):
                       f" x{a.count}" for a in top))
 
 
-def phase_serve(torch, dev, counter, hopper, arch):
-    """Serve one architecture at full width: random parameters on the
-    card, then each of its SERVE_RUNS (``counter`` counts both flash
-    variants' launches, ``hopper`` the Hopper variant's)."""
+def _check_expert_product(torch, dev, cfg, params, prompt=4096,
+                          experts=16):
+    """models.moe._expert_product, the bf16 expert product with an f32
+    result (on the card cuBLAS with an f32 output, torch.bmm(out_dtype=)),
+    at a 1 x ``prompt`` prefill's dispatch shape (its capacity; the first
+    ``experts`` experts of layer 0's gate and down weights) against the
+    product of the operands cast to f32: within 1e-5 of scale."""
+    from repro_torch.models.moe import _expert_product
+
+    cap = max(1, int(prompt * cfg.top_k * cfg.capacity_factor
+                     / cfg.n_experts))
+    gen = torch.Generator(device=dev).manual_seed(3)
+    errs = []
+    for name in ("gate", "down"):
+        w = params["blocks"]["moe"][name][0, :experts]
+        a = torch.randn(experts, cap, w.shape[1], generator=gen,
+                        device=dev).bfloat16()
+        got = _expert_product(a, w)
+        want = torch.bmm(a.float(), w.float())
+        scale = float(want.abs().max())
+        errs.append(float((got - want).abs().max()) / scale)
+        check(got.dtype == torch.float32 and errs[-1] <= 1e-5,
+              f"{cfg.arch} expert product {name}: {got.dtype}, max err "
+              f"{errs[-1]} of scale")
+        del a, got, want
+    print(f"[serve {cfg.arch}] the expert product (bf16 operands, f32 "
+          f"result) at ({experts}, {cap}, {cfg.d_model}) x ({experts}, "
+          f"{cfg.d_model}, {cfg.d_ff}) and back: within "
+          f"{max(errs):.2e} of scale of the f32 product (tol 1e-5); ok")
+
+
+def phase_serve(torch, dev, variants, arch):
+    """Serve one architecture at full width (depth cut by SERVE_LAYERS):
+    random parameters on the card, then each of its SERVE_RUNS
+    (``variants``: the flash counters by variant)."""
+    import dataclasses
     import gc
 
     from repro_torch.configs import preset_config
@@ -3074,6 +3264,9 @@ def phase_serve(torch, dev, counter, hopper, arch):
     from repro_torch.models.model import build_model
 
     cfg = preset_config(arch, SERVE_PRESET)
+    full_depth = cfg.n_layers
+    cfg = dataclasses.replace(cfg, n_layers=SERVE_LAYERS.get(arch,
+                                                             full_depth))
     model = build_model(cfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3082,19 +3275,26 @@ def phase_serve(torch, dev, counter, hopper, arch):
     params = model.init(seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_flatten(params)[0])
-    print(f"[serve {arch}] preset {SERVE_PRESET}: {cfg.n_layers} layers, "
-          f"d_model {cfg.d_model}, {cfg.n_heads} heads / {cfg.n_kv_heads} kv, "
-          f"d_ff {cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}: "
-          f"{n_params / 1e9:.3f} B parameters ({cfg.param_dtype}) drawn on "
-          f"the card in {time.perf_counter() - t0:.1f} s")
+    init_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"[serve {arch}] preset {SERVE_PRESET}: {cfg.n_layers} of "
+          f"{full_depth} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
+          f"/ {cfg.n_kv_heads} kv, head_dim {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}, "
+          f"{cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts} "
+          f"shared, family {cfg.family}: {n_params / 1e9:.3f} B parameters "
+          f"({cfg.param_dtype}, {2 * n_params / 1e9:.2f} GB) drawn on the "
+          f"card in {time.perf_counter() - t0:.1f} s, peak {init_peak:.2f} "
+          "GB while drawing")
     out = {}
     with torch.no_grad():
+        if cfg.family == "moe":
+            _check_expert_product(torch, dev, cfg, params)
         for name, a, batch, prompt, gen in SERVE_RUNS:
             if a != arch:
                 continue
             torch.cuda.reset_peak_memory_stats(dev)
             r = _serve_run(torch, model, params, dev, batch, prompt, gen,
-                           counter, hopper)
+                           variants)
             r["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
             out[name] = r
             print(f"[serve {arch}] {name}: batch {batch} x prompt {prompt}, "
@@ -3104,22 +3304,27 @@ def phase_serve(torch, dev, counter, hopper, arch):
                   f"ms/token ({r['tokens_per_s']:.1f} tokens/s); cold run "
                   f"(the shape's first): prefill {r['cold_prefill_ms']:.1f} "
                   f"ms, decode {r['cold_decode_ms_per_token']:.2f} ms/token;"
-                  f" peak memory {r['peak_gb']:.2f} GB; {FLASH} launches "
-                  f"{r['launches']} in each run's prefill (= {cfg.n_layers} "
-                  f"layers, all of the Hopper variant), 0 in decode; "
-                  f"ids[0,:8] {r['ids']}, the same in both runs; logits "
-                  "finite; ok")
+                  f" peak memory {r['peak_gb']:.2f} GB; {FLASH} launches by "
+                  f"variant {r['launches']} in each run's prefill "
+                  f"({cfg.n_layers} layers), 0 in decode; ids[0,:8] "
+                  f"{r['ids']}, the same in both runs; logits finite; ok")
     del params
     gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
+REFERENCE_SERVE = (("qwen3-14b", 48), ("starcoder2-15b", 80),
+                   ("qwen3-moe-235b-a22b", 48), ("kimi-k2-1t-a32b", 48),
+                   ("minicpm3-4b", 48))
+
+
 def phase_reference_serve(torch, dev):
-    """The dense model at smoke width in f32 on the card against the same
-    parameters on the CPU: prefill logits, caches and 8 greedy ids. The
-    f32 serving path of the scalar flash kernel: its counters are set to 0
-    just before and read just after; returns its launches."""
+    """The REFERENCE_SERVE smoke configs (dense, moe, mla) in f32 on the
+    card against the same parameters on the CPU: prefill logits, caches
+    and 8 greedy ids. The f32 serving path of the scalar flash kernel
+    (none in the mla family): its counters are set to 0 just before and
+    read just after; returns its launches."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
@@ -3131,7 +3336,7 @@ def phase_reference_serve(torch, dev):
     worst = 0.0
     layers = 0
     flash_attention.scalar_launches = flash_attention.hopper_launches = 0
-    for arch, prompt in (("qwen3-14b", 48), ("starcoder2-15b", 80)):
+    for arch, prompt in REFERENCE_SERVE:
         cfg = dataclasses.replace(smoke_config(arch), param_dtype="float32")
         model = build_model(cfg)
         params = model.init(seed=0, device="cpu")
@@ -3140,11 +3345,11 @@ def phase_reference_serve(torch, dev):
         cpu = generate(model, params, tokens, 8)
         card = generate(model, tree_map(lambda t: t.to(dev), params),
                         tokens.to(dev), 8)
-        layers += cfg.n_layers
+        layers += _flash_per_prefill(cfg, prompt)["scalar"]
         pairs = [("prefill logits", card["prefill_logits"],
                   cpu["prefill_logits"])]
-        pairs += [(f"cache {k}", card["cache"]["layers"]["kv"][k],
-                   cpu["cache"]["layers"]["kv"][k]) for k in ("k", "v", "pos")]
+        pairs += [(f"cache {k}", card["cache"]["layers"]["kv"][k], v)
+                  for k, v in cpu["cache"]["layers"]["kv"].items()]
         for what, a, b in pairs:
             a, b = a.cpu().float(), b.float()
             scale = max(float(b.abs().max()), 1.0)
@@ -3160,11 +3365,13 @@ def phase_reference_serve(torch, dev):
           f"reference serve: {scalar} scalar and "
           f"{flash_attention.hopper_launches} Hopper flash launches, want "
           f"{layers} scalar (one a layer in each f32 prefill)")
-    print(f"[reference serve] qwen3-14b (prompt 48) and starcoder2-15b "
-          f"(prompt 80 > window 64: the ring cache) smoke configs in f32, "
-          f"card vs cpu: prefill logits and caches within {worst:.2e} of "
-          f"scale (tol 1e-4), 8 greedy ids equal; {FLASH} launches {scalar},"
-          f" all of the scalar variant (one a layer); ok")
+    print("[reference serve] the smoke configs of "
+          + ", ".join(f"{a} (prompt {p})" for a, p in REFERENCE_SERVE)
+          + " in f32 (starcoder2's prompt past its window of 64: the ring "
+          "cache; the moe ones drop tokens in decode), card vs cpu: prefill "
+          f"logits and caches within {worst:.2e} of scale (tol 1e-4), 8 "
+          f"greedy ids equal; {FLASH} launches {scalar}, all of the scalar "
+          "variant (one a layer, none in minicpm3's MLA); ok")
     return scalar
 
 
@@ -3437,7 +3644,7 @@ def phase_times(torch, dev):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
     rates = {}
-    flash_runs = [(f"{FLASH} hopper {a}", c, torch.bfloat16)
+    flash_runs = [(_flash_row(torch, a), c, torch.bfloat16)
                   for a, c in FLASH_MODEL_SHAPES.items()]
     flash_runs.append((f"{FLASH} scalar f32 qwen3-14b",
                        FLASH_MODEL_SHAPES["qwen3-14b"], torch.float32))
@@ -3579,6 +3786,10 @@ def main() -> int:
     from repro_torch.kernels.flash_attention import flash_attention
     lm = phase_lm_train(torch, dev, all_counters + (flash_attention,))
     wd = phase_lm_width(torch, dev, all_counters + (flash_attention,))
+    phase_families_train(torch, all_counters + (flash_attention,))
+    wd_c = phase_lm_width(torch, dev, all_counters + (flash_attention,),
+                          C_ARCH)
+    phase_alpha_mismatch(torch, all_counters + (flash_attention,))
     nocarry = Counter(ota_transmit_slab, "nocarry_launches", NOCARRY)
     rxstats = Counter(ota_receive_slab, "stats_launches", RXSTATS)
     sh = phase_sharded(torch, np, dev, all_counters + (nocarry, rxstats))
@@ -3636,6 +3847,10 @@ def main() -> int:
     launches[f"{CHAN} 4x{D_WIDTH}"] = wd["f32"][CHAN]
     launches[f"{TX} 4x{D_WIDTH}"] = wd["int8-ef"][TX]
     launches[f"{RX} 1x{D_WIDTH}"] = wd["int8-ef"][RX]
+    launches[f"{UPD} d={D_C}"] = sum(r[UPD] for r in wd_c.values())
+    launches[f"{CHAN} 4x{D_C}"] = wd_c["f32"][CHAN]
+    launches[f"{TX} 4x{D_C}"] = wd_c["int8-ef"][TX]
+    launches[f"{RX} 1x{D_C}"] = wd_c["int8-ef"][RX]
     # the sharded runs (phases 14e-14f): B3a's launches at each of its
     # two shapes (phase 14e's ResNet rounds, phase 14f's 100m CLI), and
     # the other kernels' on their rows; the receive's launches with
@@ -3654,11 +3869,14 @@ def main() -> int:
     launches[f"{RX} 1x{D_LM}"] += sum(r[RXSTATS] for r in sh_cli.values())
     launches[f"{RX} no-stats 1x{D_LM}"] = sum(r[RX] - r[RXSTATS]
                                               for r in sh_cli.values())
-    hopper = Counter(flash_attention, "hopper_launches", f"{FLASH} hopper")
-    for arch in FLASH_MODEL_SHAPES:
-        runs = phase_serve(torch, dev, flash_attention, hopper, arch)
-        launches[f"{FLASH} hopper {arch}"] = sum(r["hopper_launches"]
-                                                 for r in runs.values())
+    variants = {v: Counter(flash_attention, f"{v}_launches", f"{FLASH} {v}")
+                for v in ("hopper", "scalar")}
+    for arch in dict.fromkeys(a for _, a, *_ in SERVE_RUNS):
+        runs = phase_serve(torch, dev, variants, arch)
+        for v in variants:
+            n = sum(r["launches"][v] for r in runs.values())
+            if n:
+                launches[f"{FLASH} {v} {arch}"] = n
     launches[f"{FLASH} scalar f32 qwen3-14b"] = phase_reference_serve(
         torch, dev)
     times, floor = phase_times(torch, dev)
@@ -3691,13 +3909,18 @@ def main() -> int:
         (f"{TX} 8x{D_LM}", b3c), (f"{TX} 4x{D_WIDTH}", b3c),
         (f"{RX} 1x{D_LM}", b4), (f"{RX} no-stats 1x{D_LM}", b4),
         (f"{RX} fold 1x{D_LM}", b4),
-        (f"{RX} 1x{D_WIDTH}", b4)))
+        (f"{RX} 1x{D_WIDTH}", b4), (f"{UPD} d={D_C}", b1),
+        (f"{CHAN} 4x{D_C}", b2), (f"{TX} 4x{D_C}", b3c),
+        (f"{RX} 1x{D_C}", b4)))
     rows += tuple((f"{B3A} {n}x{d}", "ota_transmit_stream.cu",
                    "src/repro/kernels/ota_channel.py:419",
                    err_b3a[f"{B3A} {n}x{d}"]) for n, d in B3A_PATH_SHAPES)
-    rows += tuple((f"{FLASH} hopper {arch}", "flash_attention_sm90.cu",
-                   "src/repro/kernels/flash_attention.py:106",
-                   err_flash["hopper"]) for arch in FLASH_MODEL_SHAPES)
+    flash_src = {"hopper": "flash_attention_sm90.cu",
+                 "scalar": "flash_attention.cu"}
+    for name in (_flash_row(torch, a) for a in FLASH_MODEL_SHAPES):
+        v = name.split()[1]
+        rows += ((name, flash_src[v],
+                  "src/repro/kernels/flash_attention.py:106", err_flash[v]),)
     rows += ((f"{FLASH} scalar f32 qwen3-14b", "flash_attention.cu",
               "src/repro/kernels/flash_attention.py:106",
               err_flash["scalar"]),)

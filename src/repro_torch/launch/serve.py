@@ -3,8 +3,9 @@ autoregressively with the KV cache (a ring cache under a sliding window).
 
 PyTorch counterpart of ``repro.launch.serve``, with the same flags and
 defaults plus ``--device`` (default: the card; ``cpu`` runs the plain
-versions of the kernels). The port serves the dense family (qwen3-14b,
-qwen2.5-14b, starcoder2-15b):
+versions of the kernels). The port serves the dense (qwen3-14b,
+qwen2.5-14b, starcoder2-15b), moe (qwen3-moe-235b-a22b, kimi-k2-1t-a32b)
+and mla (minicpm3-4b) families:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --preset tiny --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --preset full

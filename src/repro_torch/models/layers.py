@@ -14,26 +14,46 @@ PyTorch counterpart of ``repro.models.layers``, with its conventions:
 
 Random leaves are drawn in f32 pieces of at most ``DRAW_CHUNK`` entries
 and written into the leaf, so at full width no f32 temporary is larger
-than one leaf's worth of a piece.
+than one leaf's worth of a piece. Inside ``draw_into`` the leaf is a
+tensor the caller hands out (``transformer.stack_init`` hands out the
+leaf's slice of the layer stack) instead of a new one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Optional, Sequence
+from typing import Callable, Iterator, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 DRAW_CHUNK = 1 << 26          # entries of one f32 draw (256 MB)
 _TRUNC = math.erf(2.0 / math.sqrt(2.0))   # CDF span of [-2, 2] on [-1, 1]
+Alloc = Callable[[tuple, torch.dtype, torch.device], torch.Tensor]
+_SINKS: List[Alloc] = []      # the allocators of the open draw_into blocks
+
+
+@contextlib.contextmanager
+def draw_into(alloc: Alloc) -> Iterator[None]:
+    """Inside the block every random leaf is drawn into the contiguous
+    tensor ``alloc(shape, dtype, device)`` returns, in the order the
+    leaves are drawn, instead of into a new tensor. The draws and their
+    values do not change."""
+    _SINKS.append(alloc)
+    try:
+        yield
+    finally:
+        _SINKS.pop()
 
 
 def _drawn(shape, dtype, gen: torch.Generator,
            draw: Callable[[torch.Tensor], None]) -> torch.Tensor:
     """A leaf of ``shape`` / ``dtype`` on the generator's device, filled
     piece by piece: ``draw(t)`` fills an f32 piece in place."""
-    out = torch.empty(tuple(shape), dtype=dtype, device=gen.device)
+    shape = tuple(shape)
+    out = (_SINKS[-1](shape, dtype, gen.device) if _SINKS else
+           torch.empty(shape, dtype=dtype, device=gen.device))
     flat = out.view(-1)
     for i in range(0, flat.numel(), DRAW_CHUNK):
         piece = torch.empty(min(DRAW_CHUNK, flat.numel() - i),
@@ -43,17 +63,24 @@ def _drawn(shape, dtype, gen: torch.Generator,
     return out
 
 
-def truncated_normal_init(gen: torch.Generator, shape, scale: float,
-                          dtype) -> torch.Tensor:
-    """He/depth-scaled normal truncated to [-2, 2] std (inverse CDF)."""
-    fan_in = shape[0] if len(shape) >= 1 else 1
-    std = scale / math.sqrt(max(fan_in, 1))
-
+def truncated_normal(gen: torch.Generator, shape, std: float,
+                     dtype) -> torch.Tensor:
+    """A normal of standard deviation ``std`` truncated to [-2, 2] std
+    (inverse CDF): ``jax.random.truncated_normal(key, -2, 2, shape) * std``
+    in law."""
     def draw(t):
         t.uniform_(-_TRUNC, _TRUNC, generator=gen)
         t.erfinv_().mul_(math.sqrt(2.0)).clamp_(-2.0, 2.0).mul_(std)
 
     return _drawn(shape, dtype, gen, draw)
+
+
+def truncated_normal_init(gen: torch.Generator, shape, scale: float,
+                          dtype) -> torch.Tensor:
+    """He/depth-scaled normal truncated to [-2, 2] std (inverse CDF)."""
+    fan_in = shape[0] if len(shape) >= 1 else 1
+    return truncated_normal(gen, shape, scale / math.sqrt(max(fan_in, 1)),
+                            dtype)
 
 
 def dense_init(gen: torch.Generator, in_dim: int, out_shape: Sequence[int],

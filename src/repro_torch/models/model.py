@@ -3,7 +3,8 @@
 PyTorch counterpart of ``repro.models.model``. ``ModelConfig`` mirrors
 the JAX package's field for field, with ``n_params`` and
 ``n_active_params``. ``build_model(cfg)`` returns a ``Model`` for the
-dense family (Qwen3, Qwen2.5, StarCoder2):
+dense (Qwen3, Qwen2.5, StarCoder2), moe (Qwen3-MoE, Kimi-K2) and mla
+(MiniCPM3) families:
 
     init(seed=0, device=None)          -- random parameters on the device
     forward(params, batch)             -- full-sequence logits
@@ -13,12 +14,15 @@ dense family (Qwen3, Qwen2.5, StarCoder2):
     init_cache(batch, length, device)  -- empty caches
 
 Params are nested dicts with the per-layer parameters stacked on a
-leading layer axis, the JAX package's layout. ``forward`` and
-``prefill`` run attention through the flash-attention kernel (B5), which
-has no backward; ``loss_fn`` runs the same backbone with its positions
-given, so attention takes the masked plain path that ``torch.func``
-differentiates (``models.attention``). ``decode_step`` updates the cache
-in place. Any other family raises ``NotImplementedError`` naming its
+leading layer axis, the JAX package's layout. In the dense and moe
+families ``forward`` and ``prefill`` run attention through the
+flash-attention kernel (B5), which has no backward; ``loss_fn`` runs the
+same backbone with its positions given, so attention takes the masked
+plain path that ``torch.func`` differentiates (``models.attention``).
+MLA attention is plain torch on every path (``models.mla``).
+``decode_step`` updates the cache in place. ``loss_fn`` adds the blocks'
+aux loss (the MoE load-balance loss); ``forward`` returns it beside the
+logits. Any other family raises ``NotImplementedError`` naming its
 ROADMAP item (A13c).
 """
 
@@ -35,6 +39,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import AttentionConfig
 from repro_torch.models.layers import (dense, dense_init, embed, embed_init,
                                        softmax_xent)
+from repro_torch.models.mla import MLAConfig
+from repro_torch.models.moe import MoEConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +78,7 @@ class ModelConfig:
     top_k: int = 0
     n_shared_experts: int = 0
     capacity_factor: float = 1.25
-    moe_sharded: bool = False       # shard_map expert-parallel path (perf)
+    moe_sharded: bool = False       # JAX's shard_map path; unread here
     # SSM / hybrid
     ssm_state: int = 16
     ssm_expand: int = 2
@@ -102,6 +108,20 @@ class ModelConfig:
             n_kv_heads=self.n_kv_heads, head_dim=self.resolved_head_dim,
             qkv_bias=self.qkv_bias, qk_norm=self.qk_norm,
             rope_theta=self.rope_theta, window=self.window)
+
+    def mla_config(self) -> MLAConfig:
+        return MLAConfig(
+            d_model=self.d_model, n_heads=self.n_heads,
+            q_lora_rank=self.q_lora_rank, kv_lora_rank=self.kv_lora_rank,
+            qk_nope_head_dim=self.qk_nope_head_dim,
+            qk_rope_head_dim=self.qk_rope_head_dim,
+            v_head_dim=self.v_head_dim, rope_theta=self.rope_theta)
+
+    def moe_config(self) -> MoEConfig:
+        return MoEConfig(
+            d_model=self.d_model, n_experts=self.n_experts, top_k=self.top_k,
+            d_ff=self.d_ff, n_shared_experts=self.n_shared_experts,
+            capacity_factor=self.capacity_factor)
 
     def n_params(self) -> int:
         """Exact parameter count, from shapes alone: ``init`` runs under
@@ -135,12 +155,23 @@ class Model(NamedTuple):
     init_cache: Callable
 
 
-def build_model(cfg: ModelConfig) -> Model:
-    if cfg.family != "dense":
+_BLOCKS = {"dense": tfm.dense_block, "mla": tfm.mla_block,
+           "moe": tfm.moe_block}
+_UNPORTED = ("rwkv", "hybrid", "vlm", "encdec")
+
+
+def _block_fns(cfg: ModelConfig) -> tuple:
+    if cfg.family in _BLOCKS:
+        return _BLOCKS[cfg.family](cfg)
+    if cfg.family in _UNPORTED:
         raise NotImplementedError(
             f"the {cfg.family} family is not ported yet (ROADMAP A13c); "
-            "the port builds the dense family")
-    b_init, b_fwd, b_decode, b_cache, b_pfl = tfm.dense_block(cfg)
+            f"the port builds the {', '.join(_BLOCKS)} families")
+    raise ValueError(f"unknown family {cfg.family}")
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    b_init, b_fwd, b_decode, b_cache, b_pfl = _block_fns(cfg)
 
     def init(seed: int = 0, device: DeviceLike = None):
         dev = resolve_device(device)

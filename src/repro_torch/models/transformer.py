@@ -1,25 +1,32 @@
 """Transformer blocks and the layer-stack helpers.
 
-PyTorch counterpart of ``repro.models.transformer`` for the dense family
-(pre-norm GQA attention + SwiGLU or GeLU MLP). Per-layer parameters are
-stacked on a leading layer axis, as in the JAX package, so
-``convert.params_from_numpy`` carries a JAX model across leaf for leaf;
-where the JAX package scans over that axis, the port runs a Python loop
-over the layers (``stack_*``). The other families (mla, moe, rwkv,
+PyTorch counterpart of ``repro.models.transformer`` for three families:
+
+  dense -- pre-norm GQA attention + (SwiGLU | GeLU) MLP
+  mla   -- pre-norm MLA attention + SwiGLU MLP (MiniCPM3; ``models.mla``)
+  moe   -- pre-norm GQA attention + top-k MoE FFN (+ shared expert;
+           ``models.moe``)
+
+Per-layer parameters are stacked on a leading layer axis, as in the JAX
+package, so ``convert.params_from_numpy`` carries a JAX model across
+leaf for leaf; where the JAX package scans over that axis, the port runs
+a Python loop over the layers (``stack_*``). The other families (rwkv,
 hybrid, encdec, vlm) are ROADMAP A13c.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.slab import tree_flatten, tree_map, tree_unflatten
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (gelu_mlp, gelu_mlp_init, layernorm,
-                                       layernorm_init, rmsnorm, rmsnorm_init,
-                                       swiglu, swiglu_init)
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.layers import (draw_into, gelu_mlp, gelu_mlp_init,
+                                       layernorm, layernorm_init, rmsnorm,
+                                       rmsnorm_init, swiglu, swiglu_init)
 
 PyTree = Any
 
@@ -43,6 +50,11 @@ def _mlp(kind: str, p: dict, x: torch.Tensor) -> torch.Tensor:
     return swiglu(p, x) if kind == "swiglu" else gelu_mlp(p, x)
 
 
+def _positions(x: torch.Tensor) -> torch.Tensor:
+    """The positions 0..S-1 of a (B, S, d) sequence."""
+    return torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+
+
 def _layer(stacked: PyTree, i: int) -> PyTree:
     return tree_map(lambda a: a[i], stacked)
 
@@ -54,18 +66,48 @@ def _depth(stacked: PyTree) -> int:
 def stack_init(block_init: Callable, gen: torch.Generator,
                n_layers: int) -> PyTree:
     """Init ``n_layers`` layers one after the other into stacked leaves
-    (n_layers, ...): the stack is allocated after the first layer, so the
-    peak is the stack plus one layer."""
-    first = block_init(gen)
+    (n_layers, ...), the values of ``n_layers`` calls of ``block_init`` in
+    a row. Each random leaf is drawn straight into its slice of the stack
+    (``layers.draw_into``); layer 0's draws allocate the stacks. So the
+    peak is the stack plus one draw piece and one layer's non-random
+    leaves (norm scales, biases, copied in after the layer), and a
+    1-layer stack holds its layer once."""
+    stacks: List[torch.Tensor] = []     # the random leaves', in draw order
+    handed: List[torch.Tensor] = []     # layer 0's slices of them
+    at = {"layer": 0, "draw": 0}
+
+    def into(shape, dtype, device):
+        k = at["draw"]
+        at["draw"] += 1
+        if at["layer"] == 0:
+            stacks.append(torch.empty((n_layers, *shape), dtype=dtype,
+                                      device=device))
+            handed.append(stacks[k][0])
+            return handed[k]
+        return stacks[k][at["layer"]]
+
+    with draw_into(into):
+        first = block_init(gen)
     leaves, treedef = tree_flatten(first)
-    stacked = [torch.empty((n_layers, *l.shape), dtype=l.dtype,
-                           device=l.device) for l in leaves]
-    for s, l in zip(stacked, leaves):
-        s[0] = l
-    del first, leaves
+    # layer 0's random leaves are the slices its draws were handed, alive
+    # in ``first``, so their ids name them
+    drawn = {id(s): k for k, s in enumerate(handed)}
+    stacked, own = [], []
+    for j, l in enumerate(leaves):
+        if id(l) in drawn:
+            stacked.append(stacks[drawn[id(l)]])
+        else:
+            stacked.append(torch.empty((n_layers, *l.shape), dtype=l.dtype,
+                                       device=l.device))
+            stacked[j][0] = l
+            own.append(j)
+    del first, leaves, handed
     for i in range(1, n_layers):
-        for s, l in zip(stacked, tree_flatten(block_init(gen))[0]):
-            s[i] = l
+        at["layer"], at["draw"] = i, 0
+        with draw_into(into):
+            layer = tree_flatten(block_init(gen))[0]
+        for j in own:
+            stacked[j][i] = layer[j]
     return tree_unflatten(treedef, stacked)
 
 
@@ -150,5 +192,89 @@ def dense_block(cfg) -> tuple:
         x = x + y
         x = x + _mlp(mlpk, p["mlp"], _norm(norm, p["ln2"], x))
         return x, {"kv": kv}
+
+    return init, fwd, decode, init_cache, pfl
+
+
+def mla_block(cfg) -> tuple:
+    mcfg = cfg.mla_config()
+    norm, mlpk = cfg.norm, cfg.mlp
+
+    def init(gen):
+        return {
+            "ln1": _norm_init(norm, cfg.d_model, gen.device),
+            "attn": mla_mod.mla_init(gen, mcfg, cfg.dtype),
+            "ln2": _norm_init(norm, cfg.d_model, gen.device),
+            "mlp": _mlp_init(mlpk, gen, cfg.d_model, cfg.d_ff, cfg.dtype),
+        }
+
+    def fwd(p, x, positions=None):
+        # MLA is plain torch on every path (no flash kernel)
+        pos = _positions(x) if positions is None else positions
+        x = x + mla_mod.mla_self_attention(p["attn"], mcfg,
+                                           _norm(norm, p["ln1"], x), pos)
+        x = x + _mlp(mlpk, p["mlp"], _norm(norm, p["ln2"], x))
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def decode(p, cache, x, pos):
+        y, kv = mla_mod.mla_decode_step(p["attn"], mcfg,
+                                        _norm(norm, p["ln1"], x),
+                                        cache["kv"], pos)
+        x = x + y
+        x = x + _mlp(mlpk, p["mlp"], _norm(norm, p["ln2"], x))
+        return x, {**cache, "kv": kv}
+
+    def init_cache(batch, length, device=None):
+        return {"kv": mla_mod.init_mla_cache(batch, length, mcfg, cfg.dtype,
+                                             device=device)}
+
+    def pfl(p, x, length):
+        y, kv = mla_mod.mla_prefill(p["attn"], mcfg,
+                                    _norm(norm, p["ln1"], x), _positions(x),
+                                    length)
+        x = x + y
+        x = x + _mlp(mlpk, p["mlp"], _norm(norm, p["ln2"], x))
+        return x, {"kv": kv}
+
+    return init, fwd, decode, init_cache, pfl
+
+
+def moe_block(cfg) -> tuple:
+    acfg = cfg.attn_config()
+    ecfg = cfg.moe_config()
+    norm = cfg.norm
+
+    def init(gen):
+        return {
+            "ln1": _norm_init(norm, cfg.d_model, gen.device),
+            "attn": attn.attn_init(gen, acfg, cfg.dtype),
+            "ln2": _norm_init(norm, cfg.d_model, gen.device),
+            "moe": moe_mod.moe_init(gen, ecfg, cfg.dtype),
+        }
+
+    def fwd(p, x, positions=None):
+        # positions=None: the flash kernel (inference), as dense_block
+        x = x + attn.self_attention(p["attn"], acfg, _norm(norm, p["ln1"], x),
+                                    positions)
+        y, aux = moe_mod.moe_apply(p["moe"], ecfg, _norm(norm, p["ln2"], x))
+        return x + y, aux
+
+    def decode(p, cache, x, pos):
+        y, kv = attn.decode_self_attention(
+            p["attn"], acfg, _norm(norm, p["ln1"], x), cache["kv"], pos)
+        x = x + y
+        y, _ = moe_mod.moe_apply(p["moe"], ecfg, _norm(norm, p["ln2"], x))
+        return x + y, {**cache, "kv": kv}
+
+    def init_cache(batch, length, device=None):
+        return {"kv": attn.init_kv_cache(batch, length, acfg, cfg.dtype,
+                                         device=device)}
+
+    def pfl(p, x, length):
+        y, kv = attn.prefill_kv_cache(p["attn"], acfg,
+                                      _norm(norm, p["ln1"], x), length)
+        x = x + y
+        y, _ = moe_mod.moe_apply(p["moe"], ecfg, _norm(norm, p["ln2"], x))
+        return x + y, {"kv": kv}
 
     return init, fwd, decode, init_cache, pfl

@@ -1151,3 +1151,22 @@ def test_one_rank_nccl_mesh_matches_the_resident_round(cuda, name, chkw,
             assert torch.equal(x, y)
     if ef:
         assert torch.equal(got.ef, want.ef)
+
+
+@pytest.mark.parametrize("shape", [(8, 40, 128, 96), (4, 1, 256, 64)])
+def test_expert_product_takes_an_f32_output_on_the_card(cuda, shape):
+    """The MoE expert product (``models.moe._expert_product``) of bf16
+    operands on the card is cuBLAS with an f32 output; it agrees with the
+    product of the operands cast to f32, the path of training and of the
+    CPU, to 1e-5 of scale. An operand that requires grad takes that path."""
+    from repro_torch.models.moe import _expert_product
+    e, c, d, f = shape
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    a = torch.randn(e, c, d, generator=gen, device=cuda).bfloat16()
+    b = torch.randn(e, d, f, generator=gen, device=cuda).bfloat16()
+    got = _expert_product(a, b)
+    assert got.dtype == torch.float32 and got.shape == (e, c, f)
+    _close(got, torch.bmm(a.float(), b.float()), 1e-5)
+    grad = _expert_product(a, b.requires_grad_())
+    assert grad.requires_grad
+    _close(grad.detach(), got, 1e-5)

@@ -126,7 +126,7 @@ def test_refusals_name_their_reason(name, capsys):
 
 def test_other_families_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="A13c"):
-        train.main(["--arch", "minicpm3-4b", "--device", "cpu"])
+        train.main(["--arch", "rwkv6-7b", "--device", "cpu"])
 
 
 def _template(line: str) -> str:
