@@ -152,9 +152,10 @@ Phases, each printing its own line(s) before the last line:
    quoted) through make_slab_round_runner(model.loss_fn)
    + run_rounds_slab, the calls the CLI makes: the same launch counts,
    ms a round, tokens per second and peak memory;
-14g. (after 14d) the moe and mla families trained: the training CLI at
-   --preset tiny for qwen3-moe-235b-a22b, kimi-k2-1t-a32b and
-   minicpm3-4b (its defaults otherwise: 8 clients x batch 2 x seq 128,
+14g. (after 14d) the moe, mla, rwkv and hybrid families trained: the
+   training CLI at --preset tiny for qwen3-moe-235b-a22b,
+   kimi-k2-1t-a32b, minicpm3-4b, rwkv6-7b and hymba-1.5b (its defaults
+   otherwise: 8 clients x batch 2 x seq 128,
    adam_ota), 4 rounds on the f32 wire and 4 on int8 + EF, every counter
    (B5's among them) set to 0 before and read after each run: one B2
    and one B1 a f32 round, one B3c, one B4 and one B1 an int8 round, no
@@ -164,6 +165,15 @@ Phases, each printing its own line(s) before the last line:
    128, 4 rounds on the f32 wire and 4 on int8 + EF through
    make_slab_round_runner(model.loss_fn) + run_rounds_slab, launches
    counted, ms a round, tokens per second and peak memory;
+14h'. runs (d) and (e), the recurrent families at full width, as 14h:
+   (d) RWKV-6-7B's width at depth 2 (979,501,056 parameters, a 3.92 GB
+   f32 slab), (e) Hymba-1.5B's width at depth 8 (492,600,000 parameters,
+   its SSM's sequential scan under vmap(grad)), each 4 clients x batch
+   2 x seq 128, 4 rounds on the f32 wire and 4 on int8 + EF, launches
+   counted (no B5), ms a round, tokens per second and peak memory;
+14j. examples/serve_decode_torch.py on the card with its defaults
+   (rwkv6-7b --preset tiny, batch 2 x prompt 32, 8 tokens): the JAX
+   CLI's two lines, then the port's rate and memory line;
 14i. examples/alpha_mismatch_torch.py on the card: AdaGrad-OTA on a
    true-alpha 1.2 channel, matched, alpha 2.0 and alpha="auto", 80
    rounds each (one B2 and one B1 a round, counted); the tracked
@@ -193,8 +203,9 @@ Phases, each printing its own line(s) before the last line:
    causal), StarCoder2-15B (1 x 6144, 48 heads, 4 kv heads, D 128,
    causal, window 4096), Qwen3-MoE-235B-A22B (1 x 4096, 64 heads, 4 kv
    heads, D 128, causal) and Kimi-K2 (1 x 4096, 64 heads, 8 kv heads,
-   D 112, causal: the scalar variant in bf16), then two cases with query
-   rows that see no key,
+   D 112, causal: the scalar variant in bf16) and Hymba-1.5B (1 x 4224
+   with its 128 meta tokens, and 4 x 192, 25 heads, 5 kv heads, D 64,
+   causal, window 1024), then two cases with query rows that see no key,
    each in f32 and bf16 through the variant the wrapper picks (printed,
    and checked against flash_variant): the Hopper kernel (bf16, D 64 or
    128) per element at 2^-7 |ref| + 2^-8 attn(q, k, |v|) + 2e-5, the
@@ -208,7 +219,8 @@ Phases, each printing its own line(s) before the last line:
    EF at 8 x 62,928,640; B4 at 1 x 62,928,640 (int8 with and without
    statistics, folded sign), 1 x 987,833,344 and 1 x 877,455,872 (int8),
    at
-   the tiers of phases 3-6 and 10;
+   the tiers of phases 3-6 and 10; then B1 at d = 979,501,056 and
+   492,600,064, B2 and B3c at 4 x each, B4 at 1 x each (runs (d), (e));
 16. serve qwen3-14b: full width and depth (40 layers, 14.8 B parameters,
    bf16, random from seed 0) through repro_torch.launch.serve.generate,
    greedy: (a) the serve CLI's defaults, batch 4 x prompt 64, 32 tokens;
@@ -235,12 +247,20 @@ Phases, each printing its own line(s) before the last line:
 17d. serve minicpm3-4b at full width and depth (62 layers, 4.26 B
    parameters, MLA), 4 x 64 -> 32 and 1 x 4096 -> 8, the same checks with
    no flash launch (MLA attention is plain torch);
+17e. serve rwkv6-7b at full width and depth (32 layers, 7.62 B
+   parameters), 4 x 64 -> 32 and 1 x 4096 -> 8, the same checks with no
+   flash launch (attention-free; the O(1) recurrent cache);
+17f. serve hymba-1.5b at full width and depth (32 layers, 1.66 B
+   parameters, 128 meta tokens, window 1024), 4 x 64 -> 32 and
+   1 x 4096 -> 8, the same checks (32 Hopper launches a prefill, D 64),
+   and the KV cache's length JAX's min(s + gen + 128, 1024) (the ring
+   at 1 x 4096);
 18. reference serve: the smoke configs of qwen3-14b, starcoder2-15b,
-   qwen3-moe-235b-a22b, kimi-k2-1t-a32b and minicpm3-4b in f32 on the
-   card against the same parameters on the CPU (plain versions):
-   prefill logits, caches and 8 greedy ids; the f32 path of the scalar
-   flash kernel, one launch a layer in each prefill (none in minicpm3's),
-   none of the Hopper one;
+   qwen3-moe-235b-a22b, kimi-k2-1t-a32b, minicpm3-4b, rwkv6-7b and
+   hymba-1.5b in f32 on the card against the same parameters on the CPU
+   (plain versions): prefill logits, caches and 8 greedy ids; the f32
+   path of the scalar flash kernel, one launch a layer in each prefill
+   (none in minicpm3's and rwkv6's), none of the Hopper one;
 19. times: the launch floor (a near-empty launch, timed as the kernels
    are); then CUDA events, first at the LM runs' shapes (those of 15b,
    torch.addmv beside B3b), then B3a at the shapes of 10b beside its
@@ -256,8 +276,9 @@ Phases, each printing its own line(s) before the last line:
    and the launch floor (and, where one
    PyTorch call computes the same function, that call: torch.addmv for
    the accumulating transmit, scaled_dot_product_attention for flash
-   attention: the variant flash_variant picks at each of the four
-   prefill shapes in bf16, with its TFLOP/s and its ratio to
+   attention: the variant flash_variant picks at each of the five
+   prefill shapes in bf16 (Hymba's with its window mask), with its
+   TFLOP/s and its ratio to
    scaled_dot_product_attention, and the scalar one at Qwen3-14B's in
    f32); the accumulating transmit's S, and at the
    million-client chunk the same kernel on the same grid without a fold,
@@ -317,7 +338,12 @@ FLASH_MODEL_SHAPES = {
     "starcoder2-15b": (1, 6144, 6144, 48, 4, 128, True, 4096),
     "qwen3-moe-235b-a22b": (1, 4096, 4096, 64, 4, 128, True, None),
     "kimi-k2-1t-a32b": (1, 4096, 4096, 64, 8, 112, True, None),
+    # 1 x 4096 prompt tokens after 128 meta tokens: 33 q tiles of 128
+    "hymba-1.5b": (1, 4224, 4224, 25, 5, 64, True, 1024),
 }
+# prefill shapes checked in phase 15 but not timed: Hymba's 4 x 64 serve
+FLASH_SERVE_SHAPES = {"hymba-1.5b 4x64": (4, 192, 192, 25, 5, 64, True,
+                                          1024)}
 # serve runs: (name, arch, batch, prompt, tokens generated)
 SERVE_RUNS = (("qwen3-14b a", "qwen3-14b", 4, 64, 32),
               ("qwen3-14b b", "qwen3-14b", 1, 4096, 8),
@@ -326,7 +352,11 @@ SERVE_RUNS = (("qwen3-14b a", "qwen3-14b", 4, 64, 32),
               ("qwen3-moe b", "qwen3-moe-235b-a22b", 1, 4096, 8),
               ("kimi-k2", "kimi-k2-1t-a32b", 1, 4096, 8),
               ("minicpm3 a", "minicpm3-4b", 4, 64, 32),
-              ("minicpm3 b", "minicpm3-4b", 1, 4096, 8))
+              ("minicpm3 b", "minicpm3-4b", 1, 4096, 8),
+              ("rwkv6 a", "rwkv6-7b", 4, 64, 32),
+              ("rwkv6 b", "rwkv6-7b", 1, 4096, 8),
+              ("hymba a", "hymba-1.5b", 4, 64, 32),
+              ("hymba b", "hymba-1.5b", 1, 4096, 8))
 SERVE_PRESET = "full"
 # Depth cuts of the served configs at full width (bf16 weights on one
 # 80 GB card): Qwen3-MoE 12 of 94 layers (62.2 GB), Kimi-K2 1 of 61
@@ -618,8 +648,10 @@ def _wire_inputs(torch, dev, total, seed):
 def _check_transmit(torch, got, want, x, what):
     """Payload equal on >= 99.9 % of entries and within one step on the
     rest; scales within 1e-6 rel + 1e-6 of their largest; the residual
-    within 1e-6 rel + 1e-6 of max|x| where the payloads agree and within
-    one step where an entry flipped. Returns the largest error."""
+    within 1e-6 rel + 1e-6 of max|x| where the payloads agree, and where
+    an entry flipped within one step plus that tolerance plus |q| times
+    its scale's own error (x - q s moves by |q| |ds| when s moves by
+    ds). Returns the largest error."""
     q, s = got[0].float(), got[1]
     qw, sw = want[0].float(), want[1]
     same = q == qw
@@ -635,8 +667,9 @@ def _check_transmit(torch, got, want, x, what):
         err = (got[2] - want[2]).abs()
         tol = 1e-6 * want[2].abs() + 1e-6 * float(x.abs().max())
         step = sw.repeat_interleave(128)
+        flip_tol = step + tol + q.abs() * err_s.repeat_interleave(128)
         check(bool(torch.all(torch.where(same, err <= tol,
-                                         err <= step * (1 + 1e-6)))),
+                                         err <= flip_tol))),
               f"{what}: residual err {float(err.max())}")
         worst = max(worst, float(torch.where(same, err,
                                              torch.zeros_like(err)).max()))
@@ -1996,9 +2029,18 @@ D_WIDTH = 987_833_344         # its slab (a multiple of 128 already)
 # run (c): MiniCPM3-4B's full width (MLA) with its depth cut to 8 layers
 C_ARCH, C_PARAMS = "minicpm3-4b", 877_455_872
 D_C = 877_455_872             # its slab (a multiple of 128 already)
+# runs (d) and (e): the recurrent families' full widths, RWKV-6-7B at
+# depth 2 and Hymba-1.5B at depth 8 (its SSM scan saves about two
+# (B, S, C, N) f32 tensors a layer and client under vmap(grad))
+D_ARCH, D_PARAMS = "rwkv6-7b", 979_501_056
+D_D = 979_501_056             # its slab (a multiple of 128 already)
+E_ARCH, E_PARAMS = "hymba-1.5b", 492_600_000
+D_E = 492_600_064             # its slab, padded to a multiple of 128
 # run: (its tag, layers, parameters, slab)
 WIDTH_CUTS = {WIDTH_ARCH: ("LM width", 1, WIDTH_PARAMS, D_WIDTH),
-              C_ARCH: ("LM run (c)", 8, C_PARAMS, D_C)}
+              C_ARCH: ("LM run (c)", 8, C_PARAMS, D_C),
+              D_ARCH: ("LM run (d)", 2, D_PARAMS, D_D),
+              E_ARCH: ("LM run (e)", 8, E_PARAMS, D_E)}
 WIDTH_CLIENTS, WIDTH_ROUNDS = 4, 4
 # (name, uplink, error feedback, launches a round)
 WIDTH_RUNS = (("f32", "f32", False, {CHAN: 1, UPD: 1}),
@@ -2122,9 +2164,11 @@ def _profile_lm_round(torch, dev, what, arch, preset, state, n_clients):
 
 
 def phase_lm_width(torch, dev, counters, run=WIDTH_ARCH):
-    """Phases 14d and 14h: a language model at full width with its depth
-    cut (WIDTH_CUTS: run (b), StarCoder2-15B's width at depth 1, 987.8 M
-    parameters; run (c), MiniCPM3-4B's at depth 8, 877.5 M),
+    """Phases 14d, 14h and 14h': a language model at full width with its
+    depth cut (WIDTH_CUTS: run (b), StarCoder2-15B's width at depth 1,
+    987.8 M parameters; run (c), MiniCPM3-4B's at depth 8, 877.5 M; run
+    (d), RWKV-6-7B's at depth 2, 979.5 M; run (e), Hymba-1.5B's at depth
+    8, 492.6 M),
     WIDTH_CLIENTS clients x batch 2 x seq 128 of the CLI's corpus,
     adam_ota as the CLI configures it, WIDTH_ROUNDS rounds of each
     WIDTH_RUNS wire through make_slab_round_runner(model.loss_fn) +
@@ -2210,7 +2254,8 @@ def phase_lm_width(torch, dev, counters, run=WIDTH_ARCH):
     return out
 
 
-FAMILY_ARCHS = ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "minicpm3-4b")
+FAMILY_ARCHS = ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "minicpm3-4b",
+                "rwkv6-7b", "hymba-1.5b")
 FAMILY_ROUNDS = 4
 # (name, flags, launches a round of each kernel)
 FAMILY_RUNS = (("f32", [], {CHAN: 1, UPD: 1}),
@@ -2220,7 +2265,8 @@ FAMILY_RUNS = (("f32", [], {CHAN: 1, UPD: 1}),
 
 def phase_families_train(torch, counters):
     """Phase 14g: the training CLI (repro_torch.launch.train.main) at
-    --preset tiny for each FAMILY_ARCHS (the moe and mla families; the
+    --preset tiny for each FAMILY_ARCHS (the moe, mla, rwkv and hybrid
+    families; the
     CLI's defaults otherwise: 8 clients x batch 2 x seq 128, adam_ota,
     lr 0.02), FAMILY_ROUNDS rounds on each FAMILY_RUNS wire, every
     counter (B5's among them) set to 0 before and read after each run:
@@ -2284,6 +2330,29 @@ def phase_alpha_mismatch(torch, counters):
           f"0.1); the verdict line above says "
           f"{'OK' if r['recovered'] else 'VIOLATED'}; launches {counts}; ok")
     return counts
+
+
+def phase_serve_example(torch, flash_attention):
+    """Phase 14j: examples/serve_decode_torch.py (the twin of the JAX
+    example) on the card with its defaults: rwkv6-7b at --preset tiny,
+    batch 2 x prompt 32, 8 tokens greedy; its lines printed, the ids of
+    the expected shape, no flash launch (RWKV has no attention)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "serve_decode_torch", ROOT / "examples" / "serve_decode_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    flash_attention.launches = 0
+    r = example.main(example.launcher_argv([]))
+    torch.cuda.synchronize()
+    check(tuple(r["ids"].shape) == (2, 8) and r["ids"].is_cuda
+          and flash_attention.launches == 0,
+          f"serve_decode_torch: ids {tuple(r['ids'].shape)} on "
+          f"{r['ids'].device}, {flash_attention.launches} flash launches")
+    print(f"[serve example] examples/serve_decode_torch.py with its defaults "
+          f"({' '.join(example.DEFAULT_ARGV)}) on the card: the lines above;"
+          " no flash launch; ok")
 
 
 # ---------------------------------------------------------------------------
@@ -2729,12 +2798,12 @@ def phase_kernel_lm(torch, dev):
     """Every kernel of the LM runs against its plain version at the
     shapes those runs give it, the plain version a piece of columns at a
     time (``_pieces``; every kernel here is column-separable): B1 (adam,
-    alpha 1.5) at d = D_LM, D_WIDTH and D_C; B2 at 8 x D_LM, 1 x D_LM
-    (the streamed finish, n_total 1), 4 x D_WIDTH and 4 x D_C; B3b at
-    4 x D_LM with a carry; B3c at 8 x D_LM (int8 with host rounding + EF,
-    folded sign + EF), 4 x D_WIDTH and 4 x D_C (int8 + EF); B4 at 1 x D_LM
-    (int8 with and without statistics, folded sign), 1 x D_WIDTH and
-    1 x D_C (int8). Tiers as phases 3-6 and 10; B3c
+    alpha 1.5) at d = D_LM, D_WIDTH, D_C, D_D and D_E; B2 at 8 x D_LM,
+    1 x D_LM (the streamed finish, n_total 1) and 4 x each wider d; B3b
+    at 4 x D_LM with a carry; B3c at 8 x D_LM (int8 with host rounding +
+    EF, folded sign + EF) and 4 x each wider d (int8 + EF); B4 at 1 x
+    D_LM (int8 with and without statistics, folded sign) and 1 x each
+    wider d (int8). Tiers as phases 3-6 and 10; B3c
     also bitwise the plain quantizer on its own sum (phase 5's
     composition), and its sign payload equal to the plain version's
     wherever the sum is not within 1e-6 of its scale of 0 (another
@@ -2762,7 +2831,7 @@ def phase_kernel_lm(torch, dev):
 
     kw = dict(lr=0.02, beta1=0.9, beta2=0.3, alpha=1.5, eps=1e-8,
               mode="adam")
-    for d in (D_LM, D_WIDTH, D_C):
+    for d in (D_LM, D_WIDTH, D_C, D_D, D_E):
         g, w = (torch.randn(d, generator=gen, device=dev) for _ in range(2))
         delta = 0.1 * torch.randn(d, generator=gen, device=dev)
         nu = 0.01 * torch.rand(d, generator=gen, device=dev)
@@ -2774,7 +2843,8 @@ def phase_kernel_lm(torch, dev):
                 close(x[a:b], y, f"adaptive_update_slab d={d} output {i}",
                       f"{UPD} d={d}")
         del g, w, delta, nu, got, want
-    for n, d in ((8, D_LM), (1, D_LM), (4, D_WIDTH), (4, D_C)):
+    for n, d in ((8, D_LM), (1, D_LM), (4, D_WIDTH), (4, D_C), (4, D_D),
+                 (4, D_E)):
         grads = torch.randn(n, d, generator=gen, device=dev)
         h = (torch.ones(1, device=dev) if n == 1 else
              0.5 + torch.rand(n, generator=gen, device=dev))
@@ -2889,12 +2959,13 @@ def phase_kernel_lm(torch, dev):
         gc.collect()
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
-    print("[kernel LM shapes] B1 adam at d=" + f"{D_LM}, {D_WIDTH} and "
-          f"{D_C}; B2 at 8x{D_LM}, 1x{D_LM}, 4x{D_WIDTH} and 4x{D_C}; B3b at "
-          f"4x{D_LM} with a carry; B3c int8 + EF at 8x{D_LM}, 4x{D_WIDTH} "
-          f"and 4x{D_C}, folded sign + EF at 8x{D_LM}; B4 int8 (with and "
-          f"without statistics) and fold at 1x{D_LM}, int8 at 1x{D_WIDTH} "
-          f"and 1x{D_C}; the plain versions {1 << 26} columns at a "
+    wide = f"{D_WIDTH}, {D_C}, {D_D} and {D_E}"
+    print(f"[kernel LM shapes] B1 adam at d = {D_LM}, {wide}; B2 at "
+          f"8x{D_LM}, 1x{D_LM} and 4 x each of {wide}; B3b at 4x{D_LM} "
+          f"with a carry; B3c int8 + EF at 8x{D_LM} and 4 x each of {wide},"
+          f" folded sign + EF at 8x{D_LM}; B4 int8 (with and without "
+          f"statistics) and fold at 1x{D_LM}, int8 at 1 x each of {wide}; "
+          f"the plain versions {1 << 26} columns at a "
           "time: max_abs_err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
           + " (tol 1e-6 rel + 1e-6 of scale); transmit payloads bitwise the "
@@ -2925,7 +2996,7 @@ def _lm_times(torch, dev, gen, flush):
     rows, library = {}, {}
     kw = dict(lr=0.02, beta1=0.9, beta2=0.3, alpha=1.5, eps=1e-8,
               mode="adam")
-    for d in (D_LM, D_WIDTH, D_C):
+    for d in (D_LM, D_WIDTH, D_C, D_D, D_E):
         g, w = (torch.randn(d, generator=gen, device=dev) for _ in range(2))
         delta = 0.1 * torch.randn(d, generator=gen, device=dev)
         nu = 0.01 * torch.rand(d, generator=gen, device=dev)
@@ -2938,7 +3009,8 @@ def _lm_times(torch, dev, gen, flush):
         del g, w, delta, nu
         gc.collect()
         torch.cuda.empty_cache()
-    for n, d in ((8, D_LM), (1, D_LM), (4, D_WIDTH), (4, D_C)):
+    for n, d in ((8, D_LM), (1, D_LM), (4, D_WIDTH), (4, D_C), (4, D_D),
+                 (4, D_E)):
         grads = torch.randn(n, d, generator=gen, device=dev)
         h = (torch.ones(1, device=dev) if n == 1 else
              torch.rand(n, generator=gen, device=dev))
@@ -3048,8 +3120,10 @@ def phase_kernel_flash(torch, dev):
     # each in f32 and bf16, through the variant the wrapper picks
     labels = ([f"FLASH_CASES[{i}]" for i in range(len(FLASH_CASES))]
               + [f"{a} prefill shape" for a in FLASH_MODEL_SHAPES]
+              + [f"{a} prefill shape" for a in FLASH_SERVE_SHAPES]
               + ["rows without keys"] * len(FLASH_KEYLESS))
-    shapes = FLASH_CASES + list(FLASH_MODEL_SHAPES.values()) + FLASH_KEYLESS
+    shapes = (FLASH_CASES + list(FLASH_MODEL_SHAPES.values())
+              + list(FLASH_SERVE_SHAPES.values()) + FLASH_KEYLESS)
     cases = [(lab, c, dt) for lab, c in zip(labels, shapes)
              for dt in (torch.float32, torch.bfloat16)]
     worst = {"hopper": (0.0, 0.0), "scalar": (0.0, 0.0)}
@@ -3085,7 +3159,8 @@ def phase_kernel_flash(torch, dev):
         del q, k, v, got, want, diff, tol
     torch.cuda.empty_cache()
     print(f"[kernel flash_attention] {len(cases)} cases (6 FLASH_CASES, "
-          f"{len(FLASH_MODEL_SHAPES)} model shapes and {len(FLASH_KEYLESS)} "
+          f"{len(FLASH_MODEL_SHAPES) + len(FLASH_SERVE_SHAPES)} model "
+          f"shapes and {len(FLASH_KEYLESS)} "
           "with rows without keys, "
           "each f32 and bf16): "
           + "; ".join(f"{v}: max_abs_err {e:.3e}, worst element {sh:.3f} of "
@@ -3097,11 +3172,12 @@ def _flash_per_prefill(cfg, prompt):
     """The flash launches a prefill of ``prompt`` tokens makes, by variant:
     one a layer, of the variant ``flash_variant`` picks for the config's
     dtype and head dim (fresh allocations are 16-byte aligned); none in
-    the mla family, whose attention is plain torch."""
+    the mla family, whose attention is plain torch, nor in the
+    attention-free rwkv one."""
     from repro_torch.kernels.flash_attention import flash_variant
 
     want = {"hopper": 0, "scalar": 0}
-    if cfg.family != "mla":
+    if cfg.family in ("dense", "moe", "hybrid"):
         want[flash_variant(cfg.dtype, cfg.resolved_head_dim, prompt,
                            (0, 0, 0, 0))] = cfg.n_layers
     return want
@@ -3156,17 +3232,24 @@ def _serve_run(torch, model, params, dev, batch, prompt, gen, variants):
     check(tuple(r["ids"].shape) == (batch, gen)
           and int(r["ids"].min()) >= 0 and int(r["ids"].max()) < cfg.vocab,
           f"{cfg.arch}: ids {tuple(r['ids'].shape)}")
-    pos = cache["layers"]["kv"]["pos"][0]
-    total = prompt + gen
-    if cfg.window and total > cfg.window:
-        # the ring holds exactly the last `window` positions
-        check(sorted(pos.tolist()) == list(range(total - cfg.window, total)),
-              f"{cfg.arch}: ring positions")
+    # the cache holds the prompt, the tokens and the meta tokens, at most
+    # a window of them (the JAX CLI's length)
+    total = prompt + gen + cfg.n_meta_tokens
+    length = min(total, cfg.window) if cfg.window else total
+    kv = cache["layers"].get("kv")
+    if kv is not None:
+        pos = kv["pos"][0]
+        check(pos.shape[0] == length, f"{cfg.arch}: a cache of "
+              f"{pos.shape[0]} positions, want {length}")
+        if cfg.window and total > cfg.window:
+            # the ring holds exactly the last `window` positions
+            check(sorted(pos.tolist()) == list(range(total - cfg.window,
+                                                     total)),
+                  f"{cfg.arch}: ring positions")
     ms_tok = 1e3 * r["t_decode"] / max(gen - 1, 1)
     # where the time goes: one more prefill and one decode step under the
     # profiler (not counted above), each with its own host clock
     batch_in = {"tokens": tokens}
-    length = pos.shape[0]
     _profile(torch, f"{cfg.arch} {batch}x{prompt} prefill",
              lambda: model.prefill(params, batch_in, length=length))
     _profile(torch, f"{cfg.arch} {batch}x{prompt} decode step",
@@ -3177,8 +3260,8 @@ def _serve_run(torch, model, params, dev, batch, prompt, gen, variants):
                 prefill_tokens_per_s=batch * prompt / r["t_prefill"],
                 cold_prefill_ms=1e3 * cold["t_prefill"],
                 cold_decode_ms_per_token=1e3 * cold["t_decode"]
-                / max(gen - 1, 1),
-                launches=counts, ids=r["ids"][0, :8].tolist())
+                / max(gen - 1, 1), cache_length=length if kv is not None
+                else None, launches=counts, ids=r["ids"][0, :8].tolist())
 
 
 def _profile_run(torch, fn):
@@ -3281,7 +3364,8 @@ def phase_serve(torch, dev, variants, arch):
           f"/ {cfg.n_kv_heads} kv, head_dim {cfg.resolved_head_dim}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}, "
           f"{cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts} "
-          f"shared, family {cfg.family}: {n_params / 1e9:.3f} B parameters "
+          f"shared, {cfg.n_meta_tokens} meta tokens, family {cfg.family}: "
+          f"{n_params / 1e9:.3f} B parameters "
           f"({cfg.param_dtype}, {2 * n_params / 1e9:.2f} GB) drawn on the "
           f"card in {time.perf_counter() - t0:.1f} s, peak {init_peak:.2f} "
           "GB while drawing")
@@ -3306,8 +3390,13 @@ def phase_serve(torch, dev, variants, arch):
                   f"ms, decode {r['cold_decode_ms_per_token']:.2f} ms/token;"
                   f" peak memory {r['peak_gb']:.2f} GB; {FLASH} launches by "
                   f"variant {r['launches']} in each run's prefill "
-                  f"({cfg.n_layers} layers), 0 in decode; ids[0,:8] "
-                  f"{r['ids']}, the same in both runs; logits finite; ok")
+                  f"({cfg.n_layers} layers), 0 in decode; "
+                  + (f"KV cache length {r['cache_length']} (min(s + gen + "
+                     f"{cfg.n_meta_tokens}, window {cfg.window})); "
+                     if r["cache_length"] is not None else
+                     "no KV cache (the O(1) recurrent state); ")
+                  + f"ids[0,:8] {r['ids']}, the same in both runs; logits "
+                  "finite; ok")
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -3316,19 +3405,21 @@ def phase_serve(torch, dev, variants, arch):
 
 REFERENCE_SERVE = (("qwen3-14b", 48), ("starcoder2-15b", 80),
                    ("qwen3-moe-235b-a22b", 48), ("kimi-k2-1t-a32b", 48),
-                   ("minicpm3-4b", 48))
+                   ("minicpm3-4b", 48), ("rwkv6-7b", 48),
+                   ("hymba-1.5b", 48))
 
 
 def phase_reference_serve(torch, dev):
-    """The REFERENCE_SERVE smoke configs (dense, moe, mla) in f32 on the
-    card against the same parameters on the CPU: prefill logits, caches
-    and 8 greedy ids. The f32 serving path of the scalar flash kernel
-    (none in the mla family): its counters are set to 0 just before and
-    read just after; returns its launches."""
+    """The REFERENCE_SERVE smoke configs (dense, moe, mla, rwkv, hybrid)
+    in f32 on the card against the same parameters on the CPU: prefill
+    logits, every cache leaf and 8 greedy ids. The f32 serving path of
+    the scalar flash kernel (none in the mla and rwkv families): its
+    counters are set to 0 just before and read just after; returns its
+    launches."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
-    from repro_torch.core.slab import tree_map
+    from repro_torch.core.slab import tree_flatten, tree_map
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.launch.serve import generate
     from repro_torch.models.model import build_model
@@ -3348,8 +3439,8 @@ def phase_reference_serve(torch, dev):
         layers += _flash_per_prefill(cfg, prompt)["scalar"]
         pairs = [("prefill logits", card["prefill_logits"],
                   cpu["prefill_logits"])]
-        pairs += [(f"cache {k}", card["cache"]["layers"]["kv"][k], v)
-                  for k, v in cpu["cache"]["layers"]["kv"].items()]
+        pairs += [(f"cache leaf {i}", a, b) for i, (a, b) in enumerate(zip(
+            tree_flatten(card["cache"])[0], tree_flatten(cpu["cache"])[0]))]
         for what, a, b in pairs:
             a, b = a.cpu().float(), b.float()
             scale = max(float(b.abs().max()), 1.0)
@@ -3368,10 +3459,11 @@ def phase_reference_serve(torch, dev):
     print("[reference serve] the smoke configs of "
           + ", ".join(f"{a} (prompt {p})" for a, p in REFERENCE_SERVE)
           + " in f32 (starcoder2's prompt past its window of 64: the ring "
-          "cache; the moe ones drop tokens in decode), card vs cpu: prefill "
+          "cache; the moe ones drop tokens in decode; hymba's 8 meta tokens "
+          "and 48 prompt tokens in its window of 64), card vs cpu: prefill "
           f"logits and caches within {worst:.2e} of scale (tol 1e-4), 8 "
           f"greedy ids equal; {FLASH} launches {scalar}, all of the scalar "
-          "variant (one a layer, none in minicpm3's MLA); ok")
+          "variant (one a layer, none in minicpm3's MLA or rwkv6's); ok")
     return scalar
 
 
@@ -3789,6 +3881,11 @@ def main() -> int:
     phase_families_train(torch, all_counters + (flash_attention,))
     wd_c = phase_lm_width(torch, dev, all_counters + (flash_attention,),
                           C_ARCH)
+    wd_d = phase_lm_width(torch, dev, all_counters + (flash_attention,),
+                          D_ARCH)
+    wd_e = phase_lm_width(torch, dev, all_counters + (flash_attention,),
+                          E_ARCH)
+    phase_serve_example(torch, flash_attention)
     phase_alpha_mismatch(torch, all_counters + (flash_attention,))
     nocarry = Counter(ota_transmit_slab, "nocarry_launches", NOCARRY)
     rxstats = Counter(ota_receive_slab, "stats_launches", RXSTATS)
@@ -3851,6 +3948,11 @@ def main() -> int:
     launches[f"{CHAN} 4x{D_C}"] = wd_c["f32"][CHAN]
     launches[f"{TX} 4x{D_C}"] = wd_c["int8-ef"][TX]
     launches[f"{RX} 1x{D_C}"] = wd_c["int8-ef"][RX]
+    for d, runs in ((D_D, wd_d), (D_E, wd_e)):
+        launches[f"{UPD} d={d}"] = sum(r[UPD] for r in runs.values())
+        launches[f"{CHAN} 4x{d}"] = runs["f32"][CHAN]
+        launches[f"{TX} 4x{d}"] = runs["int8-ef"][TX]
+        launches[f"{RX} 1x{d}"] = runs["int8-ef"][RX]
     # the sharded runs (phases 14e-14f): B3a's launches at each of its
     # two shapes (phase 14e's ResNet rounds, phase 14f's 100m CLI), and
     # the other kernels' on their rows; the receive's launches with
@@ -3911,7 +4013,10 @@ def main() -> int:
         (f"{RX} fold 1x{D_LM}", b4),
         (f"{RX} 1x{D_WIDTH}", b4), (f"{UPD} d={D_C}", b1),
         (f"{CHAN} 4x{D_C}", b2), (f"{TX} 4x{D_C}", b3c),
-        (f"{RX} 1x{D_C}", b4)))
+        (f"{RX} 1x{D_C}", b4))
+        + tuple(row for d in (D_D, D_E) for row in (
+            (f"{UPD} d={d}", b1), (f"{CHAN} 4x{d}", b2),
+            (f"{TX} 4x{d}", b3c), (f"{RX} 1x{d}", b4))))
     rows += tuple((f"{B3A} {n}x{d}", "ota_transmit_stream.cu",
                    "src/repro/kernels/ota_channel.py:419",
                    err_b3a[f"{B3A} {n}x{d}"]) for n, d in B3A_PATH_SHAPES)

@@ -1,14 +1,17 @@
 """Batched serving CLI: prefill a batch of prompts, then decode
-autoregressively with the KV cache (a ring cache under a sliding window).
+autoregressively with the per-family cache (the KV cache, a ring cache
+under a sliding window; MLA's latent cache; the recurrent state).
 
 PyTorch counterpart of ``repro.launch.serve``, with the same flags and
 defaults plus ``--device`` (default: the card; ``cpu`` runs the plain
 versions of the kernels). The port serves the dense (qwen3-14b,
-qwen2.5-14b, starcoder2-15b), moe (qwen3-moe-235b-a22b, kimi-k2-1t-a32b)
-and mla (minicpm3-4b) families:
+qwen2.5-14b, starcoder2-15b), moe (qwen3-moe-235b-a22b, kimi-k2-1t-a32b),
+mla (minicpm3-4b), rwkv (rwkv6-7b) and hybrid (hymba-1.5b) families:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --preset tiny --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --preset full
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+        --preset tiny --batch 4 --prompt-len 64 --gen 32 --device cpu
 
 Weights are random, drawn from ``--seed`` on the device; the prompt is
 random ids drawn from seed 1. Greedy decoding (``--temperature 0``)
@@ -50,10 +53,11 @@ def generate(model: Model, params, tokens: torch.Tensor, gen: int, *,
     (the first from the prefill's logits). Times both phases on the
     tokens' device (synchronized on the card). Returns the generated ids
     (B, gen), the prefill logits, the final cache and the two times in
-    seconds."""
+    seconds. The cache holds the prompt, the generated tokens and the
+    meta tokens (Hymba), at most a window of them."""
     cfg = model.config
     b, s = tokens.shape
-    total = s + gen
+    total = s + gen + cfg.n_meta_tokens
     length = min(total, cfg.window) if cfg.window else total
     cuda = tokens.device.type == "cuda"
 

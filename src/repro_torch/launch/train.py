@@ -36,8 +36,8 @@ port has no Pallas interpret mode), ``--no-donate`` and
 ``--donation-report`` (no XLA buffer donation: the slabs update in
 place) and ``--backend jnp`` (no backend switch: the device decides).
 ``--backend`` accepts ``pallas``, its default, and ``pallas_sharded``.
-The dense, moe and mla families train; another family raises
-``NotImplementedError`` naming ROADMAP A13c.
+The dense, moe, mla, rwkv and hybrid families train; the vlm and encdec
+families raise ``NotImplementedError`` naming ROADMAP A13c.5.
 
     PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
         --rounds 3 --clients 4 --device cpu

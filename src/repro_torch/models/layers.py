@@ -63,6 +63,21 @@ def _drawn(shape, dtype, gen: torch.Generator,
     return out
 
 
+def normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
+    """``jax.random.normal(key, shape, f32) * std`` cast to ``dtype``, in
+    law."""
+    return _drawn(shape, dtype, gen,
+                  lambda t: t.normal_(0.0, std, generator=gen))
+
+
+def uniform(gen: torch.Generator, shape, low: float, high: float,
+            dtype) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, f32, low, high)`` cast to
+    ``dtype``, in law."""
+    return _drawn(shape, dtype, gen,
+                  lambda t: t.uniform_(low, high, generator=gen))
+
+
 def truncated_normal(gen: torch.Generator, shape, std: float,
                      dtype) -> torch.Tensor:
     """A normal of standard deviation ``std`` truncated to [-2, 2] std
@@ -132,9 +147,7 @@ def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def embed_init(gen: torch.Generator, vocab: int, dim: int,
                dtype=torch.bfloat16) -> dict:
-    std = 1.0 / math.sqrt(dim)
-    return {"table": _drawn((vocab, dim), dtype, gen,
-                            lambda t: t.normal_(0.0, std, generator=gen))}
+    return {"table": normal(gen, (vocab, dim), 1.0 / math.sqrt(dim), dtype)}
 
 
 def embed(p: dict, ids: torch.Tensor,

@@ -3,8 +3,8 @@
 PyTorch counterpart of ``repro.models.model``. ``ModelConfig`` mirrors
 the JAX package's field for field, with ``n_params`` and
 ``n_active_params``. ``build_model(cfg)`` returns a ``Model`` for the
-dense (Qwen3, Qwen2.5, StarCoder2), moe (Qwen3-MoE, Kimi-K2) and mla
-(MiniCPM3) families:
+dense (Qwen3, Qwen2.5, StarCoder2), moe (Qwen3-MoE, Kimi-K2), mla
+(MiniCPM3), rwkv (RWKV-6) and hybrid (Hymba) families:
 
     init(seed=0, device=None)          -- random parameters on the device
     forward(params, batch)             -- full-sequence logits
@@ -14,16 +14,19 @@ dense (Qwen3, Qwen2.5, StarCoder2), moe (Qwen3-MoE, Kimi-K2) and mla
     init_cache(batch, length, device)  -- empty caches
 
 Params are nested dicts with the per-layer parameters stacked on a
-leading layer axis, the JAX package's layout. In the dense and moe
-families ``forward`` and ``prefill`` run attention through the
+leading layer axis, the JAX package's layout. In the dense, moe and
+hybrid families ``forward`` and ``prefill`` run attention through the
 flash-attention kernel (B5), which has no backward; ``loss_fn`` runs the
 same backbone with its positions given, so attention takes the masked
 plain path that ``torch.func`` differentiates (``models.attention``).
-MLA attention is plain torch on every path (``models.mla``).
-``decode_step`` updates the cache in place. ``loss_fn`` adds the blocks'
-aux loss (the MoE load-balance loss); ``forward`` returns it beside the
-logits. Any other family raises ``NotImplementedError`` naming its
-ROADMAP item (A13c).
+MLA attention is plain torch on every path (``models.mla``); RWKV has no
+attention. With ``n_meta_tokens`` (Hymba) the learned meta tokens are
+prepended to every sequence and sliced off before the unembedding, and
+``decode_step`` shifts its position past them. ``decode_step`` updates
+the cache in place. ``loss_fn`` adds the blocks' aux loss (the MoE
+load-balance loss); ``forward`` returns it beside the logits. The vlm
+and encdec families raise ``NotImplementedError`` naming their ROADMAP
+item (A13c.5).
 """
 
 from __future__ import annotations
@@ -38,9 +41,11 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import AttentionConfig
 from repro_torch.models.layers import (dense, dense_init, embed, embed_init,
-                                       softmax_xent)
+                                       normal, softmax_xent)
 from repro_torch.models.mla import MLAConfig
 from repro_torch.models.moe import MoEConfig
+from repro_torch.models.rwkv import RWKVConfig
+from repro_torch.models.ssm import SSMConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -123,6 +128,16 @@ class ModelConfig:
             d_ff=self.d_ff, n_shared_experts=self.n_shared_experts,
             capacity_factor=self.capacity_factor)
 
+    def ssm_config(self) -> SSMConfig:
+        return SSMConfig(d_model=self.d_model,
+                         d_inner=self.ssm_expand * self.d_model,
+                         d_state=self.ssm_state, chunk=self.ssm_chunk)
+
+    def rwkv_config(self) -> RWKVConfig:
+        return RWKVConfig(d_model=self.d_model, n_heads=self.n_heads,
+                          d_ff=self.d_ff, lora_rank=self.rwkv_lora_rank,
+                          chunk=self.rwkv_chunk)
+
     def n_params(self) -> int:
         """Exact parameter count, from shapes alone: ``init`` runs under
         ``FakeTensorMode`` and allocates nothing (the JAX package's
@@ -156,8 +171,9 @@ class Model(NamedTuple):
 
 
 _BLOCKS = {"dense": tfm.dense_block, "mla": tfm.mla_block,
-           "moe": tfm.moe_block}
-_UNPORTED = ("rwkv", "hybrid", "vlm", "encdec")
+           "moe": tfm.moe_block, "rwkv": tfm.rwkv_block,
+           "hybrid": tfm.hybrid_block}
+_UNPORTED = ("vlm", "encdec")
 
 
 def _block_fns(cfg: ModelConfig) -> tuple:
@@ -165,7 +181,7 @@ def _block_fns(cfg: ModelConfig) -> tuple:
         return _BLOCKS[cfg.family](cfg)
     if cfg.family in _UNPORTED:
         raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet (ROADMAP A13c); "
+            f"the {cfg.family} family is not ported yet (ROADMAP A13c.5); "
             f"the port builds the {', '.join(_BLOCKS)} families")
     raise ValueError(f"unknown family {cfg.family}")
 
@@ -176,21 +192,34 @@ def build_model(cfg: ModelConfig) -> Model:
     def init(seed: int = 0, device: DeviceLike = None):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        return {
+        p = {
             "embed": embed_init(gen, cfg.vocab, cfg.d_model, cfg.dtype),
             "blocks": tfm.stack_init(b_init, gen, cfg.n_layers),
             "final_norm": tfm._norm_init(cfg.norm, cfg.d_model, dev),
             "unembed": dense_init(gen, cfg.d_model, (cfg.vocab,), cfg.dtype),
         }
+        if cfg.n_meta_tokens:
+            p["meta_tokens"] = normal(gen, (cfg.n_meta_tokens, cfg.d_model),
+                                      0.02, cfg.dtype)
+        return p
+
+    def _embed(params, tokens):
+        """The token embeddings, after the meta tokens if any."""
+        x = embed(params["embed"], tokens, cfg.dtype)
+        if cfg.n_meta_tokens:
+            meta = params["meta_tokens"][None].expand(
+                x.shape[0], *params["meta_tokens"].shape).to(x.dtype)
+            x = torch.cat([meta, x], dim=1)
+        return x
 
     def _logits(params, tokens, positions):
-        x = embed(params["embed"], tokens, cfg.dtype)
+        x = _embed(params, tokens)
         x, aux = tfm.stack_apply(lambda lp, h: b_fwd(lp, h, positions),
                                  params["blocks"], x,
                                  torch.zeros((), dtype=torch.float32,
                                              device=x.device))
         x = tfm._norm(cfg.norm, params["final_norm"], x)
-        return dense(params["unembed"], x), aux
+        return dense(params["unembed"], x[:, cfg.n_meta_tokens:]), aux
 
     def forward(params, batch):
         """Logits over the whole sequence through the flash kernel (no
@@ -203,8 +232,8 @@ def build_model(cfg: ModelConfig) -> Model:
         takes the plain path, so gradients exist (the flash kernel has
         none)."""
         tokens = batch["tokens"]
-        positions = torch.arange(tokens.shape[-1], dtype=torch.int32,
-                                 device=tokens.device)
+        positions = torch.arange(cfg.n_meta_tokens + tokens.shape[-1],
+                                 dtype=torch.int32, device=tokens.device)
         logits, aux = _logits(params, tokens, positions)
         loss = softmax_xent(logits[:, :-1], tokens[:, 1:], weights,
                             batch.get("mask"))
@@ -220,15 +249,18 @@ def build_model(cfg: ModelConfig) -> Model:
         Returns (logits of the last position, cache)."""
         tokens = batch["tokens"]
         length = length or tokens.shape[1]
-        x = embed(params["embed"], tokens, cfg.dtype)
+        x = _embed(params, tokens)
         x, layers = tfm.stack_prefill(lambda lp, xx: b_pfl(lp, xx, length),
                                       params["blocks"], x)
-        x = tfm._norm(cfg.norm, params["final_norm"], x)
+        x = tfm._norm(cfg.norm, params["final_norm"],
+                      x[:, cfg.n_meta_tokens:])
         return dense(params["unembed"], x[:, -1:]), {"layers": layers}
 
     def decode_step(params, cache, token, pos: int):
-        """token: (B, 1) integer ids; pos: the absolute position (int).
-        Writes the token into ``cache`` and returns (logits, cache)."""
+        """token: (B, 1) integer ids; pos: the absolute text position
+        (int; the meta tokens' offset, if any, is added here). Writes the
+        token into ``cache`` and returns (logits, cache)."""
+        pos = pos + cfg.n_meta_tokens
         x = embed(params["embed"], token, cfg.dtype)
         x, layers = tfm.stack_decode(
             lambda lp, ch, xx: b_decode(lp, ch, xx, pos), params["blocks"],

@@ -1,17 +1,20 @@
 """Transformer blocks and the layer-stack helpers.
 
-PyTorch counterpart of ``repro.models.transformer`` for three families:
+PyTorch counterpart of ``repro.models.transformer`` for five families:
 
-  dense -- pre-norm GQA attention + (SwiGLU | GeLU) MLP
-  mla   -- pre-norm MLA attention + SwiGLU MLP (MiniCPM3; ``models.mla``)
-  moe   -- pre-norm GQA attention + top-k MoE FFN (+ shared expert;
-           ``models.moe``)
+  dense  -- pre-norm GQA attention + (SwiGLU | GeLU) MLP
+  mla    -- pre-norm MLA attention + SwiGLU MLP (MiniCPM3; ``models.mla``)
+  moe    -- pre-norm GQA attention + top-k MoE FFN (+ shared expert;
+            ``models.moe``)
+  rwkv   -- RWKV-6 time mix + channel mix (``models.rwkv``)
+  hybrid -- Hymba: GQA attention and an SSM branch in parallel on the
+            same input, averaged, + MLP (``models.ssm``)
 
 Per-layer parameters are stacked on a leading layer axis, as in the JAX
 package, so ``convert.params_from_numpy`` carries a JAX model across
 leaf for leaf; where the JAX package scans over that axis, the port runs
-a Python loop over the layers (``stack_*``). The other families (rwkv,
-hybrid, encdec, vlm) are ROADMAP A13c.
+a Python loop over the layers (``stack_*``). The encdec and vlm families
+are ROADMAP A13c.5.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from repro_torch.core.slab import tree_flatten, tree_map, tree_unflatten
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rwkv as rwkv_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (draw_into, gelu_mlp, gelu_mlp_init,
                                        layernorm, layernorm_init, rmsnorm,
                                        rmsnorm_init, swiglu, swiglu_init)
@@ -276,5 +281,107 @@ def moe_block(cfg) -> tuple:
         x = x + y
         y, _ = moe_mod.moe_apply(p["moe"], ecfg, _norm(norm, p["ln2"], x))
         return x + y, {"kv": kv}
+
+    return init, fwd, decode, init_cache, pfl
+
+
+def rwkv_block(cfg) -> tuple:
+    rcfg = cfg.rwkv_config()
+
+    def init(gen):
+        return {
+            "ln1": layernorm_init(cfg.d_model, device=gen.device),
+            "tmix": rwkv_mod.time_mix_init(gen, rcfg, cfg.dtype),
+            "ln2": layernorm_init(cfg.d_model, device=gen.device),
+            "cmix": rwkv_mod.channel_mix_init(gen, rcfg, cfg.dtype),
+        }
+
+    def fwd(p, x, positions=None):
+        del positions  # attention-free: every path is plain torch
+        x = x + rwkv_mod.time_mix_forward(p["tmix"], rcfg,
+                                          layernorm(p["ln1"], x))
+        x = x + rwkv_mod.channel_mix_forward(p["cmix"], rcfg,
+                                             layernorm(p["ln2"], x))
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def decode(p, cache, x, pos):
+        del pos  # O(1) state, position-free
+        y, c = rwkv_mod.time_mix_decode(p["tmix"], rcfg,
+                                        layernorm(p["ln1"], x), cache["r"])
+        x = x + y
+        y, c = rwkv_mod.channel_mix_decode(p["cmix"], rcfg,
+                                           layernorm(p["ln2"], x), c)
+        return x + y, {**cache, "r": c}
+
+    def init_cache(batch, length, device=None):
+        del length  # O(1) state
+        return {"r": rwkv_mod.init_rwkv_cache(batch, rcfg, cfg.dtype,
+                                              device=device)}
+
+    def pfl(p, x, length):
+        del length
+        h1 = layernorm(p["ln1"], x)
+        y, s_fin, x_tm = rwkv_mod.time_mix_forward(p["tmix"], rcfg, h1,
+                                                   return_state=True)
+        x = x + y
+        h2 = layernorm(p["ln2"], x)
+        x = x + rwkv_mod.channel_mix_forward(p["cmix"], rcfg, h2)
+        # copies: a view would keep the layer's (B, S, d) inputs alive
+        return x, {"r": {"state": s_fin, "x_tm": x_tm.clone(),
+                         "x_cm": h2[:, -1].clone()}}
+
+    return init, fwd, decode, init_cache, pfl
+
+
+def hybrid_block(cfg) -> tuple:
+    """Hymba: attention and SSM branches in parallel on the same normed
+    input, per-branch output norms, averaged; then the MLP."""
+    acfg = cfg.attn_config()
+    scfg = cfg.ssm_config()
+    norm, mlpk = cfg.norm, cfg.mlp
+
+    def init(gen):
+        return {
+            "ln1": _norm_init(norm, cfg.d_model, gen.device),
+            "attn": attn.attn_init(gen, acfg, cfg.dtype),
+            "ssm": ssm_mod.ssm_init(gen, scfg, cfg.dtype),
+            "attn_out_norm": rmsnorm_init(cfg.d_model, device=gen.device),
+            "ssm_out_norm": rmsnorm_init(cfg.d_model, device=gen.device),
+            "ln2": _norm_init(norm, cfg.d_model, gen.device),
+            "mlp": _mlp_init(mlpk, gen, cfg.d_model, cfg.d_ff, cfg.dtype),
+        }
+
+    def _mix(p, x, ya, ys):
+        ya = rmsnorm(p["attn_out_norm"], ya)
+        ys = rmsnorm(p["ssm_out_norm"], ys)
+        x = x + 0.5 * (ya + ys)
+        return x + _mlp(mlpk, p["mlp"], _norm(norm, p["ln2"], x))
+
+    def fwd(p, x, positions=None):
+        # positions=None: the flash kernel (inference), as dense_block
+        h = _norm(norm, p["ln1"], x)
+        ya = attn.self_attention(p["attn"], acfg, h, positions)
+        ys = ssm_mod.ssm_forward(p["ssm"], scfg, h)
+        return (_mix(p, x, ya, ys),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+
+    def decode(p, cache, x, pos):
+        h = _norm(norm, p["ln1"], x)
+        ya, ckv = attn.decode_self_attention(p["attn"], acfg, h,
+                                             cache["kv"], pos)
+        ys, ch = ssm_mod.ssm_decode_step(p["ssm"], scfg, h, cache["ssm"])
+        return _mix(p, x, ya, ys), {**cache, "kv": ckv, "ssm": ch}
+
+    def init_cache(batch, length, device=None):
+        return {"kv": attn.init_kv_cache(batch, length, acfg, cfg.dtype,
+                                         device=device),
+                "ssm": ssm_mod.init_ssm_cache(batch, scfg, cfg.dtype,
+                                              device=device)}
+
+    def pfl(p, x, length):
+        h = _norm(norm, p["ln1"], x)
+        ya, kv = attn.prefill_kv_cache(p["attn"], acfg, h, length)
+        ys, sc = ssm_mod.ssm_forward(p["ssm"], scfg, h, return_state=True)
+        return _mix(p, x, ya, ys), {"kv": kv, "ssm": sc}
 
     return init, fwd, decode, init_cache, pfl

@@ -1,0 +1,256 @@
+"""Checks shared by the port's model-family tests (``test_torch_rwkv.py``,
+``test_torch_hybrid.py``): a smoke config's model in the JAX package and
+in the port on the same parameters (carried across bitwise by
+``repro_torch.convert``) and the same numpy-seeded tokens.
+
+Tiers, those of ``tests/test_torch_moe.py`` and ``tests/test_torch_mla.py``:
+f32 1e-4 of scale, bf16 3e-2; the loss 1e-5 relative in f32 and 2e-3
+absolute in bf16, each gradient leaf 1e-4 (f32) or 3e-2 (bf16) of its
+scale; the tiny slab round's losses at 1e-5 and its state slabs at the
+f32-wire tiers of ``tests/test_torch_lm_train.py``."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+from torch.func import grad_and_value
+
+from _torch_ref import jax_configs, ref_draws, to_np
+from repro import configs as jconfigs
+from repro.core.fl import make_slab_round_step as j_make_step
+from repro.core.slab_state import init_train_state as j_init_state
+from repro.launch.train import preset_config as j_preset_config
+from repro.models.model import build_model as j_build_model
+from repro_torch import configs as tconfigs
+from repro_torch.convert import params_from_numpy
+from repro_torch.core.adaptive import AdaptiveConfig
+from repro_torch.core.channel import OTAChannelConfig
+from repro_torch.core.fl import (FLConfig, make_slab_round_runner,
+                                 run_rounds_slab)
+from repro_torch.core.slab import tree_flatten
+from repro_torch.core.slab_state import init_train_state
+from repro_torch.models import layers as tlayers
+from repro_torch.models import transformer as ttfm
+from repro_torch.models.model import build_model
+
+TIER = {"float32": 1e-4, "bfloat16": 3e-2}
+LOSS_TIERS = {"float32": (1e-5, 1e-4), "bfloat16": (2e-3, 3e-2)}
+SLAB_SHARE, SLAB_WORST = 1e-4, 1e-4
+# bf16 gradients against the f32 one: RWKV's smoke model, measured at
+# 4.4e-2 of scale for JAX's and 3.3e-2 for the port's (seed 3)
+BF16_VS_F32 = 5e-2
+STEPS = 8
+
+
+def scaled_close(got, want, tier, what=""):
+    got, want = to_np(got).astype(np.float64), to_np(want).astype(np.float64)
+    assert got.shape == want.shape, (what, got.shape, want.shape)
+    scale = max(float(np.abs(want).max()), 1e-30)
+    err = float(np.abs(got - want).max())
+    assert err <= tier * scale, f"{what}: max err {err} > {tier} x {scale}"
+
+
+def tensors(tree):
+    return params_from_numpy(jax.tree.map(np.asarray, tree), "cpu")
+
+
+def trees_close(got, want, tier, what):
+    """A port tree (dicts of tensors) against a JAX one, leaf by key."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), (what, sorted(got), sorted(want))
+        for k in want:
+            trees_close(got[k], want[k], tier, f"{what}.{k}")
+        return
+    assert str(got.dtype).removeprefix("torch.") == \
+        str(np.asarray(want).dtype), (what, got.dtype, want.dtype)
+    scaled_close(got, want, tier, what)
+
+
+def models(arch, dtype, seed=0):
+    jcfg = dataclasses.replace(jconfigs.smoke_config(arch), param_dtype=dtype)
+    tcfg = dataclasses.replace(tconfigs.smoke_config(arch), param_dtype=dtype)
+    jm, tm = j_build_model(jcfg), build_model(tcfg)
+    jp = jm.init(jax.random.key(seed))
+    return jm, tm, jp, tensors(jp)
+
+
+def check_forward_prefill_decode(arch, dtype, s=24):
+    """``forward``, ``prefill`` (logits and caches) and STEPS greedy
+    ``decode_step`` (logits, the cache written in place) against JAX's;
+    in bf16 JAX's ids are fed to both (near-ties may round apart)."""
+    jm, tm, jp, tp = models(arch, dtype)
+    cfg = tm.config
+    toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, s))
+    tier = TIER[dtype]
+    jl, jaux = jm.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)})
+    tl, taux = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    scaled_close(tl, jl, tier, "forward logits")
+    assert float(taux) == float(jaux) == 0.0
+    length = s + STEPS + cfg.n_meta_tokens
+    length = min(length, cfg.window) if cfg.window else length
+    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
+                        length=length)
+    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
+                        length=length)
+    scaled_close(tl, jl, tier, "prefill logits")
+    trees_close(tc, jc, tier, "prefill cache")
+    decode = jax.jit(jm.decode_step)
+    jtok = jnp.argmax(jl[:, -1:], -1).astype(jnp.int32)
+    ttok = torch.argmax(tl[:, -1:], -1)
+    held = tree_flatten(tc)[0]
+    for i in range(STEPS):
+        if dtype == "float32":
+            np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+        else:
+            ttok = torch.from_numpy(np.array(jtok)).long()
+        jl, jc = decode(jp, jc, jtok, jnp.asarray(s + i))
+        tl, tc2 = tm.decode_step(tp, tc, ttok, s + i)
+        assert all(a is b for a, b in zip(tree_flatten(tc2)[0], held))
+        scaled_close(tl, jl, tier, f"decode step {i} logits")
+        jtok = jnp.argmax(jl[:, -1:], -1).astype(jnp.int32)
+        ttok = torch.argmax(tl[:, -1:], -1)
+    trees_close(tc, jc, tier, "decoded cache")
+
+
+def check_loss_and_gradients(arch, dtype, s=40, bf16_vs_jax=True):
+    """``loss_fn`` and its gradients against ``jax.value_and_grad``. In
+    bf16 with ``bf16_vs_jax=False`` each package's gradient leaves are
+    held instead to the f32 gradient of the same (bf16-valued)
+    parameters, at BF16_VS_F32 of scale: where the reference's own bf16
+    gradient is that far from the f32 one, two bf16 backwards cannot
+    meet 3e-2 of each other."""
+    jm, tm, jp, tp = models(arch, dtype, seed=3)
+    toks = np.random.default_rng(0).integers(0, tm.config.vocab, (2, s)
+                                             ).astype(np.int32)
+    jl, jg = jax.value_and_grad(jm.loss_fn)(jp, {"tokens":
+                                                 jnp.asarray(toks)})
+    tg, tl = grad_and_value(tm.loss_fn)(tp, {"tokens":
+                                             torch.from_numpy(toks)})
+    loss_tol, leaf_tol = LOSS_TIERS[dtype]
+    if dtype == "float32":
+        np.testing.assert_allclose(float(tl), float(jl), rtol=loss_tol)
+    else:
+        assert abs(float(tl) - float(jl)) <= loss_tol
+    assert [tuple(a.shape) for a in tree_flatten(tg)[0]] == \
+        [tuple(b.shape) for b in jax.tree.leaves(jg)]
+    want = jax.tree.leaves(jg)
+    if dtype == "bfloat16" and not bf16_vs_jax:
+        j32 = j_build_model(dataclasses.replace(jm.config,
+                                                param_dtype="float32"))
+        want = jax.tree.leaves(jax.grad(j32.loss_fn)(
+            jax.tree.map(lambda a: a.astype(jnp.float32), jp),
+            {"tokens": jnp.asarray(toks)}))
+        leaf_tol = BF16_VS_F32
+        for i, (a, b) in enumerate(zip(jax.tree.leaves(jg), want)):
+            scaled_close(a, b, leaf_tol, f"JAX's bf16 gradient leaf {i}")
+    for i, (a, b) in enumerate(zip(tree_flatten(tg)[0], want)):
+        scaled_close(a, b, leaf_tol, f"gradient leaf {i}")
+
+
+def check_tiny_slab_round(arch, rounds=3):
+    """``rounds`` slab rounds of the tiny preset in f32 (adam_ota, f32
+    wire) from one state on JAX's pallas round and on the port's runner
+    on JAX's draws: the losses at 1e-5, every state slab within
+    1e-5 + 1e-5 |x| on all but SLAB_SHARE of its entries, within
+    SLAB_WORST on all and its mean error under 1e-6."""
+    n_clients, batch, seq = 4, 2, 32
+    jcfg = dataclasses.replace(j_preset_config(arch, "tiny"),
+                               param_dtype="float32")
+    tcfg = dataclasses.replace(tconfigs.preset_config(arch, "tiny"),
+                               param_dtype="float32")
+    jmodel, tmodel = j_build_model(jcfg), build_model(tcfg)
+    params_np = jax.tree.map(np.asarray, jmodel.init(jax.random.key(0)))
+    rng = np.random.default_rng(4)
+    batches = [{"tokens": rng.integers(0, jcfg.vocab, (n_clients, batch, seq)
+                                       ).astype(np.int32)}
+               for _ in range(rounds)]
+    ch = OTAChannelConfig()
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.02, beta2=0.3)
+    fl = FLConfig(n_clients=n_clients)
+    jch, jad, jfl = jax_configs(ch, ad, fl)
+    jstate = j_init_state(jad, jax.tree.map(jnp.asarray, params_np))
+    jstep = j_make_step(jmodel.loss_fn, jch, jad, jfl, backend="pallas")
+    keys = [jax.random.fold_in(jax.random.key(7), t) for t in range(rounds)]
+    draws = [ref_draws(k, ch, jstate.spec, n_clients) for k in keys]
+    jlosses = []
+    for t in range(rounds):
+        jstate, jm = jstep(jstate, keys[t],
+                           jax.tree.map(jnp.asarray, batches[t]))
+        jlosses.append(float(jm.loss))
+    run = make_slab_round_runner(tmodel.loss_fn, ch, ad, fl, device="cpu")
+    tstate = init_train_state(ad, params_from_numpy(params_np, "cpu"),
+                              device="cpu")
+    tstate, hist = run_rounds_slab(run, tstate, draws.__getitem__,
+                                   batches.__getitem__, rounds, chunk=2)
+    np.testing.assert_allclose([h["loss"] for h in hist], jlosses,
+                               rtol=1e-5, atol=1e-5)
+    assert int(tstate.step) == int(jstate.step) == rounds
+    slabs = [("w", tstate.w, jstate.w)]
+    slabs += [(f"opt[{i}]", a, b) for i, (a, b) in
+              enumerate(zip(tstate.opt, jstate.opt))]
+    for what, a, b in slabs:
+        diff = np.abs(to_np(a) - to_np(b))
+        off = float((diff > 1e-5 + 1e-5 * np.abs(to_np(b))).mean())
+        assert off <= SLAB_SHARE, (what, off)
+        assert float(diff.max()) <= SLAB_WORST, (what, float(diff.max()))
+        assert float(diff.mean()) <= 1e-6, (what, float(diff.mean()))
+
+
+def check_n_params(arch, preset, n_layers):
+    cfg = tconfigs.preset_config(arch, preset)
+    jcfg = j_preset_config(arch, preset)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+        jcfg = dataclasses.replace(jcfg, n_layers=n_layers)
+    assert cfg.n_params() == jcfg.n_params()
+    return cfg.n_params()
+
+
+def check_stack_init_in_place(arch, n_layers, monkeypatch):
+    """The values of n per-layer inits in a row, bitwise, and each random
+    leaf (the truncated normals, the plain normals and uniforms) drawn
+    into its slice of the stack: no leaf of a layer is drawn anywhere
+    else."""
+    cfg = tconfigs.smoke_config(arch)
+    init = {"rwkv": ttfm.rwkv_block, "hybrid": ttfm.hybrid_block}[
+        cfg.family](cfg)[0]
+    drawn = []
+    real = tlayers._drawn
+
+    def spy(shape, dtype, gen, draw):
+        out = real(shape, dtype, gen, draw)
+        drawn.append(out)
+        return out
+
+    monkeypatch.setattr(tlayers, "_drawn", spy)
+    stacked = ttfm.stack_init(init, torch.Generator().manual_seed(5),
+                              n_layers)
+    in_stack, drawn[:] = list(drawn), []
+    gen = torch.Generator().manual_seed(5)
+    leaves = tree_flatten(stacked)[0]
+    for i in range(n_layers):
+        one = tree_flatten(init(gen))[0]
+        assert len(one) == len(leaves)
+        for a, b in zip(leaves, one):
+            assert a.dtype == b.dtype and tuple(a.shape[1:]) == \
+                tuple(b.shape)
+            assert torch.equal(a[i], b)
+    assert len(in_stack) == len(drawn) > 0
+    bases = {s.untyped_storage().data_ptr() for s in leaves}
+    assert all(t.untyped_storage().data_ptr() in bases for t in in_stack)
+    return {tuple(t.shape) for t in drawn}
+
+
+def check_clis(arch, capsys):
+    from repro_torch.launch import serve, train
+    r = serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                    "--prompt-len", "16", "--gen", "4"])
+    assert tuple(r["ids"].shape) == (2, 4)
+    out = train.main(["--arch", arch, "--device", "cpu", "--rounds", "2",
+                      "--clients", "2", "--seq", "32", "--log-every", "1"])
+    losses = [h["loss"] for h in out["history"]]
+    assert len(losses) == 2 and np.isfinite(losses).all()
+    text = capsys.readouterr().out
+    assert f"arch={arch}" in text and "round     2" in text

@@ -1170,3 +1170,40 @@ def test_expert_product_takes_an_f32_output_on_the_card(cuda, shape):
     grad = _expert_product(a, b.requires_grad_())
     assert grad.requires_grad
     _close(grad.detach(), got, 1e-5)
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "hymba-1.5b"])
+def test_recurrent_decode_step_on_the_card_matches_the_cpu(cuda, arch):
+    """One RWKV / Hymba decode step on the card from the CPU's prefill
+    cache: the logits and the cache it writes in place agree with the
+    CPU's plain versions (f32, 1e-4 of scale); the card's prefill
+    launches the flash kernel once a layer in Hymba, never in RWKV, and
+    decode never."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.slab import tree_flatten, tree_map
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(smoke_config(arch), param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks}
+    _, cache = model.prefill(params, batch, length=56)
+    params_c = tree_map(lambda t: t.to(cuda), params)
+    cache_c = tree_map(lambda t: t.to(cuda), cache)
+    n0 = flash_attention.launches
+    model.prefill(params_c, {"tokens": toks.to(cuda)}, length=56)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - n0 == (
+        cfg.n_layers if cfg.family == "hybrid" else 0)
+    token = toks[:, -1:]
+    want, cache = model.decode_step(params, cache, token, 40)
+    n0 = flash_attention.launches
+    got, cache_c = model.decode_step(params_c, cache_c, token.to(cuda), 40)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0
+    _close(got.cpu(), want, 1e-4)
+    for a, b in zip(tree_flatten(cache_c)[0], tree_flatten(cache)[0]):
+        _close(a.cpu(), b, 1e-4)

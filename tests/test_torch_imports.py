@@ -50,7 +50,8 @@ def test_module_list_covers_the_package():
                  "models.layers", "models.attention", "models.transformer",
                  "models.model", "launch.serve", "launch.train",
                  "core.shard", "launch.mesh", "launch.shard_check",
-                 "models.moe", "models.mla", "optim"):
+                 "models.moe", "models.mla", "optim", "models.rwkv",
+                 "models.ssm"):
         assert f"repro_torch.{name}" in MODULES
     assert len(MODULES) >= 40
 
@@ -86,6 +87,7 @@ def test_example_twins_import_no_jax():
     paths = sorted(str(p) for p in (ROOT / "examples").glob("*_torch.py"))
     assert any(p.endswith("train_lm_federated_torch.py") for p in paths)
     assert any(p.endswith("alpha_mismatch_torch.py") for p in paths)
+    assert any(p.endswith("serve_decode_torch.py") for p in paths)
     code = EXAMPLE_CHECK.format(src=str(SRC), paths=paths)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, cwd=str(ROOT))

@@ -373,10 +373,9 @@ def test_stack_init_matches_per_layer_init():
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-7b", "whisper-medium",
-                                  "llama-3.2-vision-11b", "hymba-1.5b"])
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-11b"])
 def test_other_families_are_refused(arch):
-    with pytest.raises(NotImplementedError, match="A13c"):
+    with pytest.raises(NotImplementedError, match="A13c.5"):
         build_model(tconfigs.smoke_config(arch))
 
 
