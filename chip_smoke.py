@@ -171,6 +171,18 @@ Phases, each printing its own line(s) before the last line:
    its SSM's sequential scan under vmap(grad)), each 4 clients x batch
    2 x seq 128, 4 rounds on the f32 wire and 4 on int8 + EF, launches
    counted (no B5), ms a round, tokens per second and peak memory;
+14k. runs (f) and (g), the cross-attention families at full width with
+   their embeddings in every batch (fresh standard normals each round:
+   1601 bf16 image tokens, 1500 f32 frames an example), as 14h: (f)
+   Llama-3.2-Vision-11B's width, one group cut to 1 gated cross-attention
+   + 1 dense layer (1,486,901,250 parameters, a 5.95 GB f32 slab; the
+   published group of 1 + 4 does not fit the round's server update), 2
+   clients x batch 1 x seq 128, 4 rounds on the f32 wire; (g)
+   Whisper-medium whole (24 + 24 layers, 811,579,392 parameters), 2
+   clients x batch 1 x seq 128, 4 rounds on the f32 wire and 4 on int8
+   + EF; launches counted (no B5: the training forward's encoder and
+   cross-attention take the plain path), ms a round, tokens per second
+   and peak memory;
 14j. examples/serve_decode_torch.py on the card with its defaults
    (rwkv6-7b --preset tiny, batch 2 x prompt 32, 8 tokens): the JAX
    CLI's two lines, then the port's rate and memory line;
@@ -205,7 +217,15 @@ Phases, each printing its own line(s) before the last line:
    heads, D 128, causal) and Kimi-K2 (1 x 4096, 64 heads, 8 kv heads,
    D 112, causal: the scalar variant in bf16) and Hymba-1.5B (1 x 4224
    with its 128 meta tokens, and 4 x 192, 25 heads, 5 kv heads, D 64,
-   causal, window 1024), then two cases with query rows that see no key,
+   causal, window 1024), Llama-3.2-Vision-11B (32 / 8 heads, D 128: its
+   causal 1 x 4096 and 4 x 64, its cross-attention over 1601 image
+   tokens at 1 x 4096 and 4 x 64, and decode's 4 x 1 and 1 x 1 against
+   them) and Whisper-medium (16 / 16 heads, D 64: the encoder's 1 x 1500
+   and 4 x 1500 both ways, the decoder's causal 1 x 448 and 4 x 64, its
+   cross-attention over 1500 frames at 1 x 448 and 4 x 64, decode's 4 x 1
+   and 1 x 1): B5's first non-causal launches with Sq != Sk and Sq = 1 at
+   a model's shapes, each key count a ragged last tile; then two cases
+   with query rows that see no key,
    each in f32 and bf16 through the variant the wrapper picks (printed,
    and checked against flash_variant): the Hopper kernel (bf16, D 64 or
    128) per element at 2^-7 |ref| + 2^-8 attn(q, k, |v|) + 2e-5, the
@@ -221,6 +241,8 @@ Phases, each printing its own line(s) before the last line:
    at
    the tiers of phases 3-6 and 10; then B1 at d = 979,501,056 and
    492,600,064, B2 and B3c at 4 x each, B4 at 1 x each (runs (d), (e));
+   B1 at d = 1,486,901,376 and B2 at 2 x it (run (f)), B1 at d =
+   811,579,392, B2 and B3c at 2 x it, B4 at 1 x it (run (g));
 16. serve qwen3-14b: full width and depth (40 layers, 14.8 B parameters,
    bf16, random from seed 0) through repro_torch.launch.serve.generate,
    greedy: (a) the serve CLI's defaults, batch 4 x prompt 64, 32 tokens;
@@ -255,12 +277,27 @@ Phases, each printing its own line(s) before the last line:
    1 x 4096 -> 8, the same checks (32 Hopper launches a prefill, D 64),
    and the KV cache's length JAX's min(s + gen + 128, 1024) (the ring
    at 1 x 4096);
+17g. serve llama-3.2-vision-11b at full width and depth (40 layers in 8
+   groups, 9.78 B parameters) with the serve CLI's stub image tokens
+   (1601 bf16 an example), 4 x 64 -> 32 and 1 x 4096 -> 8, the same
+   checks: 40 Hopper launches a prefill (32 causal, 8 cross-attention
+   over the image tokens) and 8 a decode step (the cross-attention at
+   Sq = 1), counted by variant and by shape; the card time a decode step
+   spends recomputing the cross-attention keys and values from the
+   cached image tokens (CUDA events);
+17h. serve whisper-medium at full width and depth (24 + 24 layers,
+   0.81 B parameters) with the stub frames (1500 f32 an example), 4 x 64
+   -> 32 and 1 x 448 -> 8 (its text context), the same checks: 72 Hopper
+   launches a prefill (24 encoder, 24 causal, 24 cross-attention) and 24
+   a decode step, and the cross K/V recomputation's card time;
 18. reference serve: the smoke configs of qwen3-14b, starcoder2-15b,
    qwen3-moe-235b-a22b, kimi-k2-1t-a32b, minicpm3-4b, rwkv6-7b and
-   hymba-1.5b in f32 on the card against the same parameters on the CPU
-   (plain versions): prefill logits, caches and 8 greedy ids; the f32
-   path of the scalar flash kernel, one launch a layer in each prefill
-   (none in minicpm3's and rwkv6's), none of the Hopper one;
+   hymba-1.5b, llama-3.2-vision-11b and whisper-medium (the last two
+   with the stub inputs) in f32 on the card against the same parameters
+   on the CPU (plain versions): prefill logits, caches and 8 greedy ids;
+   the f32 path of the scalar flash kernel, one launch a layer in each
+   prefill (none in minicpm3's and rwkv6's) and one a cross-attention
+   layer in each decode step, none of the Hopper one;
 19. times: the launch floor (a near-empty launch, timed as the kernels
    are); then CUDA events, first at the LM runs' shapes (those of 15b,
    torch.addmv beside B3b), then B3a at the shapes of 10b beside its
@@ -276,9 +313,9 @@ Phases, each printing its own line(s) before the last line:
    and the launch floor (and, where one
    PyTorch call computes the same function, that call: torch.addmv for
    the accumulating transmit, scaled_dot_product_attention for flash
-   attention: the variant flash_variant picks at each of the five
-   prefill shapes in bf16 (Hymba's with its window mask), with its
-   TFLOP/s and its ratio to
+   attention: the variant flash_variant picks at each FLASH_MODEL_SHAPES
+   shape in bf16 (Hymba's with its window mask, the non-causal ones with
+   none, is_causal as the kernel's), with its TFLOP/s and its ratio to
    scaled_dot_product_attention, and the scalar one at Qwen3-14B's in
    f32); the accumulating transmit's S, and at the
    million-client chunk the same kernel on the same grid without a fold,
@@ -340,10 +377,34 @@ FLASH_MODEL_SHAPES = {
     "kimi-k2-1t-a32b": (1, 4096, 4096, 64, 8, 112, True, None),
     # 1 x 4096 prompt tokens after 128 meta tokens: 33 q tiles of 128
     "hymba-1.5b": (1, 4224, 4224, 25, 5, 64, True, 1024),
+    # Llama-3.2-Vision: its dense layers' causal prefill (32 / 8 heads),
+    # the cross-attention over the 1601 image tokens (12 x 128 + 65: a
+    # ragged last key tile) and decode's one query row against them
+    "llama-3.2-vision-11b": (1, 4096, 4096, 32, 8, 128, True, None),
+    "llama-3.2-vision-11b cross": (1, 4096, 1601, 32, 8, 128, False, None),
+    "llama-3.2-vision-11b cross decode": (4, 1, 1601, 32, 8, 128, False,
+                                          None),
+    # Whisper (16 / 16 heads, D 64): the encoder's bidirectional 1500
+    # frames (11 x 128 + 92), the decoder's causal 448 tokens (its text
+    # context), its cross-attention over the frames and decode's row
+    "whisper-medium encoder": (1, 1500, 1500, 16, 16, 64, False, None),
+    "whisper-medium": (1, 448, 448, 16, 16, 64, True, None),
+    "whisper-medium cross": (1, 448, 1500, 16, 16, 64, False, None),
+    "whisper-medium cross decode": (4, 1, 1500, 16, 16, 64, False, None),
 }
-# prefill shapes checked in phase 15 but not timed: Hymba's 4 x 64 serve
-FLASH_SERVE_SHAPES = {"hymba-1.5b 4x64": (4, 192, 192, 25, 5, 64, True,
-                                          1024)}
+# serve shapes checked in phase 15 but not timed: Hymba's 4 x 64, the
+# 4 x 64 runs' shapes of the cross-attention families, their 1 x ... decode
+FLASH_SERVE_SHAPES = {
+    "hymba-1.5b 4x64": (4, 192, 192, 25, 5, 64, True, 1024),
+    "llama-3.2-vision-11b 4x64": (4, 64, 64, 32, 8, 128, True, None),
+    "llama-3.2-vision-11b cross 4x64": (4, 64, 1601, 32, 8, 128, False, None),
+    "llama-3.2-vision-11b cross decode 1x1": (1, 1, 1601, 32, 8, 128, False,
+                                              None),
+    "whisper-medium encoder 4x1500": (4, 1500, 1500, 16, 16, 64, False, None),
+    "whisper-medium 4x64": (4, 64, 64, 16, 16, 64, True, None),
+    "whisper-medium cross 4x64": (4, 64, 1500, 16, 16, 64, False, None),
+    "whisper-medium cross decode 1x1": (1, 1, 1500, 16, 16, 64, False, None),
+}
 # serve runs: (name, arch, batch, prompt, tokens generated)
 SERVE_RUNS = (("qwen3-14b a", "qwen3-14b", 4, 64, 32),
               ("qwen3-14b b", "qwen3-14b", 1, 4096, 8),
@@ -356,7 +417,11 @@ SERVE_RUNS = (("qwen3-14b a", "qwen3-14b", 4, 64, 32),
               ("rwkv6 a", "rwkv6-7b", 4, 64, 32),
               ("rwkv6 b", "rwkv6-7b", 1, 4096, 8),
               ("hymba a", "hymba-1.5b", 4, 64, 32),
-              ("hymba b", "hymba-1.5b", 1, 4096, 8))
+              ("hymba b", "hymba-1.5b", 1, 4096, 8),
+              ("llama-3.2-vision a", "llama-3.2-vision-11b", 4, 64, 32),
+              ("llama-3.2-vision b", "llama-3.2-vision-11b", 1, 4096, 8),
+              ("whisper a", "whisper-medium", 4, 64, 32),
+              ("whisper b", "whisper-medium", 1, 448, 8))
 SERVE_PRESET = "full"
 # Depth cuts of the served configs at full width (bf16 weights on one
 # 80 GB card): Qwen3-MoE 12 of 94 layers (62.2 GB), Kimi-K2 1 of 61
@@ -2036,15 +2101,40 @@ D_ARCH, D_PARAMS = "rwkv6-7b", 979_501_056
 D_D = 979_501_056             # its slab (a multiple of 128 already)
 E_ARCH, E_PARAMS = "hymba-1.5b", 492_600_000
 D_E = 492_600_064             # its slab, padded to a multiple of 128
-# run: (its tag, layers, parameters, slab)
-WIDTH_CUTS = {WIDTH_ARCH: ("LM width", 1, WIDTH_PARAMS, D_WIDTH),
-              C_ARCH: ("LM run (c)", 8, C_PARAMS, D_C),
-              D_ARCH: ("LM run (d)", 2, D_PARAMS, D_D),
-              E_ARCH: ("LM run (e)", 8, E_PARAMS, D_E)}
-WIDTH_CLIENTS, WIDTH_ROUNDS = 4, 4
+# runs (f) and (g), the cross-attention families with their embeddings
+# in every batch (the stubbed vision tower's 1601 bf16 image tokens, the
+# audio frontend's 1500 f32 frames): (f) Llama-3.2-Vision's width, one
+# group cut to 1 cross + 1 dense layer (cross_attn_period 2; the
+# published group of 1 + 4, 2.14 B parameters, needs ~98 GB at the
+# server update: the old and new w, delta and nu, the f32 copy of the
+# bf16 weights, the draws u and e, g and the clean mean, 11.5 slabs of
+# 8.56 GB); (g) Whisper-medium at full width and depth
+F_ARCH, F_PARAMS = "llama-3.2-vision-11b", 1_486_901_250
+D_F = 1_486_901_376           # its slab, padded to a multiple of 128
+G_ARCH, G_PARAMS = "whisper-medium", 811_579_392
+D_G = 811_579_392             # its slab (a multiple of 128 already)
 # (name, uplink, error feedback, launches a round)
 WIDTH_RUNS = (("f32", "f32", False, {CHAN: 1, UPD: 1}),
               ("int8-ef", "int8", True, {TX: 1, RX: 1, UPD: 1}))
+# run: (its tag, config changes, parameters, slab, clients, batch, wires)
+WIDTH_CUTS = {
+    WIDTH_ARCH: ("LM width", dict(n_layers=1), WIDTH_PARAMS, D_WIDTH, 4, 2,
+                 WIDTH_RUNS),
+    C_ARCH: ("LM run (c)", dict(n_layers=8), C_PARAMS, D_C, 4, 2,
+             WIDTH_RUNS),
+    D_ARCH: ("LM run (d)", dict(n_layers=2), D_PARAMS, D_D, 4, 2,
+             WIDTH_RUNS),
+    E_ARCH: ("LM run (e)", dict(n_layers=8), E_PARAMS, D_E, 4, 2,
+             WIDTH_RUNS),
+    # the f32 wire only: error feedback adds two 5.95 GB rows a client
+    F_ARCH: ("LM run (f)", dict(n_layers=2, cross_attn_period=2), F_PARAMS,
+             D_F, 2, 1, WIDTH_RUNS[:1]),
+    # 2 clients: the training forward's plain encoder attention keeps
+    # its 16 x 1500 x 1500 f32 scores for the backward in every layer,
+    # and at 4 clients x 1 example the backward ran out of the 80 GB
+    G_ARCH: ("LM run (g)", {}, G_PARAMS, D_G, 2, 1, WIDTH_RUNS),
+}
+WIDTH_ROUNDS = 4
 
 
 def _lm_counted(torch, counters, want_per_round, rounds, what, fn):
@@ -2163,20 +2253,42 @@ def _profile_lm_round(torch, dev, what, arch, preset, state, n_clients):
                         start_round=t)))
 
 
+def _with_embeddings(torch, cfg, batch_fn, n, b, dev):
+    """``batch_fn`` with the family's extra entries for n clients x b
+    examples added, drawn on the card from a generator seeded by the
+    round (the serve CLI's law: ``image_embed`` bf16, ``audio_embed``
+    f32, standard normal); ``batch_fn`` itself for the other families."""
+    shape = {"vlm": ("image_embed", cfg.n_img_tokens, torch.bfloat16),
+             "encdec": ("audio_embed", cfg.enc_seq, torch.float32)}
+    if cfg.family not in shape:
+        return batch_fn
+    key, rows, dtype = shape[cfg.family]
+
+    def with_embeddings(t):
+        gen = torch.Generator(device=dev).manual_seed(1000 + t)
+        return {**batch_fn(t), key: torch.randn(
+            (n, b, rows, cfg.d_model), generator=gen, device=dev).to(dtype)}
+
+    return with_embeddings
+
+
 def phase_lm_width(torch, dev, counters, run=WIDTH_ARCH):
-    """Phases 14d, 14h and 14h': a language model at full width with its
-    depth cut (WIDTH_CUTS: run (b), StarCoder2-15B's width at depth 1,
-    987.8 M parameters; run (c), MiniCPM3-4B's at depth 8, 877.5 M; run
-    (d), RWKV-6-7B's at depth 2, 979.5 M; run (e), Hymba-1.5B's at depth
-    8, 492.6 M),
-    WIDTH_CLIENTS clients x batch 2 x seq 128 of the CLI's corpus,
-    adam_ota as the CLI configures it, WIDTH_ROUNDS rounds of each
-    WIDTH_RUNS wire through make_slab_round_runner(model.loss_fn) +
-    run_rounds_slab (one round a chunk: a chunk's draws are 7.9 GB a
-    round at run (b)'s slab), the counters set to 0 before and read after
-    each run. Run (b)'s int8 round peaks near 70 GB of the card's 80:
-    main() turns on the allocator's expandable segments, or the 4 GB
-    slabs fragment the default pool. Returns the launches by run."""
+    """Phases 14d, 14h, 14h' and 14k: a language model at full width with
+    its depth cut (WIDTH_CUTS: run (b), StarCoder2-15B's width at depth
+    1, 987.8 M parameters; run (c), MiniCPM3-4B's at depth 8, 877.5 M;
+    run (d), RWKV-6-7B's at depth 2, 979.5 M; run (e), Hymba-1.5B's at
+    depth 8, 492.6 M; run (f), Llama-3.2-Vision's, one group of 1 cross +
+    1 dense layer, 1.49 B, with 1601 image tokens an example; run (g),
+    Whisper-medium whole, 811.6 M, with 1500 frames an example), the
+    cut's clients x batch x seq 128 of the CLI's corpus (plus the
+    embeddings, ``_with_embeddings``), adam_ota as the CLI configures it,
+    WIDTH_ROUNDS rounds of each of the cut's wires through
+    make_slab_round_runner(model.loss_fn) + run_rounds_slab (one round a
+    chunk: a chunk's draws are 7.9 GB a round at run (b)'s slab), the
+    counters set to 0 before and read after each run. Run (b)'s int8
+    round peaks near 70 GB of the card's 80: main() turns on the
+    allocator's expandable segments, or the 4 GB slabs fragment the
+    default pool. Returns the launches by run."""
     import dataclasses
     import gc
 
@@ -2191,17 +2303,19 @@ def phase_lm_width(torch, dev, counters, run=WIDTH_ARCH):
     from repro_torch.launch import train
     from repro_torch.models.model import build_model
 
-    tag, n_layers, n_params, d_slab = WIDTH_CUTS[run]
-    cfg = dataclasses.replace(get_config(run), n_layers=n_layers)
+    tag, cut, n_params, d_slab, n_clients, batch, wires = WIDTH_CUTS[run]
+    cfg = dataclasses.replace(get_config(run), **cut)
     check(cfg.n_params() == n_params, f"{tag}: the parameter count")
     model = build_model(cfg)
-    corpus = train.client_corpus(cfg.vocab, 128, WIDTH_CLIENTS, 2, 0.5, 0)
-    batch_fn = train.make_batch_fn(*corpus, batch=2, seq=128, seed=0)
-    fl = FLConfig(n_clients=WIDTH_CLIENTS)
+    corpus = train.client_corpus(cfg.vocab, 128, n_clients, batch, 0.5, 0)
+    batch_fn = _with_embeddings(
+        torch, cfg, train.make_batch_fn(*corpus, batch=batch, seq=128,
+                                        seed=0), n_clients, batch, dev)
+    fl = FLConfig(n_clients=n_clients)
     ad = AdaptiveConfig(optimizer="adam_ota", lr=LM_LR, beta2=0.3)
-    tokens = WIDTH_CLIENTS * 2 * 128
+    tokens = n_clients * batch * 128
     out = {}
-    for name, uplink, ef, per_round in WIDTH_RUNS:
+    for name, uplink, ef, per_round in wires:
         ch = OTAChannelConfig(xi_scale=0.05, uplink=UplinkConfig(
             mode=uplink, error_feedback=ef))
         gc.collect()
@@ -2216,7 +2330,7 @@ def phase_lm_width(torch, dev, counters, run=WIDTH_ARCH):
         box = [init_train_state(ad, params, spec=spec, error_feedback=ef,
                                 device=dev)]
         del params
-        draws = TorchDraws(ch, spec, WIDTH_CLIENTS, seed=1, device=dev)
+        draws = TorchDraws(ch, spec, n_clients, seed=1, device=dev)
         runner = make_slab_round_runner(model.loss_fn, ch, ad, fl, device=dev)
         torch.cuda.reset_peak_memory_stats(dev)
         stamps = [time.perf_counter()]
@@ -2239,9 +2353,13 @@ def phase_lm_width(torch, dev, counters, run=WIDTH_ARCH):
                 run_rounds_slab(runner, state, draws, batch_fn,
                                 WIDTH_ROUNDS + 1, chunk=1,
                                 start_round=WIDTH_ROUNDS)))
-        print(f"[{tag}] {run} width at depth {n_layers} ({n_params:,} "
-              f"params, bf16; slab {d_slab:,} f32 = {4 * d_slab / 1e9:.2f} "
-              f"GB), {WIDTH_CLIENTS} clients x batch 2 x seq 128, adam_ota, "
+        shape = ", ".join(f"{k} {v}" for k, v in cut.items())
+        extra = {"vlm": f" + {cfg.n_img_tokens} image tokens",
+                 "encdec": f" + {cfg.enc_seq} frames"}.get(cfg.family, "")
+        print(f"[{tag}] {run} width at {shape or 'full depth'} "
+              f"({n_params:,} params, bf16; slab {d_slab:,} f32 = "
+              f"{4 * d_slab / 1e9:.2f} GB), {n_clients} clients x batch "
+              f"{batch} x seq 128{extra}, adam_ota, "
               f"{name}: losses " + " ".join(f"{x:.4f}" for x in losses)
               + "; ms a round " + " ".join(f"{x:.1f}" for x in ms)
               + f" (the first cold), {warm:.1f} ms warm, "
@@ -2831,7 +2949,7 @@ def phase_kernel_lm(torch, dev):
 
     kw = dict(lr=0.02, beta1=0.9, beta2=0.3, alpha=1.5, eps=1e-8,
               mode="adam")
-    for d in (D_LM, D_WIDTH, D_C, D_D, D_E):
+    for d in (D_LM, D_WIDTH, D_C, D_D, D_E, D_F, D_G):
         g, w = (torch.randn(d, generator=gen, device=dev) for _ in range(2))
         delta = 0.1 * torch.randn(d, generator=gen, device=dev)
         nu = 0.01 * torch.rand(d, generator=gen, device=dev)
@@ -2844,7 +2962,9 @@ def phase_kernel_lm(torch, dev):
                       f"{UPD} d={d}")
         del g, w, delta, nu, got, want
     for n, d in ((8, D_LM), (1, D_LM), (4, D_WIDTH), (4, D_C), (4, D_D),
-                 (4, D_E)):
+                 (4, D_E), (2, D_F), (2, D_G)):
+        # run (f) takes the f32 wire only: no quantized kernel at its d
+        quantized = n > 1 and d != D_F
         grads = torch.randn(n, d, generator=gen, device=dev)
         h = (torch.ones(1, device=dev) if n == 1 else
              0.5 + torch.rand(n, generator=gen, device=dev))
@@ -2865,7 +2985,7 @@ def phase_kernel_lm(torch, dev):
                                                  n_total=1, acc=acc[a:b]),
                       f"{STREAM} 4x{d}", f"{STREAM} 4x{d}")
             del acc, got
-        if n > 1:
+        if quantized:
             r = torch.rand(d, generator=gen, device=dev)
             ef = 0.01 * torch.randn(d, generator=gen, device=dev)
             name = f"{TX} {n}x{d}"
@@ -2920,7 +3040,7 @@ def phase_kernel_lm(torch, dev):
             del r, ef, x
         del grads
         # the receive of this slab: one row
-        if n > 1:
+        if quantized:
             s = torch.rand(1, d // 128, generator=gen, device=dev)
             q8 = torch.randint(-127, 128, (1, d), generator=gen, device=dev,
                                dtype=torch.int8)
@@ -2960,11 +3080,13 @@ def phase_kernel_lm(torch, dev):
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
     wide = f"{D_WIDTH}, {D_C}, {D_D} and {D_E}"
-    print(f"[kernel LM shapes] B1 adam at d = {D_LM}, {wide}; B2 at "
-          f"8x{D_LM}, 1x{D_LM} and 4 x each of {wide}; B3b at 4x{D_LM} "
-          f"with a carry; B3c int8 + EF at 8x{D_LM} and 4 x each of {wide},"
+    print(f"[kernel LM shapes] B1 adam at d = {D_LM}, {wide}, {D_F} and "
+          f"{D_G}; B2 at 8x{D_LM}, 1x{D_LM}, 4 x each of {wide}, 2x{D_F} and "
+          f"2x{D_G}; B3b at 4x{D_LM} with a carry; B3c int8 + EF at "
+          f"8x{D_LM}, 4 x each of {wide} and 2x{D_G},"
           f" folded sign + EF at 8x{D_LM}; B4 int8 (with and without "
-          f"statistics) and fold at 1x{D_LM}, int8 at 1 x each of {wide}; "
+          f"statistics) and fold at 1x{D_LM}, int8 at 1 x each of {wide} "
+          f"and {D_G}; "
           f"the plain versions {1 << 26} columns at a "
           "time: max_abs_err "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
@@ -2996,7 +3118,7 @@ def _lm_times(torch, dev, gen, flush):
     rows, library = {}, {}
     kw = dict(lr=0.02, beta1=0.9, beta2=0.3, alpha=1.5, eps=1e-8,
               mode="adam")
-    for d in (D_LM, D_WIDTH, D_C, D_D, D_E):
+    for d in (D_LM, D_WIDTH, D_C, D_D, D_E, D_F, D_G):
         g, w = (torch.randn(d, generator=gen, device=dev) for _ in range(2))
         delta = 0.1 * torch.randn(d, generator=gen, device=dev)
         nu = 0.01 * torch.rand(d, generator=gen, device=dev)
@@ -3010,7 +3132,7 @@ def _lm_times(torch, dev, gen, flush):
         gc.collect()
         torch.cuda.empty_cache()
     for n, d in ((8, D_LM), (1, D_LM), (4, D_WIDTH), (4, D_C), (4, D_D),
-                 (4, D_E)):
+                 (4, D_E), (2, D_F), (2, D_G)):
         grads = torch.randn(n, d, generator=gen, device=dev)
         h = (torch.ones(1, device=dev) if n == 1 else
              torch.rand(n, generator=gen, device=dev))
@@ -3037,7 +3159,7 @@ def _lm_times(torch, dev, gen, flush):
             library[name] = ("torch.addmv", _median_ms(
                 torch, lambda: torch.addmv(acc, gs.t(), hs), flush))
             del gs, acc
-        if n > 1:
+        if n > 1 and d != D_F:       # run (f): the f32 wire only
             r = torch.rand(d, generator=gen, device=dev)
             ef = 0.01 * torch.randn(d, generator=gen, device=dev)
             tkw = dict(quantize=True, r=r, ef=ef, return_residual=True)
@@ -3119,8 +3241,8 @@ def phase_kernel_flash(torch, dev):
     # the six FLASH_CASES, the two model shapes and the rows without keys,
     # each in f32 and bf16, through the variant the wrapper picks
     labels = ([f"FLASH_CASES[{i}]" for i in range(len(FLASH_CASES))]
-              + [f"{a} prefill shape" for a in FLASH_MODEL_SHAPES]
-              + [f"{a} prefill shape" for a in FLASH_SERVE_SHAPES]
+              + [f"{a} shape" for a in FLASH_MODEL_SHAPES]
+              + [f"{a} shape" for a in FLASH_SERVE_SHAPES]
               + ["rows without keys"] * len(FLASH_KEYLESS))
     shapes = (FLASH_CASES + list(FLASH_MODEL_SHAPES.values())
               + list(FLASH_SERVE_SHAPES.values()) + FLASH_KEYLESS)
@@ -3169,53 +3291,105 @@ def phase_kernel_flash(torch, dev):
 
 
 def _flash_per_prefill(cfg, prompt):
-    """The flash launches a prefill of ``prompt`` tokens makes, by variant:
-    one a layer, of the variant ``flash_variant`` picks for the config's
-    dtype and head dim (fresh allocations are 16-byte aligned); none in
-    the mla family, whose attention is plain torch, nor in the
-    attention-free rwkv one."""
+    """The flash launches a prefill of ``prompt`` tokens makes, and those
+    a decode step makes, by variant: one a layer in the prefill, of the
+    variant ``flash_variant`` picks for the config's dtype and head dim
+    (fresh allocations are 16-byte aligned), Whisper's encoder layers and
+    its decoder's self- and cross-attention each; one a cross-attention
+    layer in decode (Whisper's decoder layers, Llama-3.2-Vision's
+    groups), none else; none in the mla family, whose attention is plain
+    torch, nor in the attention-free rwkv one."""
     from repro_torch.kernels.flash_attention import flash_variant
 
-    want = {"hopper": 0, "scalar": 0}
-    if cfg.family in ("dense", "moe", "hybrid"):
-        want[flash_variant(cfg.dtype, cfg.resolved_head_dim, prompt,
-                           (0, 0, 0, 0))] = cfg.n_layers
-    return want
+    prefill = {"hopper": 0, "scalar": 0}
+    step = dict(prefill)
+    v = flash_variant(cfg.dtype, cfg.resolved_head_dim, prompt, (0, 0, 0, 0))
+    if cfg.family in ("dense", "moe", "hybrid", "vlm"):
+        prefill[v] = cfg.n_layers
+    if cfg.family == "vlm":
+        step[v] = cfg.n_layers // cfg.cross_attn_period
+    if cfg.family == "encdec":
+        prefill[v] = (cfg.n_enc_layers or cfg.n_layers) + 2 * cfg.n_layers
+        step[v] = cfg.n_layers
+    return prefill, step
 
 
-def _flash_row(torch, arch):
-    """The kernels-line row of B5 at an arch's prefill shape in bf16,
+def _flash_row(torch, key):
+    """The kernels-line row of B5 at a FLASH_MODEL_SHAPES shape in bf16,
     named by the variant ``flash_variant`` picks for it."""
     from repro_torch.kernels.flash_attention import flash_variant
 
-    variant = flash_variant(torch.bfloat16, FLASH_MODEL_SHAPES[arch][5], 1,
+    variant = flash_variant(torch.bfloat16, FLASH_MODEL_SHAPES[key][5], 1,
                             (0, 0, 0, 0))
-    return f"{FLASH} {variant} {arch}"
+    return f"{FLASH} {variant} {key}"
+
+
+def _flash_rows(torch, cfg, shape_launches):
+    """A run's B5 launches (``flash_attention.shape_launches``) by
+    kernels-line row: causal ones on the arch's prefill row, the rest
+    (not causal, no window) on its "cross decode" row (Sq == 1), else on
+    its "encoder" row (Whisper's encoder: Sq == Sk, which its prompts,
+    shorter than the 1500 frames, never give cross-attention) or its
+    "cross" row; every row must be in FLASH_MODEL_SHAPES."""
+    out = {}
+    for (_, sq, sk, *_, causal, window), n in shape_launches.items():
+        kind = ("" if causal or window is not None else
+                " cross decode" if sq == 1 else
+                " encoder" if cfg.family == "encdec" and sq == sk else
+                " cross")
+        check(cfg.arch + kind in FLASH_MODEL_SHAPES,
+              f"{cfg.arch}: B5 launched at a shape with no kernels-line row "
+              f"({sq} x {sk}, causal {causal}, window {window})")
+        row = _flash_row(torch, cfg.arch + kind)
+        out[row] = out.get(row, 0) + n
+    return out
+
+
+def _kv_cache(cache):
+    """The KV cache of a model's cache (a vlm's under its groups'
+    ``selfs``), or None (the recurrent state only, or MLA's latent)."""
+    layers = cache["layers"]
+    return layers.get("kv") or layers.get("selfs", {}).get("kv")
 
 
 def _serve_run(torch, model, params, dev, batch, prompt, gen, variants):
-    """One greedy serve shape through the CLI's generate: a cold run (the
+    """One greedy serve shape through the CLI's generate, with the
+    family's stub inputs (``launch.serve.stub_inputs``): a cold run (the
     shape's first), then the timed warm run, each with the flash
-    counters by variant (``variants``: "hopper" and "scalar") set to 0
-    just before and read just after, which must be ``_flash_per_prefill``;
-    then one more decode step with the counters at 0, and a prefill and
-    a decode step under the profiler. Returns the warm run's numbers and
-    the cold prefill."""
-    from repro_torch.launch.serve import generate
+    counters by variant (``variants``: "hopper" and "scalar") and by
+    shape set to 0 just before and read just after, which must be
+    ``_flash_per_prefill``'s prefill plus gen - 1 decode steps; then one
+    more decode step with the counters at 0 (its own launches), and a
+    prefill and a decode step under the profiler. Returns the warm run's
+    numbers, its launches by kernels-line row and the cold prefill."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import generate, stub_inputs
 
     cfg = model.config
-    want = _flash_per_prefill(cfg, prompt)
+    check(cfg.family != "encdec" or prompt < cfg.enc_seq,
+          f"{cfg.arch}: a prompt of {prompt} tokens, not fewer than the "
+          f"{cfg.enc_seq} frames, would mix cross-attention into the "
+          "encoder's row")
+    per_prefill, per_step = _flash_per_prefill(cfg, prompt)
+    want = {v: per_prefill[v] + (gen - 1) * per_step[v] for v in per_prefill}
     tokens = torch.randint(0, cfg.vocab, (batch, prompt), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(1))
+    inputs = stub_inputs(cfg, batch, dev)
     runs = []
     for _ in ("cold", "warm"):
         for c in variants.values():
             c.launches = 0
-        runs.append(generate(model, params, tokens, gen))
+        flash_attention.shape_launches.clear()
+        runs.append(generate(model, params, tokens, gen, inputs=inputs))
         counts = {v: c.launches for v, c in variants.items()}
         check(counts == want, f"{cfg.arch} {batch}x{prompt}: flash launches "
               f"by variant {counts}, want {want} (one a layer in the "
-              "prefill, of the variant flash_variant picks; none in decode)")
+              "prefill, of the variant flash_variant picks; "
+              f"{per_step} a decode step)")
+    by_row = _flash_rows(torch, cfg, flash_attention.shape_launches)
+    for v, n in counts.items():
+        check(sum(k for row, k in by_row.items() if row.split()[1] == v)
+              == n, f"{cfg.arch}: rows {by_row} against launches {counts}")
     cold, r = runs
     check(torch.equal(cold["ids"], r["ids"]),
           f"{cfg.arch} {batch}x{prompt}: the warm run's ids differ")
@@ -3224,8 +3398,9 @@ def _serve_run(torch, model, params, dev, batch, prompt, gen, variants):
     logits, cache = model.decode_step(params, r["cache"], r["ids"][:, -1:],
                                       prompt + gen - 1)
     torch.cuda.synchronize()
-    check(all(c.launches == 0 for c in variants.values()),
-          f"{cfg.arch}: decode launched flash")
+    step = {v: c.launches for v, c in variants.items()}
+    check(step == per_step, f"{cfg.arch}: a decode step launched flash "
+          f"{step}, want {per_step}")
     check(bool(torch.isfinite(r["prefill_logits"]).all())
           and bool(torch.isfinite(logits).all()),
           f"{cfg.arch} {batch}x{prompt}: logits not finite")
@@ -3236,9 +3411,9 @@ def _serve_run(torch, model, params, dev, batch, prompt, gen, variants):
     # a window of them (the JAX CLI's length)
     total = prompt + gen + cfg.n_meta_tokens
     length = min(total, cfg.window) if cfg.window else total
-    kv = cache["layers"].get("kv")
+    kv = _kv_cache(cache)
     if kv is not None:
-        pos = kv["pos"][0]
+        pos = kv["pos"].reshape(-1, kv["pos"].shape[-1])[0]
         check(pos.shape[0] == length, f"{cfg.arch}: a cache of "
               f"{pos.shape[0]} positions, want {length}")
         if cfg.window and total > cfg.window:
@@ -3249,36 +3424,84 @@ def _serve_run(torch, model, params, dev, batch, prompt, gen, variants):
     ms_tok = 1e3 * r["t_decode"] / max(gen - 1, 1)
     # where the time goes: one more prefill and one decode step under the
     # profiler (not counted above), each with its own host clock
-    batch_in = {"tokens": tokens}
+    batch_in = {"tokens": tokens, **inputs}
     _profile(torch, f"{cfg.arch} {batch}x{prompt} prefill",
              lambda: model.prefill(params, batch_in, length=length))
     _profile(torch, f"{cfg.arch} {batch}x{prompt} decode step",
              lambda: model.decode_step(params, cache, r["ids"][:, -1:],
                                        prompt + gen - 1))
-    return dict(prefill_ms=1e3 * r["t_prefill"], decode_ms_per_token=ms_tok,
-                tokens_per_s=batch * (gen - 1) / r["t_decode"],
-                prefill_tokens_per_s=batch * prompt / r["t_prefill"],
-                cold_prefill_ms=1e3 * cold["t_prefill"],
-                cold_decode_ms_per_token=1e3 * cold["t_decode"]
-                / max(gen - 1, 1), cache_length=length if kv is not None
-                else None, launches=counts, ids=r["ids"][0, :8].tolist())
+    out = dict(prefill_ms=1e3 * r["t_prefill"], decode_ms_per_token=ms_tok,
+               tokens_per_s=batch * (gen - 1) / r["t_decode"],
+               prefill_tokens_per_s=batch * prompt / r["t_prefill"],
+               cold_prefill_ms=1e3 * cold["t_prefill"],
+               cold_decode_ms_per_token=1e3 * cold["t_decode"]
+               / max(gen - 1, 1), cache_length=length if kv is not None
+               else None, launches=counts, per_step=per_step, by_row=by_row,
+               ids=r["ids"][0, :8].tolist())
+    if cfg.family in ("vlm", "encdec"):
+        out["cross_kv_ms"] = _cross_kv_ms(torch, cfg, params, cache)
+    return out
+
+
+def _cross_kv_ms(torch, cfg, params, cache, reps=10):
+    """The card time a decode step spends recomputing the cross-attention
+    keys and values from the cached image tokens / encoder output (as
+    the JAX package's decode does; no cross-K/V cache): every cross
+    layer's wk and wv projections of that source, timed with CUDA events
+    over ``reps`` steps after a warm one; ms a step."""
+    from repro_torch.core.slab import tree_map
+    from repro_torch.models.layers import dense
+
+    if cfg.family == "vlm":
+        p, src = params["blocks"]["x_attn"], cache["image_embed"]
+    else:
+        p, src = params["dec_blocks"]["cross"], cache["enc_out"]
+    n = p["wk"]["kernel"].shape[0]
+    layers = [tree_map(lambda a: a[i], p) for i in range(n)]
+
+    def step():
+        for lp in layers:
+            dense(lp["wk"], src)
+            dense(lp["wv"], src)
+
+    step()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _profile_run(torch, fn):
     """Run fn once under torch.profiler: its host-clock ms and the
-    profiler's CUDA events (key_averages)."""
+    profiler's CUDA events (key_averages). fn runs in the active step of
+    a schedule whose warm-up step runs one near-empty kernel: that step
+    sets up CUPTI's activity tracing, whose first kernel records a
+    capture of one step alone can miss (the receive's one-launch check
+    saw no kernel at all in a process's first capture)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
+    traces = []
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: traces.append(p.key_averages())
+                 ) as prof:
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    return wall_ms, [a for a in prof.key_averages()
-                     if a.device_type == DeviceType.CUDA]
+        prof.step()
+    check(len(traces) == 1, f"the profiler gave {len(traces)} traces")
+    # the step's own annotation shows on the card's timeline too
+    return wall_ms, [a for a in traces[0] if a.device_type == DeviceType.CUDA
+                     and not a.key.startswith("ProfilerStep")]
 
 
 def _profile(torch, what, fn):
@@ -3359,12 +3582,17 @@ def phase_serve(torch, dev, variants, arch):
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_flatten(params)[0])
     init_peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    extra = ({"vlm": f", a gated cross-attention layer every "
+              f"{cfg.cross_attn_period} over {cfg.n_img_tokens} image tokens",
+              "encdec": f", {cfg.n_enc_layers} encoder layers over "
+              f"{cfg.enc_seq} frames"}.get(cfg.family, ""))
     print(f"[serve {arch}] preset {SERVE_PRESET}: {cfg.n_layers} of "
           f"{full_depth} layers, d_model {cfg.d_model}, {cfg.n_heads} heads "
           f"/ {cfg.n_kv_heads} kv, head_dim {cfg.resolved_head_dim}, d_ff "
           f"{cfg.d_ff}, vocab {cfg.vocab}, window {cfg.window}, "
           f"{cfg.n_experts} experts top-{cfg.top_k} + {cfg.n_shared_experts} "
-          f"shared, {cfg.n_meta_tokens} meta tokens, family {cfg.family}: "
+          f"shared, {cfg.n_meta_tokens} meta tokens{extra}, family "
+          f"{cfg.family}: "
           f"{n_params / 1e9:.3f} B parameters "
           f"({cfg.param_dtype}, {2 * n_params / 1e9:.2f} GB) drawn on the "
           f"card in {time.perf_counter() - t0:.1f} s, peak {init_peak:.2f} "
@@ -3389,8 +3617,13 @@ def phase_serve(torch, dev, variants, arch):
                   f"(the shape's first): prefill {r['cold_prefill_ms']:.1f} "
                   f"ms, decode {r['cold_decode_ms_per_token']:.2f} ms/token;"
                   f" peak memory {r['peak_gb']:.2f} GB; {FLASH} launches by "
-                  f"variant {r['launches']} in each run's prefill "
-                  f"({cfg.n_layers} layers), 0 in decode; "
+                  f"variant {r['launches']} in each run ({r['per_step']} a "
+                  f"decode step), by row {r['by_row']}; "
+                  + (f"the cross-attention K/V recomputed from the cache "
+                     f"{r['cross_kv_ms']:.3f} ms of card time a decode step "
+                     f"({r['cross_kv_ms'] / r['decode_ms_per_token']:.1%} of "
+                     "its host-clock ms/token); " if "cross_kv_ms" in r
+                     else "")
                   + (f"KV cache length {r['cache_length']} (min(s + gen + "
                      f"{cfg.n_meta_tokens}, window {cfg.window})); "
                      if r["cache_length"] is not None else
@@ -3406,22 +3639,24 @@ def phase_serve(torch, dev, variants, arch):
 REFERENCE_SERVE = (("qwen3-14b", 48), ("starcoder2-15b", 80),
                    ("qwen3-moe-235b-a22b", 48), ("kimi-k2-1t-a32b", 48),
                    ("minicpm3-4b", 48), ("rwkv6-7b", 48),
-                   ("hymba-1.5b", 48))
+                   ("hymba-1.5b", 48), ("llama-3.2-vision-11b", 48),
+                   ("whisper-medium", 48))
 
 
 def phase_reference_serve(torch, dev):
-    """The REFERENCE_SERVE smoke configs (dense, moe, mla, rwkv, hybrid)
-    in f32 on the card against the same parameters on the CPU: prefill
-    logits, every cache leaf and 8 greedy ids. The f32 serving path of
-    the scalar flash kernel (none in the mla and rwkv families): its
-    counters are set to 0 just before and read just after; returns its
-    launches."""
+    """The REFERENCE_SERVE smoke configs (dense, moe, mla, rwkv, hybrid,
+    vlm, encdec; the last two with the serve CLI's stub inputs) in f32 on
+    the card against the same parameters on the CPU: prefill logits,
+    every cache leaf and 8 greedy ids. The f32 serving path of the scalar
+    flash kernel (none in the mla and rwkv families; cross-attention in
+    the vlm and encdec decode steps too): its counters are set to 0 just
+    before and read just after; returns its launches."""
     import dataclasses
 
     from repro_torch.configs import smoke_config
     from repro_torch.core.slab import tree_flatten, tree_map
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.serve import generate
+    from repro_torch.launch.serve import generate, stub_inputs
     from repro_torch.models.model import build_model
 
     worst = 0.0
@@ -3433,10 +3668,13 @@ def phase_reference_serve(torch, dev):
         params = model.init(seed=0, device="cpu")
         tokens = torch.randint(0, cfg.vocab, (2, prompt),
                                generator=torch.Generator().manual_seed(1))
-        cpu = generate(model, params, tokens, 8)
+        inputs = stub_inputs(cfg, 2, "cpu")
+        cpu = generate(model, params, tokens, 8, inputs=inputs)
         card = generate(model, tree_map(lambda t: t.to(dev), params),
-                        tokens.to(dev), 8)
-        layers += _flash_per_prefill(cfg, prompt)["scalar"]
+                        tokens.to(dev), 8,
+                        inputs=tree_map(lambda t: t.to(dev), inputs))
+        per_prefill, per_step = _flash_per_prefill(cfg, prompt)
+        layers += per_prefill["scalar"] + 7 * per_step["scalar"]
         pairs = [("prefill logits", card["prefill_logits"],
                   cpu["prefill_logits"])]
         pairs += [(f"cache leaf {i}", a, b) for i, (a, b) in enumerate(zip(
@@ -3455,15 +3693,18 @@ def phase_reference_serve(torch, dev):
     check(scalar == layers and flash_attention.hopper_launches == 0,
           f"reference serve: {scalar} scalar and "
           f"{flash_attention.hopper_launches} Hopper flash launches, want "
-          f"{layers} scalar (one a layer in each f32 prefill)")
+          f"{layers} scalar (one a layer in each f32 prefill, one a "
+          "cross-attention layer in each decode step)")
     print("[reference serve] the smoke configs of "
           + ", ".join(f"{a} (prompt {p})" for a, p in REFERENCE_SERVE)
           + " in f32 (starcoder2's prompt past its window of 64: the ring "
           "cache; the moe ones drop tokens in decode; hymba's 8 meta tokens "
-          "and 48 prompt tokens in its window of 64), card vs cpu: prefill "
+          "and 48 prompt tokens in its window of 64; llama-3.2-vision's 16 "
+          "image tokens, whisper's 24 frames), card vs cpu: prefill "
           f"logits and caches within {worst:.2e} of scale (tol 1e-4), 8 "
           f"greedy ids equal; {FLASH} launches {scalar}, all of the scalar "
-          "variant (one a layer, none in minicpm3's MLA or rwkv6's); ok")
+          "variant (one a layer, none in minicpm3's MLA or rwkv6's; one a "
+          "cross-attention layer a decode step); ok")
     return scalar
 
 
@@ -3724,10 +3965,11 @@ def phase_times(torch, dev):
         if n_seg > 1:
             _fold_cost(torch, dev, gen, flush, gs, hs, acc, n_seg)
     del gs, acc
-    # flash attention at the two models' prefill shapes, bf16 (the Hopper
-    # variant): reads q, k, v and writes out once; 4 D flops for each
-    # visible (query, key) pair and head, counted for these masks, at the
-    # bf16 tensor-core rate. Then the scalar variant at Qwen3's shape in
+    # flash attention at the models' FLASH_MODEL_SHAPES, bf16 (the
+    # variant flash_variant picks): reads q, k, v and writes out once; 4 D
+    # flops for each visible (query, key) pair and head, counted for these
+    # masks (every pair when neither causal nor windowed), at the bf16
+    # tensor-core rate. Then the scalar variant at Qwen3's shape in
     # f32 (what an f32 prefill at full width would run), at the f32 rate.
     # scaled_dot_product_attention computes the same function (the window
     # as a boolean mask): the yardstick, never called by the port.
@@ -3758,9 +4000,11 @@ def phase_times(torch, dev):
             rates[name] = (BF16_FLOPS_PER_S, "bf16 flops at 989 TFLOP/s")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         if window is None:
+            # the same mask as the kernel's: causal or none (a causal
+            # SDPA beside a non-causal kernel would do half the work)
             def sdpa():
                 return F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
+                    qt, kt, vt, is_causal=causal, enable_gqa=True)
         else:
             dpos = (torch.arange(sq, device=dev)[:, None]
                     - torch.arange(sk, device=dev)[None, :])
@@ -3885,6 +4129,10 @@ def main() -> int:
                           D_ARCH)
     wd_e = phase_lm_width(torch, dev, all_counters + (flash_attention,),
                           E_ARCH)
+    wd_f = phase_lm_width(torch, dev, all_counters + (flash_attention,),
+                          F_ARCH)
+    wd_g = phase_lm_width(torch, dev, all_counters + (flash_attention,),
+                          G_ARCH)
     phase_serve_example(torch, flash_attention)
     phase_alpha_mismatch(torch, all_counters + (flash_attention,))
     nocarry = Counter(ota_transmit_slab, "nocarry_launches", NOCARRY)
@@ -3948,11 +4196,13 @@ def main() -> int:
     launches[f"{CHAN} 4x{D_C}"] = wd_c["f32"][CHAN]
     launches[f"{TX} 4x{D_C}"] = wd_c["int8-ef"][TX]
     launches[f"{RX} 1x{D_C}"] = wd_c["int8-ef"][RX]
-    for d, runs in ((D_D, wd_d), (D_E, wd_e)):
+    for n, d, runs in ((4, D_D, wd_d), (4, D_E, wd_e), (2, D_G, wd_g)):
         launches[f"{UPD} d={d}"] = sum(r[UPD] for r in runs.values())
-        launches[f"{CHAN} 4x{d}"] = runs["f32"][CHAN]
-        launches[f"{TX} 4x{d}"] = runs["int8-ef"][TX]
+        launches[f"{CHAN} {n}x{d}"] = runs["f32"][CHAN]
+        launches[f"{TX} {n}x{d}"] = runs["int8-ef"][TX]
         launches[f"{RX} 1x{d}"] = runs["int8-ef"][RX]
+    launches[f"{UPD} d={D_F}"] = wd_f["f32"][UPD]
+    launches[f"{CHAN} 2x{D_F}"] = wd_f["f32"][CHAN]
     # the sharded runs (phases 14e-14f): B3a's launches at each of its
     # two shapes (phase 14e's ResNet rounds, phase 14f's 100m CLI), and
     # the other kernels' on their rows; the receive's launches with
@@ -3975,10 +4225,9 @@ def main() -> int:
                 for v in ("hopper", "scalar")}
     for arch in dict.fromkeys(a for _, a, *_ in SERVE_RUNS):
         runs = phase_serve(torch, dev, variants, arch)
-        for v in variants:
-            n = sum(r["launches"][v] for r in runs.values())
-            if n:
-                launches[f"{FLASH} {v} {arch}"] = n
+        for r in runs.values():
+            for row, n in r["by_row"].items():
+                launches[row] = launches.get(row, 0) + n
     launches[f"{FLASH} scalar f32 qwen3-14b"] = phase_reference_serve(
         torch, dev)
     times, floor = phase_times(torch, dev)
@@ -4014,9 +4263,10 @@ def main() -> int:
         (f"{RX} 1x{D_WIDTH}", b4), (f"{UPD} d={D_C}", b1),
         (f"{CHAN} 4x{D_C}", b2), (f"{TX} 4x{D_C}", b3c),
         (f"{RX} 1x{D_C}", b4))
-        + tuple(row for d in (D_D, D_E) for row in (
-            (f"{UPD} d={d}", b1), (f"{CHAN} 4x{d}", b2),
-            (f"{TX} 4x{d}", b3c), (f"{RX} 1x{d}", b4))))
+        + tuple(row for n, d in ((4, D_D), (4, D_E), (2, D_G)) for row in (
+            (f"{UPD} d={d}", b1), (f"{CHAN} {n}x{d}", b2),
+            (f"{TX} {n}x{d}", b3c), (f"{RX} 1x{d}", b4)))
+        + ((f"{UPD} d={D_F}", b1), (f"{CHAN} 2x{D_F}", b2)))
     rows += tuple((f"{B3A} {n}x{d}", "ota_transmit_stream.cu",
                    "src/repro/kernels/ota_channel.py:419",
                    err_b3a[f"{B3A} {n}x{d}"]) for n, d in B3A_PATH_SHAPES)

@@ -5,8 +5,7 @@ PyTorch counterpart of ``repro.configs``, with the same modules as data.
 the reduced same-family variant (2 layers, d_model 128, <= 4 experts)
 that the CPU tests run; ``preset_config`` the serve / train CLI presets
 (the JAX package keeps it in ``repro.launch.train``). The port builds
-the dense, moe, mla, rwkv and hybrid families so far
-(``models.model.build_model``); vlm and encdec are ROADMAP A13c.5.
+every arch's family (``models.model.build_model``).
 """
 
 from __future__ import annotations

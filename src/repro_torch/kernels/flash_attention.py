@@ -24,7 +24,9 @@ never on a failure:
 On a CPU tensor it runs the plain version,
 ``kernels.ref.flash_attention_ref``. Nothing else selects among the
 three. ``flash_attention.launches`` counts the kernel launches of both
-variants, ``hopper_launches`` and ``scalar_launches`` each one's. The
+variants, ``hopper_launches`` and ``scalar_launches`` each one's, and
+``shape_launches`` (a ``collections.Counter``) counts them by the call's
+(B, Sq, Sk, H, K, D, causal, window). The
 kernels have no backward (the TPU kernel has none), so the wrapper
 refuses, on either device and before it picks a path, inputs that
 require grad or lie under a ``torch.func`` transform (``grad``,
@@ -34,6 +36,7 @@ batched, and a test there would pass a call the card refuses.
 
 from __future__ import annotations
 
+import collections
 import math
 from typing import Optional, Sequence
 
@@ -160,9 +163,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     counter = f"{variant}_launches"
     setattr(flash_attention, counter, getattr(flash_attention, counter) + 1)
     flash_attention.launches += 1
+    flash_attention.shape_launches[
+        (b, sq, k.shape[1], h, kh, d, bool(causal), window)] += 1
     return out
 
 
 flash_attention.launches = 0
 flash_attention.hopper_launches = 0
 flash_attention.scalar_launches = 0
+flash_attention.shape_launches = collections.Counter()

@@ -4,9 +4,10 @@ under a sliding window; MLA's latent cache; the recurrent state).
 
 PyTorch counterpart of ``repro.launch.serve``, with the same flags and
 defaults plus ``--device`` (default: the card; ``cpu`` runs the plain
-versions of the kernels). The port serves the dense (qwen3-14b,
-qwen2.5-14b, starcoder2-15b), moe (qwen3-moe-235b-a22b, kimi-k2-1t-a32b),
-mla (minicpm3-4b), rwkv (rwkv6-7b) and hybrid (hymba-1.5b) families:
+versions of the kernels). The port serves every family: dense
+(qwen3-14b, qwen2.5-14b, starcoder2-15b), moe (qwen3-moe-235b-a22b,
+kimi-k2-1t-a32b), mla (minicpm3-4b), rwkv (rwkv6-7b), hybrid
+(hymba-1.5b), vlm (llama-3.2-vision-11b) and encdec (whisper-medium):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --preset tiny --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --preset full
@@ -14,8 +15,13 @@ mla (minicpm3-4b), rwkv (rwkv6-7b) and hybrid (hymba-1.5b) families:
         --preset tiny --batch 4 --prompt-len 64 --gen 32 --device cpu
 
 Weights are random, drawn from ``--seed`` on the device; the prompt is
-random ids drawn from seed 1. Greedy decoding (``--temperature 0``)
-gives the same ids as the JAX package for the same weights and prompt.
+random ids drawn from seed 1. The vlm and encdec families get the JAX
+CLI's stub inputs in place of the vision tower and the audio frontend
+(``stub_inputs``): ``image_embed`` (B, n_img_tokens, d) in bf16 or
+``audio_embed`` (B, enc_seq, d) in f32, standard normal, drawn from
+seed 2. Greedy decoding (``--temperature 0``)
+gives the same ids as the JAX package for the same weights, prompt and
+embeddings.
 Temperature sampling draws Gumbel noise from a ``torch.Generator`` keyed
 by the seed and the step. Prints the JAX CLI's two lines, then the
 decode rate in tokens/s and the peak device memory.
@@ -25,13 +31,13 @@ from __future__ import annotations
 
 import argparse
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from repro_torch.configs import ARCHS, preset_config
-from repro_torch.device import resolve_device
-from repro_torch.models.model import Model, build_model
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models.model import Model, ModelConfig, build_model
 
 
 def _sample(logits: torch.Tensor, temperature: float, seed: int,
@@ -47,14 +53,36 @@ def _sample(logits: torch.Tensor, temperature: float, seed: int,
                         keepdim=True)
 
 
+def stub_inputs(cfg: ModelConfig, batch: int,
+                device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The batch entries a family needs beside the tokens, as the JAX
+    CLI draws them (``jax.random.normal(key(2), ...)``; here from a
+    ``torch.Generator`` seeded 2, the same law): ``audio_embed``
+    (batch, enc_seq, d) f32 for encdec, ``image_embed`` (batch,
+    n_img_tokens, d) bf16 for vlm; none for the other families."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    if cfg.family == "encdec":
+        return {"audio_embed": torch.randn(
+            (batch, cfg.enc_seq, cfg.d_model), generator=gen, device=dev)}
+    if cfg.family == "vlm":
+        return {"image_embed": torch.randn(
+            (batch, cfg.n_img_tokens, cfg.d_model), generator=gen,
+            device=dev).bfloat16()}
+    return {}
+
+
 def generate(model: Model, params, tokens: torch.Tensor, gen: int, *,
-             temperature: float = 0.0, seed: int = 0) -> dict:
-    """Prefill ``tokens`` (B, S), then decode until ``gen`` tokens are out
-    (the first from the prefill's logits). Times both phases on the
-    tokens' device (synchronized on the card). Returns the generated ids
-    (B, gen), the prefill logits, the final cache and the two times in
-    seconds. The cache holds the prompt, the generated tokens and the
-    meta tokens (Hymba), at most a window of them."""
+             temperature: float = 0.0, seed: int = 0,
+             inputs: Optional[Dict[str, torch.Tensor]] = None) -> dict:
+    """Prefill ``tokens`` (B, S) with the batch entries ``inputs`` (the
+    vlm family's ``image_embed``, the encdec family's ``audio_embed``),
+    then decode until ``gen`` tokens are out (the first from the
+    prefill's logits). Times both phases on the tokens' device
+    (synchronized on the card). Returns the generated ids (B, gen), the
+    prefill logits, the final cache and the two times in seconds. The
+    cache holds the prompt, the generated tokens and the meta tokens
+    (Hymba), at most a window of them."""
     cfg = model.config
     b, s = tokens.shape
     total = s + gen + cfg.n_meta_tokens
@@ -68,7 +96,8 @@ def generate(model: Model, params, tokens: torch.Tensor, gen: int, *,
     with torch.no_grad():
         sync()
         t0 = time.perf_counter()
-        logits, cache = model.prefill(params, {"tokens": tokens},
+        logits, cache = model.prefill(params, {"tokens": tokens,
+                                               **(inputs or {})},
                                       length=length)
         sync()
         t_prefill = time.perf_counter() - t0
@@ -113,7 +142,8 @@ def main(argv: Optional[List[str]] = None) -> dict:
     tokens = torch.randint(0, cfg.vocab, (b, s), device=dev,
                            generator=torch.Generator(device=dev).manual_seed(1))
     r = generate(model, params, tokens, args.gen,
-                 temperature=args.temperature, seed=args.seed)
+                 temperature=args.temperature, seed=args.seed,
+                 inputs=stub_inputs(cfg, b, dev))
     t_prefill, t_decode = r["t_prefill"], r["t_decode"]
     print(f"arch={cfg.arch} prefill {s} toks x{b}: {t_prefill*1e3:.1f} ms; "
           f"decode {args.gen} toks: {t_decode*1e3:.1f} ms "

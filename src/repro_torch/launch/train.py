@@ -36,8 +36,13 @@ port has no Pallas interpret mode), ``--no-donate`` and
 ``--donation-report`` (no XLA buffer donation: the slabs update in
 place) and ``--backend jnp`` (no backend switch: the device decides).
 ``--backend`` accepts ``pallas``, its default, and ``pallas_sharded``.
-The dense, moe, mla, rwkv and hybrid families train; the vlm and encdec
-families raise ``NotImplementedError`` naming ROADMAP A13c.5.
+The dense, moe, mla, rwkv and hybrid families train. The vlm
+(llama-3.2-vision-11b) and encdec (whisper-medium) archs are refused by
+name: the CLI's batches hold tokens only, as the JAX CLI's do (on which
+those models fail), and these families need ``image_embed`` /
+``audio_embed`` in every batch; they train through the round API
+(``make_slab_round_runner`` + ``run_rounds_slab``) with batches that
+carry them.
 
     PYTHONPATH=src python -m repro_torch.launch.train --preset tiny \\
         --rounds 3 --clients 4 --device cpu
@@ -61,7 +66,7 @@ import torch
 import torch.distributed as dist
 
 import repro_torch.checkpoint as ckpt
-from repro_torch.configs import ARCHS, preset_config
+from repro_torch.configs import ARCHS, get_config, preset_config
 from repro_torch.core.adaptive import AdaptiveConfig
 from repro_torch.core.channel import OTAChannelConfig, UplinkConfig
 from repro_torch.core.draws import TorchDraws
@@ -259,6 +264,14 @@ def refuse_unported(ap: argparse.ArgumentParser,
     if args.comm_buckets > 1 and args.backend != "pallas_sharded":
         ap.error("--comm-buckets > 1 buckets the sharded MAC collective; "
                  f"it needs --backend pallas_sharded (got {args.backend})")
+    needs = {"vlm": "image_embed", "encdec": "audio_embed"}.get(
+        get_config(args.arch).family)
+    if needs:
+        ap.error(f"--arch {args.arch}: its model needs batch[{needs!r}] "
+                 "beside the tokens, and the CLI's batches hold tokens only "
+                 "(as the JAX CLI's, on which it fails too); train it "
+                 "through make_slab_round_runner + run_rounds_slab with "
+                 f"batches that carry {needs}")
 
 
 def client_corpus(vocab: int, seq: int, n_clients: int, batch: int,

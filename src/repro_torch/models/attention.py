@@ -1,17 +1,23 @@
 """Attention: MHA/GQA, causal + sliding-window masking and the KV cache
 (full-length, and a ring buffer for a sliding window).
 
-PyTorch counterpart of ``repro.models.attention`` for self-attention.
+PyTorch counterpart of ``repro.models.attention``: self-attention and
+cross-attention.
 
 ``attend`` computes masked GQA attention and picks its path by the
 call's arguments; there is no switch:
 
 * without positions (``q_pos = k_pos = None``, meaning 0..S-1 for
-  queries and keys alike) and without a key mask it is self-attention
-  over the whole sequence for inference: prefill and ``forward``, whose
-  callers build exactly those positions. It goes to the flash-attention
-  kernel (``kernels.flash_attention``, B5), which builds the same causal /
-  window mask from the indices. That is the function the JAX package
+  queries and keys alike) and without a key mask it is attention over
+  whole sequences for inference: prefill, ``forward`` and the
+  cross-attention of decode, whose callers build exactly those
+  positions. It goes to the flash-attention kernel
+  (``kernels.flash_attention``, B5), which builds the same causal /
+  window mask from the indices. As many keys as queries, or, with
+  neither a causal nor a window mask (the encoder's bidirectional
+  attention, cross-attention over an image or the encoder's output,
+  decode's one query row against it), any number of keys: there the
+  result does not depend on positions. That is the function the JAX package
   computes there through its plain, ``kv_chunk`` and ``window_block``
   branches (the last two are its perf levers; all three give the same
   result), so the port keeps neither lever. B5 has no backward (the TPU
@@ -116,18 +122,21 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Masked GQA attention. Shapes: q (B,Sq,H,D); k,v (B,Sk,K,D);
     q_pos (B,Sq) or (Sq,); k_pos (B,Sk) or (Sk,); k_valid optional (B,Sk).
-    ``q_pos = k_pos = None`` means positions 0..S-1 for both (Sq == Sk):
-    the flash-attention kernel's call, for inference only (it has no
-    backward). Positions given take the masked plain path, which
-    autograd and ``torch.func`` differentiate: the training forward's
-    call (module docstring).
+    ``q_pos = k_pos = None`` means positions 0..S-1 for both: the
+    flash-attention kernel's call, for inference only (it has no
+    backward), with Sq == Sk, or any Sk when neither ``causal`` nor
+    ``window`` masks (no mask depends on positions then). Positions
+    given take the masked plain path, which autograd and ``torch.func``
+    differentiate: the training forward's call (module docstring).
     """
     if q_pos is None or k_pos is None:
+        unmasked = not causal and window is None
         if (q_pos is not k_pos or k_valid is not None
-                or q.shape[1] != k.shape[1]):
+                or (q.shape[1] != k.shape[1] and not unmasked)):
             raise ValueError(
-                "attend without positions is self-attention over 0..S-1: "
-                "both positions None, no k_valid, as many keys as queries")
+                "attend without positions is attention over 0..S-1: both "
+                "positions None, no k_valid, and as many keys as queries "
+                "unless the call is neither causal nor windowed")
         return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                                causal=causal, window=window)
     scale = 1.0 / math.sqrt(q.shape[-1])
@@ -173,6 +182,25 @@ def self_attention(p: dict, cfg: AttentionConfig, x: torch.Tensor,
     pos = _sequence_positions(x, positions)
     q, k, v = _project_qkv(p, cfg, x, x, pos, pos)
     o = attend(q, k, v, positions, positions, cfg.causal, cfg.window)
+    return dense(p["wo"], o.reshape(*o.shape[:-2], -1))
+
+
+def cross_attention(p: dict, cfg: AttentionConfig, x: torch.Tensor,
+                    kv_source: torch.Tensor,
+                    positions: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Cross-attention of ``x`` (B, Sq, d) over ``kv_source`` (B, Sk, d),
+    projected here: no mask and no rope on either side; ``qk_norm`` is
+    honoured. ``positions=None`` runs the flash kernel (prefill,
+    ``forward``, decode at Sq = 1); the training forward passes the
+    query positions and runs the plain path, with the keys at 0..Sk-1
+    (the JAX package's call; unmasked, the result does not depend on
+    them)."""
+    q, k, v = _project_qkv(p, cfg, x, kv_source, None, None)
+    k_pos = (None if positions is None else
+             torch.arange(kv_source.shape[1], dtype=torch.int32,
+                          device=x.device))
+    o = attend(q, k, v, positions, k_pos, causal=False, window=None)
     return dense(p["wo"], o.reshape(*o.shape[:-2], -1))
 
 

@@ -16,7 +16,8 @@ Random leaves are drawn in f32 pieces of at most ``DRAW_CHUNK`` entries
 and written into the leaf, so at full width no f32 temporary is larger
 than one leaf's worth of a piece. Inside ``draw_into`` the leaf is a
 tensor the caller hands out (``transformer.stack_init`` hands out the
-leaf's slice of the layer stack) instead of a new one.
+leaf's slice of the layer stack) instead of a new one; ``allocator``
+gives the allocator in force, which a nested stack allocates through.
 """
 
 from __future__ import annotations
@@ -47,13 +48,21 @@ def draw_into(alloc: Alloc) -> Iterator[None]:
         _SINKS.pop()
 
 
+def _empty(shape, dtype, device) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=device)
+
+
+def allocator() -> Alloc:
+    """The allocator a random leaf drawn now goes into: the innermost
+    open ``draw_into`` block's, else a new tensor."""
+    return _SINKS[-1] if _SINKS else _empty
+
+
 def _drawn(shape, dtype, gen: torch.Generator,
            draw: Callable[[torch.Tensor], None]) -> torch.Tensor:
     """A leaf of ``shape`` / ``dtype`` on the generator's device, filled
     piece by piece: ``draw(t)`` fills an f32 piece in place."""
-    shape = tuple(shape)
-    out = (_SINKS[-1](shape, dtype, gen.device) if _SINKS else
-           torch.empty(shape, dtype=dtype, device=gen.device))
+    out = allocator()(tuple(shape), dtype, gen.device)
     flat = out.view(-1)
     for i in range(0, flat.numel(), DRAW_CHUNK):
         piece = torch.empty(min(DRAW_CHUNK, flat.numel() - i),
@@ -153,6 +162,19 @@ def embed_init(gen: torch.Generator, vocab: int, dim: int,
 def embed(p: dict, ids: torch.Tensor,
           compute_dtype=torch.bfloat16) -> torch.Tensor:
     return p["table"][ids].to(compute_dtype)
+
+
+def sinusoidal_embed(positions: torch.Tensor, dim: int,
+                     max_timescale: float = 10000.0) -> torch.Tensor:
+    """Transformer sin/cos position embeddings in f32, (..., dim), with
+    the JAX package's frequencies exp(-ln(max_timescale) i / half).
+    positions: (...,) integers."""
+    half = dim // 2
+    freqs = torch.exp(-math.log(max_timescale)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device) / half)
+    angles = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(angles), torch.cos(angles)], dim=-1)
 
 
 # --------------------------------------------------------------------------

@@ -2,9 +2,10 @@
 
 PyTorch counterpart of ``repro.models.model``. ``ModelConfig`` mirrors
 the JAX package's field for field, with ``n_params`` and
-``n_active_params``. ``build_model(cfg)`` returns a ``Model`` for the
-dense (Qwen3, Qwen2.5, StarCoder2), moe (Qwen3-MoE, Kimi-K2), mla
-(MiniCPM3), rwkv (RWKV-6) and hybrid (Hymba) families:
+``n_active_params``. ``build_model(cfg)`` returns a ``Model`` for all
+seven families: dense (Qwen3, Qwen2.5, StarCoder2), moe (Qwen3-MoE,
+Kimi-K2), mla (MiniCPM3), rwkv (RWKV-6), hybrid (Hymba), vlm
+(Llama-3.2-Vision) and encdec (Whisper):
 
     init(seed=0, device=None)          -- random parameters on the device
     forward(params, batch)             -- full-sequence logits
@@ -14,19 +15,31 @@ dense (Qwen3, Qwen2.5, StarCoder2), moe (Qwen3-MoE, Kimi-K2), mla
     init_cache(batch, length, device)  -- empty caches
 
 Params are nested dicts with the per-layer parameters stacked on a
-leading layer axis, the JAX package's layout. In the dense, moe and
-hybrid families ``forward`` and ``prefill`` run attention through the
-flash-attention kernel (B5), which has no backward; ``loss_fn`` runs the
-same backbone with its positions given, so attention takes the masked
-plain path that ``torch.func`` differentiates (``models.attention``).
-MLA attention is plain torch on every path (``models.mla``); RWKV has no
-attention. With ``n_meta_tokens`` (Hymba) the learned meta tokens are
-prepended to every sequence and sliced off before the unembedding, and
+leading layer axis, the JAX package's layout. ``forward`` and
+``prefill`` run attention through the flash-attention kernel (B5),
+which has no backward: causal self-attention in the dense, moe, hybrid
+and vlm families and in Whisper's decoder, the encoder's bidirectional
+self-attention and cross-attention (over the image tokens or the
+encoder's output; in ``decode_step`` too, one query row a step).
+``loss_fn`` runs the same backbone with its positions given, so
+attention takes the masked plain path that ``torch.func``
+differentiates (``models.attention``). MLA attention is plain torch on
+every path (``models.mla``); RWKV has no attention. With
+``n_meta_tokens`` (Hymba) the learned meta tokens are prepended to
+every sequence and sliced off before the unembedding, and
 ``decode_step`` shifts its position past them. ``decode_step`` updates
 the cache in place. ``loss_fn`` adds the blocks' aux loss (the MoE
-load-balance loss); ``forward`` returns it beside the logits. The vlm
-and encdec families raise ``NotImplementedError`` naming their ROADMAP
-item (A13c.5).
+load-balance loss); ``forward`` returns it beside the logits.
+
+The vlm family's batches carry ``image_embed`` (B, n_img_tokens, d), the
+stubbed vision tower's output, which every group attends over; the
+prefill's cache carries it for ``decode_step``. The encdec family's
+carry ``audio_embed`` (B, enc_seq, d), the stubbed frontend's frames,
+which the encoder turns into ``enc_out`` (cached by the prefill);
+Whisper's learned decoder positions are the sinusoidal ones, added at
+the embedding, as in the JAX package. A batch without its family's key
+raises ``ValueError``. Decode recomputes the cross-attention keys and
+values from the cached embeddings every step, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -41,7 +54,7 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as tfm
 from repro_torch.models.attention import AttentionConfig
 from repro_torch.models.layers import (dense, dense_init, embed, embed_init,
-                                       normal, softmax_xent)
+                                       normal, sinusoidal_embed, softmax_xent)
 from repro_torch.models.mla import MLAConfig
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.rwkv import RWKVConfig
@@ -172,29 +185,36 @@ class Model(NamedTuple):
 
 _BLOCKS = {"dense": tfm.dense_block, "mla": tfm.mla_block,
            "moe": tfm.moe_block, "rwkv": tfm.rwkv_block,
-           "hybrid": tfm.hybrid_block}
-_UNPORTED = ("vlm", "encdec")
+           "hybrid": tfm.hybrid_block, "vlm": tfm.vlm_group}
 
 
 def _block_fns(cfg: ModelConfig) -> tuple:
     if cfg.family in _BLOCKS:
         return _BLOCKS[cfg.family](cfg)
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet (ROADMAP A13c.5); "
-            f"the port builds the {', '.join(_BLOCKS)} families")
     raise ValueError(f"unknown family {cfg.family}")
 
 
+def _needs(batch: dict, key: str, cfg: ModelConfig) -> torch.Tensor:
+    """``batch[key]``, which the family's model cannot run without."""
+    if batch.get(key) is None:
+        raise ValueError(f"the {cfg.family} family ({cfg.arch}) needs "
+                         f"batch[{key!r}]; the batch holds {sorted(batch)}")
+    return batch[key]
+
+
 def build_model(cfg: ModelConfig) -> Model:
+    if cfg.family == "encdec":
+        return _build_encdec(cfg)
     b_init, b_fwd, b_decode, b_cache, b_pfl = _block_fns(cfg)
+    vlm = cfg.family == "vlm"
+    n_stack = cfg.n_layers // cfg.cross_attn_period if vlm else cfg.n_layers
 
     def init(seed: int = 0, device: DeviceLike = None):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
         p = {
             "embed": embed_init(gen, cfg.vocab, cfg.d_model, cfg.dtype),
-            "blocks": tfm.stack_init(b_init, gen, cfg.n_layers),
+            "blocks": tfm.stack_init(b_init, gen, n_stack),
             "final_norm": tfm._norm_init(cfg.norm, cfg.d_model, dev),
             "unembed": dense_init(gen, cfg.d_model, (cfg.vocab,), cfg.dtype),
         }
@@ -212,10 +232,15 @@ def build_model(cfg: ModelConfig) -> Model:
             x = torch.cat([meta, x], dim=1)
         return x
 
-    def _logits(params, tokens, positions):
-        x = _embed(params, tokens)
-        x, aux = tfm.stack_apply(lambda lp, h: b_fwd(lp, h, positions),
-                                 params["blocks"], x,
+    def _image(batch):
+        return _needs(batch, "image_embed", cfg) if vlm else None
+
+    def _logits(params, batch, positions):
+        x = _embed(params, batch["tokens"])
+        img = _image(batch)
+        fwd = ((lambda lp, h: b_fwd(lp, h, img, positions)) if vlm else
+               (lambda lp, h: b_fwd(lp, h, positions)))
+        x, aux = tfm.stack_apply(fwd, params["blocks"], x,
                                  torch.zeros((), dtype=torch.float32,
                                              device=x.device))
         x = tfm._norm(cfg.norm, params["final_norm"], x)
@@ -224,7 +249,7 @@ def build_model(cfg: ModelConfig) -> Model:
     def forward(params, batch):
         """Logits over the whole sequence through the flash kernel (no
         backward: inference)."""
-        return _logits(params, batch["tokens"], None)
+        return _logits(params, batch, None)
 
     def loss_fn(params, batch, weights=None):
         """Next-token cross-entropy plus the blocks' aux loss, as the JAX
@@ -234,27 +259,39 @@ def build_model(cfg: ModelConfig) -> Model:
         tokens = batch["tokens"]
         positions = torch.arange(cfg.n_meta_tokens + tokens.shape[-1],
                                  dtype=torch.int32, device=tokens.device)
-        logits, aux = _logits(params, tokens, positions)
+        logits, aux = _logits(params, batch, positions)
         loss = softmax_xent(logits[:, :-1], tokens[:, 1:], weights,
                             batch.get("mask"))
         return loss + aux
 
     def init_cache(batch_size: int, length: int, device: DeviceLike = None):
-        one = b_cache(batch_size, length, resolve_device(device))
-        return {"layers": tree_map(
-            lambda a: torch.stack([a] * cfg.n_layers), one)}
+        dev = resolve_device(device)
+        one = b_cache(batch_size, length, dev)
+        cache = {"layers": tree_map(lambda a: torch.stack([a] * n_stack),
+                                    one)}
+        if vlm:
+            cache["image_embed"] = torch.zeros(
+                (batch_size, cfg.n_img_tokens, cfg.d_model), dtype=cfg.dtype,
+                device=dev)
+        return cache
 
     def prefill(params, batch, length=None):
         """Forward over the prompt, collecting the per-layer decode caches.
-        Returns (logits of the last position, cache)."""
+        Returns (logits of the last position, cache); a vlm cache carries
+        the batch's ``image_embed``."""
         tokens = batch["tokens"]
         length = length or tokens.shape[1]
         x = _embed(params, tokens)
-        x, layers = tfm.stack_prefill(lambda lp, xx: b_pfl(lp, xx, length),
-                                      params["blocks"], x)
+        img = _image(batch)
+        pfl = ((lambda lp, xx: b_pfl(lp, xx, length, img)) if vlm else
+               (lambda lp, xx: b_pfl(lp, xx, length)))
+        x, layers = tfm.stack_prefill(pfl, params["blocks"], x)
         x = tfm._norm(cfg.norm, params["final_norm"],
                       x[:, cfg.n_meta_tokens:])
-        return dense(params["unembed"], x[:, -1:]), {"layers": layers}
+        cache = {"layers": layers}
+        if vlm:
+            cache["image_embed"] = img
+        return dense(params["unembed"], x[:, -1:]), cache
 
     def decode_step(params, cache, token, pos: int):
         """token: (B, 1) integer ids; pos: the absolute text position
@@ -262,9 +299,109 @@ def build_model(cfg: ModelConfig) -> Model:
         token into ``cache`` and returns (logits, cache)."""
         pos = pos + cfg.n_meta_tokens
         x = embed(params["embed"], token, cfg.dtype)
+        img = cache.get("image_embed")
+        dec = ((lambda lp, ch, xx: b_decode(lp, ch, xx, pos, img)) if vlm
+               else (lambda lp, ch, xx: b_decode(lp, ch, xx, pos)))
+        x, layers = tfm.stack_decode(dec, params["blocks"], cache["layers"],
+                                     x)
+        x = tfm._norm(cfg.norm, params["final_norm"], x)
+        return dense(params["unembed"], x), {**cache, "layers": layers}
+
+    return Model(cfg, init, forward, loss_fn, prefill, decode_step,
+                 init_cache)
+
+
+def _build_encdec(cfg: ModelConfig) -> Model:
+    """Whisper (``repro.models.model._build_encdec``): the encoder over
+    ``batch["audio_embed"]``, the decoder over the tokens with sinusoidal
+    positions and cross-attention over the encoder's output."""
+    ((e_init, e_fwd),
+     (d_init, d_fwd, d_decode, d_cache, d_pfl)) = tfm.encdec_blocks(cfg)
+    n_enc = cfg.n_enc_layers or cfg.n_layers
+
+    def init(seed: int = 0, device: DeviceLike = None):
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return {
+            "embed": embed_init(gen, cfg.vocab, cfg.d_model, cfg.dtype),
+            "enc_blocks": tfm.stack_init(e_init, gen, n_enc),
+            "enc_norm": tfm._norm_init(cfg.norm, cfg.d_model, dev),
+            "dec_blocks": tfm.stack_init(d_init, gen, cfg.n_layers),
+            "final_norm": tfm._norm_init(cfg.norm, cfg.d_model, dev),
+            "unembed": dense_init(gen, cfg.d_model, (cfg.vocab,), cfg.dtype),
+        }
+
+    def encode(params, batch, train: bool = False):
+        """The encoder stack and ``enc_norm`` over the frames cast to the
+        parameters' dtype; ``train`` gives attention its positions (the
+        plain path, with a backward)."""
+        x = _needs(batch, "audio_embed", cfg).to(cfg.dtype)
+        pos = (torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+               if train else None)
+        x, _ = tfm.stack_apply(lambda lp, h: e_fwd(lp, h, pos),
+                               params["enc_blocks"], x)
+        return tfm._norm(cfg.norm, params["enc_norm"], x)
+
+    def _text(params, tokens, start: int = 0):
+        """Token embeddings plus the sinusoidal positions start.., cast."""
+        pos = torch.arange(start, start + tokens.shape[1], device=tokens.device)
+        pe = sinusoidal_embed(pos, cfg.d_model)
+        return embed(params["embed"], tokens, cfg.dtype) + pe[None].to(
+            cfg.dtype)
+
+    def _logits(params, batch, train: bool):
+        enc = encode(params, batch, train)
+        tokens = batch["tokens"]
+        pos = (torch.arange(tokens.shape[1], dtype=torch.int32,
+                            device=tokens.device) if train else None)
+        x, aux = tfm.stack_apply(lambda lp, h: d_fwd(lp, h, enc, pos),
+                                 params["dec_blocks"], _text(params, tokens),
+                                 torch.zeros((), dtype=torch.float32,
+                                             device=tokens.device))
+        x = tfm._norm(cfg.norm, params["final_norm"], x)
+        return dense(params["unembed"], x), aux
+
+    def forward(params, batch):
+        """Logits over the whole sequence, attention through the flash
+        kernel (no backward: inference)."""
+        return _logits(params, batch, False)
+
+    def loss_fn(params, batch, weights=None):
+        """Next-token cross-entropy, attention on the plain path."""
+        logits, aux = _logits(params, batch, True)
+        loss = softmax_xent(logits[:, :-1], batch["tokens"][:, 1:], weights,
+                            batch.get("mask"))
+        return loss + aux
+
+    def init_cache(batch_size: int, length: int, device: DeviceLike = None):
+        dev = resolve_device(device)
+        one = d_cache(batch_size, length, dev)
+        return {"layers": tree_map(lambda a: torch.stack([a] * cfg.n_layers),
+                                   one),
+                "enc_out": torch.zeros((batch_size, cfg.enc_seq, cfg.d_model),
+                                       dtype=cfg.dtype, device=dev)}
+
+    def prefill(params, batch, length=None):
+        """The encoder, then the decoder over the prompt, collecting its
+        caches. Returns (logits of the last position, cache with
+        ``enc_out``)."""
+        enc = encode(params, batch)
+        tokens = batch["tokens"]
+        length = length or tokens.shape[1]
+        x, layers = tfm.stack_prefill(
+            lambda lp, xx: d_pfl(lp, xx, length, enc), params["dec_blocks"],
+            _text(params, tokens))
+        x = tfm._norm(cfg.norm, params["final_norm"], x)
+        return (dense(params["unembed"], x[:, -1:]),
+                {"layers": layers, "enc_out": enc})
+
+    def decode_step(params, cache, token, pos: int):
+        """token: (B, 1) ids; pos: its position (int). Writes the token
+        into ``cache`` and returns (logits, cache)."""
+        enc = cache["enc_out"]
         x, layers = tfm.stack_decode(
-            lambda lp, ch, xx: b_decode(lp, ch, xx, pos), params["blocks"],
-            cache["layers"], x)
+            lambda lp, ch, xx: d_decode(lp, ch, xx, pos, enc),
+            params["dec_blocks"], cache["layers"], _text(params, token, pos))
         x = tfm._norm(cfg.norm, params["final_norm"], x)
         return dense(params["unembed"], x), {**cache, "layers": layers}
 

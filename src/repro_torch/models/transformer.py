@@ -1,6 +1,7 @@
 """Transformer blocks and the layer-stack helpers.
 
-PyTorch counterpart of ``repro.models.transformer`` for five families:
+PyTorch counterpart of ``repro.models.transformer`` for its seven
+families:
 
   dense  -- pre-norm GQA attention + (SwiGLU | GeLU) MLP
   mla    -- pre-norm MLA attention + SwiGLU MLP (MiniCPM3; ``models.mla``)
@@ -9,16 +10,21 @@ PyTorch counterpart of ``repro.models.transformer`` for five families:
   rwkv   -- RWKV-6 time mix + channel mix (``models.rwkv``)
   hybrid -- Hymba: GQA attention and an SSM branch in parallel on the
             same input, averaged, + MLP (``models.ssm``)
+  encdec -- Whisper: bidirectional encoder; decoder with self- and
+            cross-attention over the encoder's output
+  vlm    -- Llama-3.2-Vision: groups of 1 gated cross-attention layer
+            over the image tokens + (cross_attn_period - 1) dense layers
 
 Per-layer parameters are stacked on a leading layer axis, as in the JAX
-package, so ``convert.params_from_numpy`` carries a JAX model across
-leaf for leaf; where the JAX package scans over that axis, the port runs
-a Python loop over the layers (``stack_*``). The encdec and vlm families
-are ROADMAP A13c.5.
+package (a vlm group's dense layers on a second one, ``selfs``), so
+``convert.params_from_numpy`` carries a JAX model across leaf for leaf;
+where the JAX package scans over that axis, the port runs a Python loop
+over the layers (``stack_*``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, List, Optional, Tuple
 
 import torch
@@ -29,9 +35,10 @@ from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv as rwkv_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (draw_into, gelu_mlp, gelu_mlp_init,
-                                       layernorm, layernorm_init, rmsnorm,
-                                       rmsnorm_init, swiglu, swiglu_init)
+from repro_torch.models.layers import (allocator, draw_into, gelu_mlp,
+                                       gelu_mlp_init, layernorm,
+                                       layernorm_init, rmsnorm, rmsnorm_init,
+                                       swiglu, swiglu_init)
 
 PyTree = Any
 
@@ -76,7 +83,11 @@ def stack_init(block_init: Callable, gen: torch.Generator,
     (``layers.draw_into``); layer 0's draws allocate the stacks. So the
     peak is the stack plus one draw piece and one layer's non-random
     leaves (norm scales, biases, copied in after the layer), and a
-    1-layer stack holds its layer once."""
+    1-layer stack holds its layer once. A stack nested in a layer (a vlm
+    group's ``selfs``) allocates its random leaves' stacks through the
+    enclosing stack's allocator, so they too are drawn in place, into
+    the enclosing stack's slice."""
+    alloc = allocator()
     stacks: List[torch.Tensor] = []     # the random leaves', in draw order
     handed: List[torch.Tensor] = []     # layer 0's slices of them
     at = {"layer": 0, "draw": 0}
@@ -85,8 +96,7 @@ def stack_init(block_init: Callable, gen: torch.Generator,
         k = at["draw"]
         at["draw"] += 1
         if at["layer"] == 0:
-            stacks.append(torch.empty((n_layers, *shape), dtype=dtype,
-                                      device=device))
+            stacks.append(alloc((n_layers, *shape), dtype, device))
             handed.append(stacks[k][0])
             return handed[k]
         return stacks[k][at["layer"]]
@@ -383,5 +393,127 @@ def hybrid_block(cfg) -> tuple:
         ya, kv = attn.prefill_kv_cache(p["attn"], acfg, h, length)
         ys, sc = ssm_mod.ssm_forward(p["ssm"], scfg, h, return_state=True)
         return _mix(p, x, ya, ys), {"kv": kv, "ssm": sc}
+
+    return init, fwd, decode, init_cache, pfl
+
+
+def encdec_blocks(cfg) -> tuple:
+    """Whisper: returns ((enc_init, enc_fwd), (dec_init, dec_fwd,
+    dec_decode, dec_init_cache, dec_pfl)). No rope (the sinusoidal
+    positions are added at the embedding); the encoder attends both ways,
+    and each decoder block attends over the encoder's output after its
+    causal self-attention."""
+    acfg = dataclasses.replace(cfg.attn_config(), rope=False)
+    enc_acfg = dataclasses.replace(acfg, causal=False)
+    x_acfg = dataclasses.replace(acfg, causal=False)
+    norm, mlpk = cfg.norm, cfg.mlp
+
+    def enc_init(gen):
+        return {
+            "ln1": _norm_init(norm, cfg.d_model, gen.device),
+            "attn": attn.attn_init(gen, enc_acfg, cfg.dtype),
+            "ln2": _norm_init(norm, cfg.d_model, gen.device),
+            "mlp": _mlp_init(mlpk, gen, cfg.d_model, cfg.d_ff, cfg.dtype),
+        }
+
+    def enc_fwd(p, x, positions=None):
+        # positions=None: the flash kernel (inference), as dense_block
+        x = x + attn.self_attention(p["attn"], enc_acfg,
+                                    _norm(norm, p["ln1"], x), positions)
+        x = x + _mlp(mlpk, p["mlp"], _norm(norm, p["ln2"], x))
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def dec_init(gen):
+        return {
+            "ln1": _norm_init(norm, cfg.d_model, gen.device),
+            "self": attn.attn_init(gen, acfg, cfg.dtype),
+            "lnx": _norm_init(norm, cfg.d_model, gen.device),
+            "cross": attn.attn_init(gen, x_acfg, cfg.dtype),
+            "ln2": _norm_init(norm, cfg.d_model, gen.device),
+            "mlp": _mlp_init(mlpk, gen, cfg.d_model, cfg.d_ff, cfg.dtype),
+        }
+
+    def _cross_mlp(p, x, enc_out, positions=None):
+        x = x + attn.cross_attention(p["cross"], x_acfg,
+                                     _norm(norm, p["lnx"], x), enc_out,
+                                     positions)
+        return x + _mlp(mlpk, p["mlp"], _norm(norm, p["ln2"], x))
+
+    def dec_fwd(p, x, enc_out, positions=None):
+        x = x + attn.self_attention(p["self"], acfg, _norm(norm, p["ln1"], x),
+                                    positions)
+        return (_cross_mlp(p, x, enc_out, positions),
+                torch.zeros((), dtype=torch.float32, device=x.device))
+
+    def dec_decode(p, cache, x, pos, enc_out):
+        y, kv = attn.decode_self_attention(
+            p["self"], acfg, _norm(norm, p["ln1"], x), cache["kv"], pos)
+        return _cross_mlp(p, x + y, enc_out), {**cache, "kv": kv}
+
+    def dec_init_cache(batch, length, device=None):
+        return {"kv": attn.init_kv_cache(batch, length, acfg, cfg.dtype,
+                                         device=device)}
+
+    def dec_pfl(p, x, length, enc_out):
+        y, kv = attn.prefill_kv_cache(p["self"], acfg,
+                                      _norm(norm, p["ln1"], x), length)
+        return _cross_mlp(p, x + y, enc_out), {"kv": kv}
+
+    return ((enc_init, enc_fwd),
+            (dec_init, dec_fwd, dec_decode, dec_init_cache, dec_pfl))
+
+
+def vlm_group(cfg) -> tuple:
+    """One Llama-3.2-Vision group: a gated cross-attention layer over the
+    image tokens (``x_attn``, gate ``tanh(x_gate)``), a gated MLP
+    (``x_mlp``, ``tanh(x_mlp_gate)``; the gates f32 scalars cast to the
+    activation dtype), then ``cross_attn_period - 1`` dense layers
+    stacked as ``selfs``. The model stacks groups, so their parameters
+    and caches are (n_groups, n_self, ...)."""
+    x_acfg = dataclasses.replace(cfg.attn_config(), causal=False, rope=False)
+    norm, mlpk = cfg.norm, cfg.mlp
+    n_self = cfg.cross_attn_period - 1
+    d_init, d_fwd, d_decode, d_init_cache, d_pfl = dense_block(cfg)
+
+    def init(gen):
+        dev = gen.device
+        return {
+            "x_ln": _norm_init(norm, cfg.d_model, dev),
+            "x_attn": attn.attn_init(gen, x_acfg, cfg.dtype),
+            "x_gate": torch.zeros((), dtype=torch.float32, device=dev),
+            "x_ln2": _norm_init(norm, cfg.d_model, dev),
+            "x_mlp": _mlp_init(mlpk, gen, cfg.d_model, cfg.d_ff, cfg.dtype),
+            "x_mlp_gate": torch.zeros((), dtype=torch.float32, device=dev),
+            "selfs": stack_init(d_init, gen, n_self),
+        }
+
+    def _gated(p, x, img, positions=None):
+        y = attn.cross_attention(p["x_attn"], x_acfg,
+                                 _norm(norm, p["x_ln"], x), img, positions)
+        x = x + torch.tanh(p["x_gate"]).to(x.dtype) * y
+        y = _mlp(mlpk, p["x_mlp"], _norm(norm, p["x_ln2"], x))
+        return x + torch.tanh(p["x_mlp_gate"]).to(x.dtype) * y
+
+    def fwd(p, x, img, positions=None):
+        # positions=None: the flash kernel (inference), as dense_block
+        x = _gated(p, x, img, positions)
+        x, _ = stack_apply(lambda lp, h: d_fwd(lp, h, positions), p["selfs"],
+                           x)
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def decode(p, cache, x, pos, img):
+        x, selfs = stack_decode(lambda lp, ch, xx: d_decode(lp, ch, xx, pos),
+                                p["selfs"], cache["selfs"],
+                                _gated(p, x, img))
+        return x, {**cache, "selfs": selfs}
+
+    def init_cache(batch, length, device=None):
+        one = d_init_cache(batch, length, device)
+        return {"selfs": tree_map(lambda a: torch.stack([a] * n_self), one)}
+
+    def pfl(p, x, length, img):
+        x, caches = stack_prefill(lambda lp, xx: d_pfl(lp, xx, length),
+                                  p["selfs"], _gated(p, x, img))
+        return x, {"selfs": caches}
 
     return init, fwd, decode, init_cache, pfl

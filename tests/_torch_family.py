@@ -1,7 +1,13 @@
 """Checks shared by the port's model-family tests (``test_torch_rwkv.py``,
-``test_torch_hybrid.py``): a smoke config's model in the JAX package and
-in the port on the same parameters (carried across bitwise by
-``repro_torch.convert``) and the same numpy-seeded tokens.
+``test_torch_hybrid.py``, ``test_torch_vlm.py``, ``test_torch_encdec.py``):
+a smoke config's model in the JAX package and in the port on the same
+parameters (carried across bitwise by ``repro_torch.convert``) and the
+same numpy-seeded tokens, with the family's extra batch entries
+(``family_inputs``: the vlm's ``image_embed``, the encdec's
+``audio_embed``) beside them. The vlm's cross-attention gates start at
+0, which would keep the cross branch out of every result: ``models``
+sets them to ``VLM_GATES`` in the JAX parameters before they are
+carried across.
 
 Tiers, those of ``tests/test_torch_moe.py`` and ``tests/test_torch_mla.py``:
 f32 1e-4 of scale, bf16 3e-2; the loss 1e-5 relative in f32 and 2e-3
@@ -31,6 +37,7 @@ from repro_torch.core.fl import (FLConfig, make_slab_round_runner,
                                  run_rounds_slab)
 from repro_torch.core.slab import tree_flatten
 from repro_torch.core.slab_state import init_train_state
+from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttfm
 from repro_torch.models.model import build_model
@@ -42,6 +49,60 @@ SLAB_SHARE, SLAB_WORST = 1e-4, 1e-4
 # 4.4e-2 of scale for JAX's and 3.3e-2 for the port's (seed 3)
 BF16_VS_F32 = 5e-2
 STEPS = 8
+VLM_GATES = {"x_gate": 0.7, "x_mlp_gate": -0.4}
+# a gradient that is zero in exact arithmetic, against the largest entry
+ZERO_TIER = {"float32": 1e-6, "bfloat16": 2 ** -8}
+
+
+def family_inputs(cfg, lead, seed=9):
+    """The batch entries the family needs beside the tokens, numpy, with
+    leading dims ``lead``: the encdec's ``audio_embed`` (f32, as the
+    serve CLI draws it), the vlm's ``image_embed`` (the parameters'
+    dtype, which the model takes as it is); none for the rest."""
+    rng = np.random.default_rng(seed)
+    if cfg.family == "encdec":
+        return {"audio_embed": rng.standard_normal(
+            (*lead, cfg.enc_seq, cfg.d_model)).astype(np.float32)}
+    if cfg.family == "vlm":
+        x = rng.standard_normal((*lead, cfg.n_img_tokens, cfg.d_model))
+        return {"image_embed": np.asarray(jnp.asarray(
+            x, jnp.dtype(cfg.param_dtype)))}
+    return {}
+
+
+def jbatch(tokens, extra):
+    return {"tokens": jnp.asarray(tokens, jnp.int32),
+            **{k: jnp.asarray(v) for k, v in extra.items()}}
+
+
+def tbatch(tokens, extra):
+    return {"tokens": torch.from_numpy(np.asarray(tokens)),
+            **tensors(extra)}
+
+
+def counting_flash(monkeypatch):
+    """B5's wrapper in ``models.attention`` wrapped to record each call's
+    (Sq, Sk, causal); returns the record."""
+    calls = []
+    real = tattn.flash_attention
+
+    def counted(q, k, v, **kw):
+        calls.append((q.shape[1], k.shape[1], kw.get("causal", True)))
+        return real(q, k, v, **kw)
+
+    monkeypatch.setattr(tattn, "flash_attention", counted)
+    return calls
+
+
+def open_gates(params):
+    """The vlm's cross-attention gates set nonzero (every group alike);
+    other families' parameters as they are."""
+    blocks = params.get("blocks", {})
+    if "x_gate" not in blocks:
+        return params
+    blocks = {**blocks, **{k: jnp.full_like(blocks[k], v)
+                           for k, v in VLM_GATES.items()}}
+    return {**params, "blocks": blocks}
 
 
 def scaled_close(got, want, tier, what=""):
@@ -72,7 +133,7 @@ def models(arch, dtype, seed=0):
     jcfg = dataclasses.replace(jconfigs.smoke_config(arch), param_dtype=dtype)
     tcfg = dataclasses.replace(tconfigs.smoke_config(arch), param_dtype=dtype)
     jm, tm = j_build_model(jcfg), build_model(tcfg)
-    jp = jm.init(jax.random.key(seed))
+    jp = open_gates(jm.init(jax.random.key(seed)))
     return jm, tm, jp, tensors(jp)
 
 
@@ -83,17 +144,16 @@ def check_forward_prefill_decode(arch, dtype, s=24):
     jm, tm, jp, tp = models(arch, dtype)
     cfg = tm.config
     toks = np.random.default_rng(1).integers(0, cfg.vocab, (2, s))
+    extra = family_inputs(cfg, (2,))
     tier = TIER[dtype]
-    jl, jaux = jm.forward(jp, {"tokens": jnp.asarray(toks, jnp.int32)})
-    tl, taux = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    jl, jaux = jm.forward(jp, jbatch(toks, extra))
+    tl, taux = tm.forward(tp, tbatch(toks, extra))
     scaled_close(tl, jl, tier, "forward logits")
     assert float(taux) == float(jaux) == 0.0
     length = s + STEPS + cfg.n_meta_tokens
     length = min(length, cfg.window) if cfg.window else length
-    jl, jc = jm.prefill(jp, {"tokens": jnp.asarray(toks, jnp.int32)},
-                        length=length)
-    tl, tc = tm.prefill(tp, {"tokens": torch.from_numpy(toks)},
-                        length=length)
+    jl, jc = jm.prefill(jp, jbatch(toks, extra), length=length)
+    tl, tc = tm.prefill(tp, tbatch(toks, extra), length=length)
     scaled_close(tl, jl, tier, "prefill logits")
     trees_close(tc, jc, tier, "prefill cache")
     decode = jax.jit(jm.decode_step)
@@ -114,20 +174,38 @@ def check_forward_prefill_decode(arch, dtype, s=24):
     trees_close(tc, jc, tier, "decoded cache")
 
 
-def check_loss_and_gradients(arch, dtype, s=40, bf16_vs_jax=True):
+def _f32_gradient(jm, jp, toks, extra):
+    """JAX's f32 gradient of the same (bf16-valued) parameters on the
+    same inputs, leaves in order."""
+    j32 = j_build_model(dataclasses.replace(jm.config, param_dtype="float32"))
+    return jax.tree.leaves(jax.grad(j32.loss_fn)(
+        jax.tree.map(lambda a: a.astype(jnp.float32), jp),
+        jbatch(toks, {k: np.asarray(v, np.float32)
+                      for k, v in extra.items()})))
+
+
+def check_loss_and_gradients(arch, dtype, s=40, bf16_vs_jax=True,
+                             held_to_f32=()):
     """``loss_fn`` and its gradients against ``jax.value_and_grad``. In
     bf16 with ``bf16_vs_jax=False`` each package's gradient leaves are
     held instead to the f32 gradient of the same (bf16-valued)
     parameters, at BF16_VS_F32 of scale: where the reference's own bf16
     gradient is that far from the f32 one, two bf16 backwards cannot
-    meet 3e-2 of each other."""
+    meet 3e-2 of each other. In bf16 the leaves whose path ends with one
+    of ``held_to_f32`` are held to the f32 gradient too, each at 3e-2 of
+    scale or JAX's own bf16 error there, whichever is larger (the vlm's
+    gate scalars: each a sum over the whole branch's output, where two
+    bf16 backwards part by more). A key bias's gradient (``['wk']
+    ['bias']``) is zero in exact arithmetic (a row's softmax does not
+    move when every score shifts by q . b): both packages' are held to
+    ZERO_TIER of the largest gradient entry instead of to each other's
+    rounding noise. Returns the port's gradient."""
     jm, tm, jp, tp = models(arch, dtype, seed=3)
     toks = np.random.default_rng(0).integers(0, tm.config.vocab, (2, s)
                                              ).astype(np.int32)
-    jl, jg = jax.value_and_grad(jm.loss_fn)(jp, {"tokens":
-                                                 jnp.asarray(toks)})
-    tg, tl = grad_and_value(tm.loss_fn)(tp, {"tokens":
-                                             torch.from_numpy(toks)})
+    extra = family_inputs(tm.config, (2,))
+    jl, jg = jax.value_and_grad(jm.loss_fn)(jp, jbatch(toks, extra))
+    tg, tl = grad_and_value(tm.loss_fn)(tp, tbatch(toks, extra))
     loss_tol, leaf_tol = LOSS_TIERS[dtype]
     if dtype == "float32":
         np.testing.assert_allclose(float(tl), float(jl), rtol=loss_tol)
@@ -135,18 +213,35 @@ def check_loss_and_gradients(arch, dtype, s=40, bf16_vs_jax=True):
         assert abs(float(tl) - float(jl)) <= loss_tol
     assert [tuple(a.shape) for a in tree_flatten(tg)[0]] == \
         [tuple(b.shape) for b in jax.tree.leaves(jg)]
-    want = jax.tree.leaves(jg)
+    paths = [jax.tree_util.keystr(p) for p, _ in
+             jax.tree_util.tree_flatten_with_path(jg)[0]]
+    jleaves = jax.tree.leaves(jg)
+    want = jleaves
+    f32 = (_f32_gradient(jm, jp, toks, extra)
+           if dtype == "bfloat16" and (held_to_f32 or not bf16_vs_jax)
+           else None)
     if dtype == "bfloat16" and not bf16_vs_jax:
-        j32 = j_build_model(dataclasses.replace(jm.config,
-                                                param_dtype="float32"))
-        want = jax.tree.leaves(jax.grad(j32.loss_fn)(
-            jax.tree.map(lambda a: a.astype(jnp.float32), jp),
-            {"tokens": jnp.asarray(toks)}))
+        want = f32
         leaf_tol = BF16_VS_F32
-        for i, (a, b) in enumerate(zip(jax.tree.leaves(jg), want)):
+        for i, (a, b) in enumerate(zip(jleaves, want)):
             scaled_close(a, b, leaf_tol, f"JAX's bf16 gradient leaf {i}")
-    for i, (a, b) in enumerate(zip(tree_flatten(tg)[0], want)):
-        scaled_close(a, b, leaf_tol, f"gradient leaf {i}")
+    top = max(float(np.abs(np.asarray(b, np.float32)).max())
+              for b in jleaves)
+    for i, (path, a, b) in enumerate(zip(paths, tree_flatten(tg)[0], want)):
+        what = f"gradient leaf {i} {path}"
+        if path.endswith("['wk']['bias']"):
+            for side in (a, jleaves[i]):
+                assert float(np.abs(to_np(side)).max()) <= \
+                    ZERO_TIER[dtype] * top, what
+        elif f32 is not None and path.endswith(tuple(held_to_f32)):
+            ref = f32[i]
+            scale = float(np.abs(np.asarray(ref)).max())
+            jax_err = float(np.abs(np.asarray(jleaves[i], np.float32)
+                                   - np.asarray(ref)).max()) / scale
+            scaled_close(a, ref, max(TIER[dtype], jax_err), what)
+        else:
+            scaled_close(a, b, leaf_tol, what)
+    return tg
 
 
 def check_tiny_slab_round(arch, rounds=3):
@@ -161,11 +256,13 @@ def check_tiny_slab_round(arch, rounds=3):
     tcfg = dataclasses.replace(tconfigs.preset_config(arch, "tiny"),
                                param_dtype="float32")
     jmodel, tmodel = j_build_model(jcfg), build_model(tcfg)
-    params_np = jax.tree.map(np.asarray, jmodel.init(jax.random.key(0)))
+    params_np = jax.tree.map(np.asarray,
+                             open_gates(jmodel.init(jax.random.key(0))))
     rng = np.random.default_rng(4)
     batches = [{"tokens": rng.integers(0, jcfg.vocab, (n_clients, batch, seq)
-                                       ).astype(np.int32)}
-               for _ in range(rounds)]
+                                       ).astype(np.int32),
+                **family_inputs(jcfg, (n_clients, batch), seed=10 + t)}
+               for t in range(rounds)]
     ch = OTAChannelConfig()
     ad = AdaptiveConfig(optimizer="adam_ota", lr=0.02, beta2=0.3)
     fl = FLConfig(n_clients=n_clients)
@@ -182,8 +279,9 @@ def check_tiny_slab_round(arch, rounds=3):
     run = make_slab_round_runner(tmodel.loss_fn, ch, ad, fl, device="cpu")
     tstate = init_train_state(ad, params_from_numpy(params_np, "cpu"),
                               device="cpu")
+    tbatches = [params_from_numpy(b, "cpu") for b in batches]
     tstate, hist = run_rounds_slab(run, tstate, draws.__getitem__,
-                                   batches.__getitem__, rounds, chunk=2)
+                                   tbatches.__getitem__, rounds, chunk=2)
     np.testing.assert_allclose([h["loss"] for h in hist], jlosses,
                                rtol=1e-5, atol=1e-5)
     assert int(tstate.step) == int(jstate.step) == rounds
@@ -214,8 +312,9 @@ def check_stack_init_in_place(arch, n_layers, monkeypatch):
     into its slice of the stack: no leaf of a layer is drawn anywhere
     else."""
     cfg = tconfigs.smoke_config(arch)
-    init = {"rwkv": ttfm.rwkv_block, "hybrid": ttfm.hybrid_block}[
-        cfg.family](cfg)[0]
+    init = {"rwkv": ttfm.rwkv_block, "hybrid": ttfm.hybrid_block,
+            "vlm": ttfm.vlm_group,
+            "encdec": lambda c: ttfm.encdec_blocks(c)[1]}[cfg.family](cfg)[0]
     drawn = []
     real = tlayers._drawn
 

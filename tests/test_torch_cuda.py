@@ -1207,3 +1207,119 @@ def test_recurrent_decode_step_on_the_card_matches_the_cpu(cuda, arch):
     _close(got.cpu(), want, 1e-4)
     for a, b in zip(tree_flatten(cache_c)[0], tree_flatten(cache)[0]):
         _close(a.cpu(), b, 1e-4)
+
+
+# attend's non-causal calls without positions: cross-attention (Sq != Sk)
+# and decode's one query row, at ragged key counts (1500 = 11 x 128 + 92,
+# 1601 = 12 x 128 + 65), bf16 at D 64 / 128 (the Hopper variant) and f32
+ATTEND_UNMASKED = [
+    # (B, Sq, Sk, H, K, D)
+    (2, 64, 1500, 16, 16, 64),        # Whisper's cross-attention
+    (1, 1, 1500, 16, 16, 64),         # ... in decode
+    (1, 300, 1500, 16, 16, 64),       # its encoder's size against fewer keys
+    (2, 64, 1601, 32, 8, 128),        # Llama-3.2-Vision's over the image
+    (4, 1, 1601, 32, 8, 128),         # ... in decode
+    (1, 200, 70, 4, 2, 128),          # fewer keys than one tile
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ATTEND_UNMASKED, ids=str)
+def test_attend_unmasked_without_positions_matches_plain(cuda, case, dtype):
+    """``models.attention.attend`` with both positions None and neither a
+    causal nor a window mask, Sq != Sk: one B5 launch, of the variant
+    ``flash_variant`` picks (Hopper for bf16 at D 64 / 128), within its
+    ``flash_tolerance`` of the plain version, every element."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_tolerance,
+                                                     flash_variant)
+    from repro_torch.kernels.ref import flash_attention_ref
+    from repro_torch.models.attention import attend
+    b, sq, sk, h, kh, d = case
+    gen = torch.Generator(device=cuda).manual_seed(sq + sk + d)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+               for s in ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d)))
+    n0 = flash_attention.launches
+    s0 = flash_attention.shape_launches[(*case, False, None)]
+    got = attend(q, k, v, None, None, False, None)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - n0 == 1
+    assert flash_attention.shape_launches[(*case, False, None)] - s0 == 1
+    variant = flash_variant(dtype, d, sq, (q.data_ptr(), k.data_ptr(),
+                                           v.data_ptr(), got.data_ptr()))
+    assert variant == ("hopper" if dtype == torch.bfloat16 else "scalar")
+    want = flash_attention_ref(q, k, v, causal=False)
+    tol = flash_tolerance(variant, want, flash_attention_ref(
+        q.float(), k.float(), v.float().abs(), causal=False)
+        if variant == "hopper" else None)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert float(((got.float() - want.float()).abs() / tol).max()) <= 1.0
+
+
+def test_vlm_stack_init_on_the_card_is_drawn_in_place(cuda):
+    """The vlm's nested stacks drawn on the card: n groups' inits in a row
+    bitwise, and every random leaf of a group's dense layers drawn into
+    the (n_groups, n_self, ...) stack's storage, none into a stack of its
+    own."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.slab import tree_flatten
+    from repro_torch.models import layers as tlayers
+    from repro_torch.models import transformer as ttfm
+    cfg = smoke_config("llama-3.2-vision-11b")
+    init = ttfm.vlm_group(cfg)[0]
+    drawn = []
+    real = tlayers._drawn
+
+    def spy(shape, dtype, gen, draw):
+        drawn.append(real(shape, dtype, gen, draw))
+        return drawn[-1]
+
+    tlayers._drawn = spy
+    try:
+        stacked = ttfm.stack_init(
+            init, torch.Generator(device=cuda).manual_seed(5), 3)
+    finally:
+        tlayers._drawn = real
+    leaves = tree_flatten(stacked)[0]
+    bases = {t.untyped_storage().data_ptr() for t in leaves}
+    assert drawn and all(t.untyped_storage().data_ptr() in bases
+                         for t in drawn)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for i in range(3):
+        for a, b in zip(leaves, tree_flatten(init(gen))[0]):
+            assert a.device.type == "cuda" and torch.equal(a[i], b)
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-11b"])
+def test_cross_attention_model_on_the_card_matches_the_cpu(cuda, arch):
+    """Whisper and Llama-3.2-Vision (smoke configs, f32) served on the
+    card and on the CPU with the serve CLI's stub inputs: one B5 launch a
+    prefill layer (the encoder's, the decoder's self- and cross-attention;
+    the vlm's dense and cross layers) and one a cross-attention layer in
+    each decode step; prefill logits within 1e-4 of scale, the greedy ids
+    equal."""
+    import dataclasses
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.slab import tree_map
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import generate, stub_inputs
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(smoke_config(arch), param_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    inputs = stub_inputs(cfg, 2, "cpu")
+    cpu = generate(model, params, toks, 8, inputs=inputs)
+    params_c = tree_map(lambda t: t.to(cuda), params)
+    n0 = flash_attention.launches
+    card = generate(model, params_c, toks.to(cuda), 8,
+                    inputs=tree_map(lambda t: t.to(cuda), inputs))
+    torch.cuda.synchronize()
+    if cfg.family == "encdec":
+        prefill, cross = cfg.n_enc_layers + 2 * cfg.n_layers, cfg.n_layers
+    else:
+        prefill, cross = cfg.n_layers, cfg.n_layers // cfg.cross_attn_period
+    assert flash_attention.launches - n0 == prefill + 7 * cross
+    _close(card["prefill_logits"].cpu(), cpu["prefill_logits"], 1e-4)
+    assert torch.equal(card["ids"].cpu(), cpu["ids"])

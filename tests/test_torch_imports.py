@@ -36,6 +36,7 @@ assert ota_receive_slab.stats_launches == 0
 from repro_torch.kernels.flash_attention import flash_attention
 assert flash_attention.launches == 0
 assert flash_attention.hopper_launches == flash_attention.scalar_launches == 0
+assert not flash_attention.shape_launches
 assert build.load_library.cache_info().currsize == 0
 print("ok", len(sys.modules))
 """
