@@ -178,11 +178,34 @@ Phases, each printing its own line(s) before the last line:
    + 1 dense layer (1,486,901,250 parameters, a 5.95 GB f32 slab; the
    published group of 1 + 4 does not fit the round's server update), 2
    clients x batch 1 x seq 128, 4 rounds on the f32 wire; (g)
-   Whisper-medium whole (24 + 24 layers, 811,579,392 parameters), 2
+   Whisper-medium whole (24 + 24 layers, 811,579,392 parameters), 4
    clients x batch 1 x seq 128, 4 rounds on the f32 wire and 4 on int8
    + EF; launches counted (no B5: the training forward's encoder and
    cross-attention take the plain path), ms a round, tokens per second
-   and peak memory;
+   and peak memory. Runs (b)-(g) take their published configs' remat:
+   every layer of loss_fn's stacks is recomputed in the backward (a vlm
+   group as one);
+14l. the remat trade: run (g)'s Whisper-medium at 2 clients x 1 on the
+   f32 wire with remat off, then on, a warm-up round and 3 timed each,
+   launches counted: peak memory and the median ms a round of each, the
+   warm-up losses within 1e-6;
+14m. the levers: the smoke configs of qwen3-14b (kv_chunk 8),
+   starcoder2-15b (window_block at window 8) and hymba-1.5b (both and
+   ssm_chunk 8), each with remat, in f32 on the card against the same
+   model with them off: vmap(grad_and_value(loss_fn)) over 3 clients x 2
+   x 40 tokens within 1e-5 of scale, no B5 launch; prefill + 8 greedy
+   tokens, the ids equal;
+14n. a long sequence: run (b)'s cut (StarCoder2-15B's width at depth 1),
+   one round at 1 client x 1 x 8192 tokens at its window 4096 (or its
+   out-of-memory error: the round's slabs hold ~36 GB), then the round's
+   client step alone, vmap(grad_and_value(loss_fn)) over 1 client, at
+   8192 tokens (2 windows: the blocked branch not taken, the two runs the
+   same computation) and 12288 at window 4096, 8192 at window 2048 and
+   4096 at window 1024 (the window cut so that S > 2W fits), window_block
+   off and on, a warm-up step and one timed each, launches counted
+   (none): peak memory and ms, or the out-of-memory error of a step the
+   card cannot hold (the blocked steps at the cut windows must fit; where
+   both fit, the losses within the bf16 tier, 2e-3);
 14j. examples/serve_decode_torch.py on the card with its defaults
    (rwkv6-7b --preset tiny, batch 2 x prompt 32, 8 tokens): the JAX
    CLI's two lines, then the port's rate and memory line;
@@ -242,7 +265,7 @@ Phases, each printing its own line(s) before the last line:
    the tiers of phases 3-6 and 10; then B1 at d = 979,501,056 and
    492,600,064, B2 and B3c at 4 x each, B4 at 1 x each (runs (d), (e));
    B1 at d = 1,486,901,376 and B2 at 2 x it (run (f)), B1 at d =
-   811,579,392, B2 and B3c at 2 x it, B4 at 1 x it (run (g));
+   811,579,392, B2 and B3c at 4 x it, B4 at 1 x it (run (g));
 16. serve qwen3-14b: full width and depth (40 layers, 14.8 B parameters,
    bf16, random from seed 0) through repro_torch.launch.serve.generate,
    greedy: (a) the serve CLI's defaults, batch 4 x prompt 64, 32 tokens;
@@ -2129,10 +2152,10 @@ WIDTH_CUTS = {
     # the f32 wire only: error feedback adds two 5.95 GB rows a client
     F_ARCH: ("LM run (f)", dict(n_layers=2, cross_attn_period=2), F_PARAMS,
              D_F, 2, 1, WIDTH_RUNS[:1]),
-    # 2 clients: the training forward's plain encoder attention keeps
-    # its 16 x 1500 x 1500 f32 scores for the backward in every layer,
-    # and at 4 clients x 1 example the backward ran out of the 80 GB
-    G_ARCH: ("LM run (g)", {}, G_PARAMS, D_G, 2, 1, WIDTH_RUNS),
+    # whole, at its config's remat (each layer recomputed in the
+    # backward): without it the encoder's 24 layers keep their f32
+    # scores, and 4 clients x 1 example do not fit the 80 GB
+    G_ARCH: ("LM run (g)", {}, G_PARAMS, D_G, 4, 1, WIDTH_RUNS),
 }
 WIDTH_ROUNDS = 4
 
@@ -2370,6 +2393,277 @@ def phase_lm_width(torch, dev, counters, run=WIDTH_ARCH):
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+TIMED_ROUNDS = 3
+
+
+def _timed_round(torch, dev, counters, cfg, n_clients, batch, seq, what):
+    """A warm-up round and TIMED_ROUNDS timed ones of ``cfg`` on the f32
+    wire (adam_ota as the CLI configures it; the CLI's corpus at ``seq``
+    tokens and the family's embeddings) through make_slab_round_runner +
+    run_rounds_slab, every counter set to 0 before and read after (one
+    B2 and one B1 a round, no B5): (peak GB of the timed rounds, their
+    median ms on the host clock, the losses)."""
+    import gc
+
+    from repro_torch.core.adaptive import AdaptiveConfig
+    from repro_torch.core.channel import OTAChannelConfig
+    from repro_torch.core.draws import TorchDraws
+    from repro_torch.core.fl import (FLConfig, make_slab_round_runner,
+                                     run_rounds_slab)
+    from repro_torch.core.slab_state import init_train_state
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg)
+    corpus = train.client_corpus(cfg.vocab, seq, n_clients, batch, 0.5, 0)
+    batch_fn = _with_embeddings(
+        torch, cfg, train.make_batch_fn(*corpus, batch=batch, seq=seq,
+                                        seed=0), n_clients, batch, dev)
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=LM_LR, beta2=0.3)
+    ch = OTAChannelConfig(xi_scale=0.05)
+    box = [init_train_state(ad, model.init(seed=0, device=dev), device=dev)]
+    draws = TorchDraws(ch, box[0].spec, n_clients, seed=1, device=dev)
+    runner = make_slab_round_runner(model.loss_fn, ch, ad,
+                                    FLConfig(n_clients=n_clients), device=dev)
+    stamps = []
+
+    def hook(t, st, h):
+        stamps.append(time.perf_counter())
+        if t == 1:                      # the warm-up round is done
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    rounds = 1 + TIMED_ROUNDS
+    (state, hist), _ = _lm_counted(
+        torch, counters, {CHAN: 1, UPD: 1}, rounds, what,
+        lambda: run_rounds_slab(runner, box.pop(), draws, batch_fn, rounds,
+                                chunk=1, chunk_hook=hook))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    losses = [h["loss"] for h in hist]
+    check(all(math.isfinite(x) for x in losses)
+          and bool(torch.isfinite(state.w).all()), f"{what}: losses {losses}")
+    del state, draws, runner, hist
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak, statistics.median(
+        1e3 * (b - a) for a, b in zip(stamps, stamps[1:])), losses
+
+
+TRADE_CLIENTS = 2
+
+
+def phase_remat_trade(torch, dev, counters):
+    """Phase 14l: what remat buys and costs at run (g)'s Whisper-medium
+    whole, TRADE_CLIENTS clients x 1 example (4 do not fit without it),
+    f32 wire: remat off, then on, a warm-up round and TIMED_ROUNDS timed
+    each (``_timed_round``): peak memory and the median ms a round; the
+    warm-up rounds' losses within 1e-6 relative (the same function on
+    the same weights)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    out = {}
+    for remat in (False, True):
+        cfg = dataclasses.replace(get_config(G_ARCH), remat=remat)
+        out[remat] = _timed_round(torch, dev, counters, cfg, TRADE_CLIENTS,
+                                  1, 128, f"remat trade, remat={remat}")
+    (p0, ms0, l0), (p1, ms1, l1) = out[False], out[True]
+    # the first round runs both on the same weights: the same function;
+    # after it the bf16 gradients' last bits part the weights
+    check(abs(l0[0] - l1[0]) <= 1e-6 * abs(l0[0]),
+          f"remat trade: first losses {l0[0]} (off) vs {l1[0]} (on)")
+    print(f"[remat trade] {G_ARCH} whole ({G_PARAMS:,} params, bf16), "
+          f"{TRADE_CLIENTS} clients x batch 1 x seq 128 + "
+          f"{get_config(G_ARCH).enc_seq} frames, f32 wire, adam_ota, the "
+          f"median of {TIMED_ROUNDS} rounds after a warm-up: remat "
+          f"off {p0:.2f} GB peak, {ms0:.1f} ms a round; remat on "
+          f"{p1:.2f} GB, {ms1:.1f} ms ({p1 - p0:+.2f} GB, "
+          f"{100 * (ms1 / ms0 - 1):+.1f} % ms); losses "
+          + " ".join(f"{x:.6f}" for x in l0) + " / "
+          + " ".join(f"{x:.6f}" for x in l1) + "; launches counted, no "
+          f"{FLASH}; ok")
+    return out
+
+
+# (arch, the levers) at the smoke configs, window 8 where windowed
+LEVER_CASES = (("qwen3-14b", dict(kv_chunk=8)),
+               ("starcoder2-15b", dict(window=8, window_block=True)),
+               ("hymba-1.5b", dict(window=8, window_block=True, kv_chunk=8,
+                                   ssm_chunk=8)))
+
+
+def phase_levers(torch, dev, flash_attention):
+    """Phase 14m: the training forward's levers on the card, each
+    LEVER_CASES smoke config in f32 with its levers and remat against the
+    same model (window 8 where the case windows it) with both off, on
+    the same parameters: vmap(grad_and_value(loss_fn)) over 3 clients x 2
+    x 40 tokens, the losses and every gradient leaf within 1e-5 of its
+    scale, no B5 launch; then the serve loop (launch.serve.generate),
+    prefill + 8 greedy tokens of 2 x 40, the ids equal."""
+    import dataclasses
+
+    from torch.func import grad_and_value, vmap
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.slab import tree_flatten
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import build_model
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for arch, levers in LEVER_CASES:
+        base = dataclasses.replace(smoke_config(arch), param_dtype="float32",
+                                   **{k: v for k, v in levers.items()
+                                      if k == "window"})
+        on = dataclasses.replace(base, remat=True, **levers)
+        off = dataclasses.replace(base, remat=False)
+        params = build_model(off).init(seed=0, device=dev)
+        toks = torch.randint(0, base.vocab, (3, 2, 40), generator=gen,
+                             device=dev)
+        res, ids = {}, {}
+        for name, cfg in (("off", off), ("on", on)):
+            model = build_model(cfg)
+            n0 = flash_attention.launches
+            res[name] = vmap(grad_and_value(model.loss_fn),
+                             in_dims=(None, 0))(params, {"tokens": toks})
+            torch.cuda.synchronize()
+            check(flash_attention.launches == n0,
+                  f"levers {arch} {name}: training launched {FLASH}")
+            ids[name] = generate(model, params, toks[0], 8)["ids"]
+        (g0, l0), (g1, l1) = res["off"], res["on"]
+        worst = float(((l1 - l0).abs() / l0.abs()).max())
+        for a, b in zip(tree_flatten(g1)[0], tree_flatten(g0)[0]):
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            check(err <= 1e-5 * scale, f"levers {arch}: gradient {err} of "
+                  f"{scale}")
+            worst = max(worst, err / max(scale, 1e-30))
+        check(worst <= 1e-5, f"levers {arch}: losses {l1} vs {l0}")
+        check(torch.equal(ids["on"], ids["off"]),
+              f"levers {arch}: greedy ids differ")
+        print(f"[levers] {arch} smoke config, f32, "
+              + ", ".join(f"{k}={v}" for k, v in levers.items())
+              + ", remat on vs all off: loss and gradients of 3 clients x 2 "
+              f"x 40 within {worst:.2e} of scale (tol 1e-5), no {FLASH} in "
+              "training; prefill + 8 greedy tokens: ids equal; ok")
+
+
+# run (b)'s cut on one long sequence: (tokens S, window W, whether the
+# blocked step must fit). The published window 4096 at S = 2W (JAX's
+# condition S > 2W keeps the plain path: the same computation both ways)
+# and at 3W; then the window cut to 2048 and 1024, where S > 2W takes the
+# blocked branch at lengths one card can hold
+LONG_CASES = ((8192, 4096, False), (12288, 4096, False), (8192, 2048, True),
+              (4096, 1024, True))
+
+
+def _client_step(torch, dev, counters, cfg, seq, what):
+    """A warm-up and a timed client step of the round, vmap(grad_and_value(
+    loss_fn)) over 1 client x 1 x ``seq`` tokens of the CLI's corpus,
+    every counter set to 0 before and read after (no kernel of the port
+    launches in it, B5 included): (peak GB of the timed step, its ms on
+    the host clock, the two losses), or the out-of-memory error's first
+    words and the peak reached."""
+    import gc
+
+    from torch.func import grad_and_value, vmap
+
+    from repro_torch.launch import train
+    from repro_torch.models.model import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg)
+    box = {"params": model.init(seed=0, device=dev)}
+    batch_fn = train.make_batch_fn(*train.client_corpus(cfg.vocab, seq, 1, 1,
+                                                        0.5, 0),
+                                   batch=1, seq=seq, seed=0)
+    step = vmap(grad_and_value(model.loss_fn), in_dims=(None, 0))
+    ms, losses = [], []
+
+    def two_steps():
+        for t in range(2):
+            batch = {k: v.to(dev) for k, v in batch_fn(t).items()}
+            torch.cuda.synchronize()
+            if t == 1:
+                torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            _, loss = step(box["params"], batch)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(float(loss[0]))
+
+    try:
+        _lm_counted(torch, counters, {}, 2, what, two_steps)
+        out = (torch.cuda.max_memory_allocated(dev) / 1e9, ms[1], losses)
+    except torch.cuda.OutOfMemoryError as exc:
+        out = (str(exc).split(". GPU")[0] + ", at a peak of "
+               f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB")
+    box.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_long_sequence(torch, dev, counters):
+    """Phase 14n: StarCoder2-15B's width at depth 1 (run (b)'s cut, remat
+    as published) on one long sequence. First one round at 1 client x 1
+    x 8192 tokens on the f32 wire at its published window 4096
+    (``_timed_round``): the card may not hold it beside the round's ~36
+    GB of slabs (its out-of-memory error is printed). Then the round's
+    client step alone (``_client_step``) at each LONG_CASES length and
+    window, window_block off and on: peak memory and ms, or the
+    out-of-memory error. Where the case says so the blocked step must
+    fit; where both fit their first losses agree within the bf16 loss
+    tier of the model tests, 2e-3 (the same function summed in blocks,
+    the attention's output rounded to the config's bf16; bitwise at
+    S <= 2W, one path)."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_config
+
+    def config(window, wb):
+        return dataclasses.replace(get_config(WIDTH_ARCH), n_layers=1,
+                                   window=window, window_block=wb)
+
+    head = (f"[long sequence] {WIDTH_ARCH} width at depth 1 ({WIDTH_PARAMS:,} "
+            "params), 1 client x 1 x")
+    s, w = LONG_CASES[0][:2]
+    try:
+        r = _timed_round(torch, dev, counters, config(w, False), 1, 1, s,
+                         f"long sequence round {s}")
+        line = f"{r[0]:.2f} GB peak, {r[1]:.1f} ms a round"
+    except torch.cuda.OutOfMemoryError as exc:
+        line = (f"out of memory ({str(exc).split('. GPU')[0]}, at a peak of "
+                f"{torch.cuda.max_memory_allocated(dev) / 1e9:.2f} GB)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"{head} {s} tokens, window {w}, one round on the f32 wire: "
+          f"{line}; ok")
+    for s, w, must_fit in LONG_CASES:
+        got = {wb: _client_step(torch, dev, counters, config(w, wb), s,
+                                f"long sequence {s} window {w}, "
+                                f"window_block={wb}")
+               for wb in (False, True)}
+        for wb, r in got.items():
+            print(f"{head} {s} tokens, window {w}, the client step, "
+                  f"window_block={wb}: "
+                  + (f"out of memory ({r})" if isinstance(r, str) else
+                     f"{r[0]:.2f} GB peak, {r[1]:.1f} ms, losses "
+                     + " ".join(f"{x:.6f}" for x in r[2]) + "; launches "
+                     f"counted, no {FLASH}") + "; ok")
+        check(not (must_fit and isinstance(got[True], str)),
+              f"long sequence {s} window {w}: window_block on out of memory")
+        if not any(isinstance(r, str) for r in got.values()):
+            a, b = got[False][2][0], got[True][2][0]
+            check(abs(a - b) <= 2e-3 and (s > 2 * w or a == b),
+                  f"long sequence {s} window {w}: losses {a} (plain) vs {b}")
 
 
 FAMILY_ARCHS = ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "minicpm3-4b",
@@ -2962,7 +3256,7 @@ def phase_kernel_lm(torch, dev):
                       f"{UPD} d={d}")
         del g, w, delta, nu, got, want
     for n, d in ((8, D_LM), (1, D_LM), (4, D_WIDTH), (4, D_C), (4, D_D),
-                 (4, D_E), (2, D_F), (2, D_G)):
+                 (4, D_E), (2, D_F), (4, D_G)):
         # run (f) takes the f32 wire only: no quantized kernel at its d
         quantized = n > 1 and d != D_F
         grads = torch.randn(n, d, generator=gen, device=dev)
@@ -3082,8 +3376,8 @@ def phase_kernel_lm(torch, dev):
     wide = f"{D_WIDTH}, {D_C}, {D_D} and {D_E}"
     print(f"[kernel LM shapes] B1 adam at d = {D_LM}, {wide}, {D_F} and "
           f"{D_G}; B2 at 8x{D_LM}, 1x{D_LM}, 4 x each of {wide}, 2x{D_F} and "
-          f"2x{D_G}; B3b at 4x{D_LM} with a carry; B3c int8 + EF at "
-          f"8x{D_LM}, 4 x each of {wide} and 2x{D_G},"
+          f"4x{D_G}; B3b at 4x{D_LM} with a carry; B3c int8 + EF at "
+          f"8x{D_LM}, 4 x each of {wide} and 4x{D_G},"
           f" folded sign + EF at 8x{D_LM}; B4 int8 (with and without "
           f"statistics) and fold at 1x{D_LM}, int8 at 1 x each of {wide} "
           f"and {D_G}; "
@@ -3132,7 +3426,7 @@ def _lm_times(torch, dev, gen, flush):
         gc.collect()
         torch.cuda.empty_cache()
     for n, d in ((8, D_LM), (1, D_LM), (4, D_WIDTH), (4, D_C), (4, D_D),
-                 (4, D_E), (2, D_F), (2, D_G)):
+                 (4, D_E), (2, D_F), (4, D_G)):
         grads = torch.randn(n, d, generator=gen, device=dev)
         h = (torch.ones(1, device=dev) if n == 1 else
              torch.rand(n, generator=gen, device=dev))
@@ -3474,16 +3768,28 @@ def _cross_kv_ms(torch, cfg, params, cache, reps=10):
     return start.elapsed_time(end) / reps
 
 
+_PROFILER_READY = []
+
+
 def _profile_run(torch, fn):
     """Run fn once under torch.profiler: its host-clock ms and the
     profiler's CUDA events (key_averages). fn runs in the active step of
     a schedule whose warm-up step runs one near-empty kernel: that step
     sets up CUPTI's activity tracing, whose first kernel records a
     capture of one step alone can miss (the receive's one-launch check
-    saw no kernel at all in a process's first capture)."""
+    saw no kernel at all in a process's first capture). The process's
+    first call runs one throwaway session around a near-empty kernel
+    before it: a first session's warm-up step alone did not always do
+    (the same check saw no kernel once more)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    if not _PROFILER_READY:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            torch.cuda._sleep(1)
+            torch.cuda.synchronize()
+        _PROFILER_READY.append(True)
     traces = []
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -4133,6 +4439,9 @@ def main() -> int:
                           F_ARCH)
     wd_g = phase_lm_width(torch, dev, all_counters + (flash_attention,),
                           G_ARCH)
+    phase_remat_trade(torch, dev, all_counters + (flash_attention,))
+    phase_levers(torch, dev, flash_attention)
+    phase_long_sequence(torch, dev, all_counters + (flash_attention,))
     phase_serve_example(torch, flash_attention)
     phase_alpha_mismatch(torch, all_counters + (flash_attention,))
     nocarry = Counter(ota_transmit_slab, "nocarry_launches", NOCARRY)
@@ -4196,7 +4505,7 @@ def main() -> int:
     launches[f"{CHAN} 4x{D_C}"] = wd_c["f32"][CHAN]
     launches[f"{TX} 4x{D_C}"] = wd_c["int8-ef"][TX]
     launches[f"{RX} 1x{D_C}"] = wd_c["int8-ef"][RX]
-    for n, d, runs in ((4, D_D, wd_d), (4, D_E, wd_e), (2, D_G, wd_g)):
+    for n, d, runs in ((4, D_D, wd_d), (4, D_E, wd_e), (4, D_G, wd_g)):
         launches[f"{UPD} d={d}"] = sum(r[UPD] for r in runs.values())
         launches[f"{CHAN} {n}x{d}"] = runs["f32"][CHAN]
         launches[f"{TX} {n}x{d}"] = runs["int8-ef"][TX]
@@ -4263,7 +4572,7 @@ def main() -> int:
         (f"{RX} 1x{D_WIDTH}", b4), (f"{UPD} d={D_C}", b1),
         (f"{CHAN} 4x{D_C}", b2), (f"{TX} 4x{D_C}", b3c),
         (f"{RX} 1x{D_C}", b4))
-        + tuple(row for n, d in ((4, D_D), (4, D_E), (2, D_G)) for row in (
+        + tuple(row for n, d in ((4, D_D), (4, D_E), (4, D_G)) for row in (
             (f"{UPD} d={d}", b1), (f"{CHAN} {n}x{d}", b2),
             (f"{TX} {n}x{d}", b3c), (f"{RX} 1x{d}", b4)))
         + ((f"{UPD} d={D_F}", b1), (f"{CHAN} 2x{D_F}", b2)))

@@ -23,10 +23,13 @@ self-attention and cross-attention (over the image tokens or the
 encoder's output; in ``decode_step`` too, one query row a step).
 ``loss_fn`` runs the same backbone with its positions given, so
 attention takes the masked plain path that ``torch.func``
-differentiates (``models.attention``). MLA attention is plain torch on
-every path (``models.mla``); RWKV has no attention. With
-``n_meta_tokens`` (Hymba) the learned meta tokens are prepended to
-every sequence and sliced off before the unembedding, and
+differentiates (``models.attention``), with the config's ``kv_chunk``
+and ``window_block``; with ``remat`` (the published configs' default,
+as in the JAX package) every layer of its stacks is recomputed in the
+backward, a vlm group as one (``transformer.stack_apply``). MLA
+attention is plain torch on every path (``models.mla``); RWKV has no
+attention. With ``n_meta_tokens`` (Hymba) the learned meta tokens are
+prepended to every sequence and sliced off before the unembedding, and
 ``decode_step`` shifts its position past them. ``decode_step`` updates
 the cache in place. ``loss_fn`` adds the blocks' aux loss (the MoE
 load-balance loss); ``forward`` returns it beside the logits.
@@ -78,8 +81,12 @@ class ModelConfig:
     qk_norm: bool = False
     rope_theta: float = 10000.0
     window: Optional[int] = None    # sliding-window attention (ring cache)
-    # The JAX package's perf levers, kept as data so the configs match
-    # field for field; none changes a result and the port reads none.
+    # The training forward's memory levers, as in the JAX package: none
+    # changes a result. The two attention levers act on attention with
+    # positions (``loss_fn``, decode; ``models.attention``), and
+    # ``remat`` recomputes each layer of ``loss_fn``'s stacks in the
+    # backward (``transformer.stack_apply``). ``scan_unroll`` is the JAX
+    # package's dry-run calibration, kept as data only.
     kv_chunk: Optional[int] = None  # online-softmax KV chunking
     window_block: bool = False      # block-local window attention
     remat: bool = True
@@ -125,7 +132,8 @@ class ModelConfig:
             d_model=self.d_model, n_heads=self.n_heads,
             n_kv_heads=self.n_kv_heads, head_dim=self.resolved_head_dim,
             qkv_bias=self.qkv_bias, qk_norm=self.qk_norm,
-            rope_theta=self.rope_theta, window=self.window)
+            rope_theta=self.rope_theta, window=self.window,
+            kv_chunk=self.kv_chunk, window_block=self.window_block)
 
     def mla_config(self) -> MLAConfig:
         return MLAConfig(
@@ -236,13 +244,14 @@ def build_model(cfg: ModelConfig) -> Model:
         return _needs(batch, "image_embed", cfg) if vlm else None
 
     def _logits(params, batch, positions):
+        """Logits and aux loss; ``positions`` given is the training
+        forward (attention on the plain path, ``cfg.remat`` honoured)."""
         x = _embed(params, batch["tokens"])
-        img = _image(batch)
-        fwd = ((lambda lp, h: b_fwd(lp, h, img, positions)) if vlm else
-               (lambda lp, h: b_fwd(lp, h, positions)))
-        x, aux = tfm.stack_apply(fwd, params["blocks"], x,
+        extras = (_image(batch), positions) if vlm else (positions,)
+        x, aux = tfm.stack_apply(b_fwd, params["blocks"], x,
                                  torch.zeros((), dtype=torch.float32,
-                                             device=x.device))
+                                             device=x.device), extras,
+                                 remat=cfg.remat and positions is not None)
         x = tfm._norm(cfg.norm, params["final_norm"], x)
         return dense(params["unembed"], x[:, cfg.n_meta_tokens:]), aux
 
@@ -334,12 +343,12 @@ def _build_encdec(cfg: ModelConfig) -> Model:
     def encode(params, batch, train: bool = False):
         """The encoder stack and ``enc_norm`` over the frames cast to the
         parameters' dtype; ``train`` gives attention its positions (the
-        plain path, with a backward)."""
+        plain path, with a backward) and honours ``cfg.remat``."""
         x = _needs(batch, "audio_embed", cfg).to(cfg.dtype)
         pos = (torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
                if train else None)
-        x, _ = tfm.stack_apply(lambda lp, h: e_fwd(lp, h, pos),
-                               params["enc_blocks"], x)
+        x, _ = tfm.stack_apply(e_fwd, params["enc_blocks"], x, extras=(pos,),
+                               remat=cfg.remat and train)
         return tfm._norm(cfg.norm, params["enc_norm"], x)
 
     def _text(params, tokens, start: int = 0):
@@ -354,10 +363,13 @@ def _build_encdec(cfg: ModelConfig) -> Model:
         tokens = batch["tokens"]
         pos = (torch.arange(tokens.shape[1], dtype=torch.int32,
                             device=tokens.device) if train else None)
-        x, aux = tfm.stack_apply(lambda lp, h: d_fwd(lp, h, enc, pos),
-                                 params["dec_blocks"], _text(params, tokens),
+        # the encoder's output is an input of every decoder layer, so
+        # under remat its gradient reaches the encoder
+        x, aux = tfm.stack_apply(d_fwd, params["dec_blocks"],
+                                 _text(params, tokens),
                                  torch.zeros((), dtype=torch.float32,
-                                             device=tokens.device))
+                                             device=tokens.device),
+                                 (enc, pos), remat=cfg.remat and train)
         x = tfm._norm(cfg.norm, params["final_norm"], x)
         return dense(params["unembed"], x), aux
 

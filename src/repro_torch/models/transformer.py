@@ -19,7 +19,9 @@ Per-layer parameters are stacked on a leading layer axis, as in the JAX
 package (a vlm group's dense layers on a second one, ``selfs``), so
 ``convert.params_from_numpy`` carries a JAX model across leaf for leaf;
 where the JAX package scans over that axis, the port runs a Python loop
-over the layers (``stack_*``).
+over the layers (``stack_*``), and where it checkpoints the scanned
+block, ``stack_apply(remat=True)`` recomputes each layer in the
+backward.
 """
 
 from __future__ import annotations
@@ -126,14 +128,91 @@ def stack_init(block_init: Callable, gen: torch.Generator,
     return tree_unflatten(treedef, stacked)
 
 
+def _run_layer(block_fn, treedef, n_leaves, args):
+    """``block_fn`` on the layer rebuilt from its flattened leaves (the
+    first ``n_leaves`` of ``args``) and the rest of ``args``."""
+    layer = tree_unflatten(treedef, list(args[:n_leaves]))
+    return block_fn(layer, *args[n_leaves:])
+
+
+class _Remat(torch.autograd.Function):
+    """One layer of ``stack_apply(remat=True)``, the twin of
+    ``jax.checkpoint`` around the block: the forward keeps only the
+    layer's inputs (its parameter leaves, ``x`` and the extras), and the
+    backward computes the block again under ``torch.func.vjp`` to get
+    their gradients. ``torch.utils.checkpoint`` does not compose with
+    ``torch.func`` (saved-tensor hooks under ``grad``, no
+    ``setup_context`` when reentrant); this Function does, and
+    ``generate_vmap_rule`` batches it under ``vmap``. Every tensor the
+    block reads must come in as an input: a tensor it closes over would
+    get no gradient. One of these must not run another inside it
+    (functorch's interpreter levels assert), so a stack inside a
+    rematerialized block runs plain."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(block_fn, treedef, n_leaves, *args):
+        # Record nothing, whatever grad mode a torch.func transform runs
+        # the forward under (functorch turns it on at the level below a
+        # grad transform): the backward computes the layer again.
+        with torch.no_grad():
+            return _run_layer(block_fn, treedef, n_leaves, args)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        block_fn, treedef, n_leaves, *args = inputs
+        ctx.call = (block_fn, treedef, n_leaves)
+        ctx.save_for_backward(*args)
+
+    @staticmethod
+    def backward(ctx, *grads_out):
+        args = list(ctx.saved_tensors)
+        # differentiate the floating inputs; positions and other integer
+        # tensors go in as they are
+        wrt = [i for i, a in enumerate(args)
+               if a is not None and a.is_floating_point()]
+
+        def block(*primals):
+            full = list(args)
+            for i, t in zip(wrt, primals):
+                full[i] = t
+            return _run_layer(*ctx.call, full)
+
+        with torch.enable_grad():
+            _, vjp_fn = torch.func.vjp(block, *(args[i] for i in wrt))
+            # With grad on the vjp records its own backward (for a higher
+            # derivative, which remat does not offer), and the gradients'
+            # graph would hold every recomputed layer alive to the end of
+            # the backward: detached, the layer's go with it. (Its
+            # backward under no_grad would take other formulas and part
+            # from the plain stack's bits.)
+            grads = [g.detach() for g in vjp_fn(grads_out)]
+        out = [None] * len(args)
+        for i, g in zip(wrt, grads):
+            out[i] = g
+        return (None, None, None, *out)
+
+
 def stack_apply(block_fn: Callable, stacked: PyTree, x: torch.Tensor,
-                aux0: Optional[torch.Tensor] = None
+                aux0: Optional[torch.Tensor] = None, extras: tuple = (),
+                remat: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """``block_fn(layer_params, x) -> (x', aux)`` over the layer axis; aux
-    accumulates additively."""
+    """``block_fn(layer_params, x, *extras) -> (x', aux)`` over the layer
+    axis; aux accumulates additively. ``extras`` are the tensors every
+    layer reads beside ``x`` (positions, the image tokens, the encoder's
+    output). ``remat`` recomputes each layer in the backward instead of
+    keeping its activations (``_Remat``; ``jax.checkpoint`` in the JAX
+    package): the same values, less memory, a second forward."""
     aux = aux0
     for i in range(_depth(stacked)):
-        x, a = block_fn(_layer(stacked, i), x)
+        layer = _layer(stacked, i)
+        if remat:
+            leaves, treedef = tree_flatten(layer)
+            x, a = _Remat.apply(block_fn, treedef, len(leaves), *leaves, x,
+                                *extras)
+        else:
+            x, a = block_fn(layer, x, *extras)
         aux = aux + a if aux is not None else None
     return x, aux
 
@@ -497,8 +576,10 @@ def vlm_group(cfg) -> tuple:
     def fwd(p, x, img, positions=None):
         # positions=None: the flash kernel (inference), as dense_block
         x = _gated(p, x, img, positions)
-        x, _ = stack_apply(lambda lp, h: d_fwd(lp, h, positions), p["selfs"],
-                           x)
+        # plain even under the model's remat: the model's stack
+        # recomputes the whole group, and a remat inside another asserts
+        # (_Remat); JAX checkpoints these layers too
+        x, _ = stack_apply(d_fwd, p["selfs"], x, extras=(positions,))
         return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
     def decode(p, cache, x, pos, img):

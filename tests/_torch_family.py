@@ -129,12 +129,30 @@ def trees_close(got, want, tier, what):
     scaled_close(got, want, tier, what)
 
 
-def models(arch, dtype, seed=0):
-    jcfg = dataclasses.replace(jconfigs.smoke_config(arch), param_dtype=dtype)
-    tcfg = dataclasses.replace(tconfigs.smoke_config(arch), param_dtype=dtype)
+def models(arch, dtype, seed=0, port_init=False, **changes):
+    """Both packages' smoke models of ``arch`` in ``dtype`` (and any
+    other config ``changes``, e.g. ``remat=True``) and one set of
+    parameters, JAX's and the port's copy: JAX's init, or with
+    ``port_init`` the port's carried to JAX (the same values; it skips
+    JAX's eager init, seconds a model)."""
+    jcfg = dataclasses.replace(jconfigs.smoke_config(arch), param_dtype=dtype,
+                               **changes)
+    tcfg = dataclasses.replace(tconfigs.smoke_config(arch), param_dtype=dtype,
+                               **changes)
     jm, tm = j_build_model(jcfg), build_model(tcfg)
-    jp = open_gates(jm.init(jax.random.key(seed)))
+    jp = (to_jax(tm.init(seed=seed, device="cpu")) if port_init
+          else jm.init(jax.random.key(seed)))
+    jp = open_gates(jp)
     return jm, tm, jp, tensors(jp)
+
+
+def to_jax(tree):
+    """A port tree (dicts of tensors) as JAX arrays of the same dtypes,
+    bitwise (bf16 through its exact f32 values)."""
+    if isinstance(tree, dict):
+        return {k: to_jax(v) for k, v in tree.items()}
+    dtype = jnp.dtype(str(tree.dtype).removeprefix("torch."))
+    return jnp.asarray(tree.detach().float().numpy()).astype(dtype)
 
 
 def check_forward_prefill_decode(arch, dtype, s=24):
@@ -185,7 +203,7 @@ def _f32_gradient(jm, jp, toks, extra):
 
 
 def check_loss_and_gradients(arch, dtype, s=40, bf16_vs_jax=True,
-                             held_to_f32=()):
+                             held_to_f32=(), port_init=False, **changes):
     """``loss_fn`` and its gradients against ``jax.value_and_grad``. In
     bf16 with ``bf16_vs_jax=False`` each package's gradient leaves are
     held instead to the f32 gradient of the same (bf16-valued)
@@ -199,8 +217,10 @@ def check_loss_and_gradients(arch, dtype, s=40, bf16_vs_jax=True,
     ['bias']``) is zero in exact arithmetic (a row's softmax does not
     move when every score shifts by q . b): both packages' are held to
     ZERO_TIER of the largest gradient entry instead of to each other's
-    rounding noise. Returns the port's gradient."""
-    jm, tm, jp, tp = models(arch, dtype, seed=3)
+    rounding noise. ``port_init`` and ``changes`` go to ``models``.
+    Returns the port's gradient."""
+    jm, tm, jp, tp = models(arch, dtype, seed=3, port_init=port_init,
+                            **changes)
     toks = np.random.default_rng(0).integers(0, tm.config.vocab, (2, s)
                                              ).astype(np.int32)
     extra = family_inputs(tm.config, (2,))

@@ -1323,3 +1323,123 @@ def test_cross_attention_model_on_the_card_matches_the_cpu(cuda, arch):
     assert flash_attention.launches - n0 == prefill + 7 * cross
     _close(card["prefill_logits"].cpu(), cpu["prefill_logits"], 1e-4)
     assert torch.equal(card["ids"].cpu(), cpu["ids"])
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "qwen3-moe-235b-a22b"])
+def test_remat_round_on_the_card_equals_the_plain_one(cuda, arch):
+    """One resident f32 round of the tiny preset (4 clients x 2 x 32, f32
+    parameters) on the card with remat on and off: one B2 and one B1
+    launch each, no B5; the loss equal and the new weights within 1e-6
+    of scale (Whisper's encoder output's gradient is summed over the
+    decoder layers in another order under remat; the MoE dispatch's
+    accumulating index_put runs in a batched recompute)."""
+    import dataclasses
+    from repro_torch.configs import preset_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.model import build_model
+    ch = OTAChannelConfig()
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.02, beta2=0.3)
+    fl = FLConfig(n_clients=4)
+    toks = torch.randint(0, 257, (4, 2, 32), generator=torch.Generator(
+        ).manual_seed(5))
+    batch = {"tokens": toks.to(cuda)}
+    out = []
+    for remat in (False, True):
+        cfg = dataclasses.replace(preset_config(arch, "tiny"),
+                                  param_dtype="float32", remat=remat)
+        if cfg.family == "encdec":
+            batch["audio_embed"] = torch.randn(
+                (4, 2, cfg.enc_seq, cfg.d_model),
+                generator=torch.Generator().manual_seed(6)).to(cuda)
+        model = build_model(cfg)
+        state = init_train_state(ad, model.init(seed=0, device=cuda),
+                                 device=cuda)
+        draws = TorchDraws(ch, state.spec, 4, seed=1, device=cuda)(0)
+        step = make_slab_round_step(model.loss_fn, ch, ad, fl, device=cuda)
+        n = (ota_channel_slab.launches, adaptive_update_slab.launches,
+             flash_attention.launches)
+        state, metrics = step(state, draws, batch)
+        torch.cuda.synchronize()
+        assert (ota_channel_slab.launches - n[0],
+                adaptive_update_slab.launches - n[1],
+                flash_attention.launches - n[2]) == (1, 1, 0)
+        out.append((state.w.cpu(), float(metrics.loss)))
+    (w0, l0), (w1, l1) = out
+    assert l0 == l1
+    _close(w1, w0, 1e-6)
+
+
+LEVER_CASES = [("qwen3-14b", dict(kv_chunk=8)),
+               ("starcoder2-15b", dict(window=8, window_block=True)),
+               ("hymba-1.5b", dict(window=8, window_block=True, kv_chunk=8,
+                                   ssm_chunk=8))]
+
+
+@pytest.mark.parametrize("arch,levers", LEVER_CASES,
+                         ids=[a for a, _ in LEVER_CASES])
+def test_levers_loss_on_the_card_matches_the_cpu(cuda, arch, levers):
+    """The training forward with its levers and remat (smoke configs,
+    f32), vmap(grad_and_value(loss_fn)) over 3 clients x 2 x 40 tokens on
+    the card and on the CPU: no B5 launch, the losses within 1e-5 and
+    every gradient leaf within 1e-5 of its largest entry."""
+    import dataclasses
+    from torch.func import grad_and_value, vmap
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.slab import tree_flatten, tree_map
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.model import build_model
+    cfg = dataclasses.replace(smoke_config(arch), param_dtype="float32",
+                              remat=True, **levers)
+    model = build_model(cfg)
+    params = model.init(seed=0, device="cpu")
+    toks = torch.randint(0, cfg.vocab, (3, 2, 40),
+                         generator=torch.Generator().manual_seed(2))
+    step = vmap(grad_and_value(model.loss_fn), in_dims=(None, 0))
+    g_cpu, l_cpu = step(params, {"tokens": toks})
+    n0 = flash_attention.launches
+    g_card, l_card = step(tree_map(lambda t: t.to(cuda), params),
+                          {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert flash_attention.launches == n0
+    np.testing.assert_allclose(l_card.cpu().numpy(), l_cpu.numpy(),
+                               rtol=1e-5)
+    for a, b in zip(tree_flatten(g_card)[0], tree_flatten(g_cpu)[0]):
+        _close(a.cpu(), b, 1e-5)
+
+
+def test_remat_keeps_only_the_layer_inputs_on_the_card(cuda):
+    """Under vmap(grad) on the card (the torch there runs a Function's
+    forward with grad on under a transform) a stack of 16 layers, each
+    with a (2, 4096, 1024) f32 intermediate, holds with remat less than
+    half the memory it holds without: the forward keeps no activation,
+    only each layer's input. The gradients are the same."""
+    from torch.func import grad_and_value, vmap
+    from repro_torch.core.slab import tree_map
+    from repro_torch.models import transformer as ttfm
+    g = torch.Generator().manual_seed(0)
+    params = tree_map(lambda t: t.to(cuda), {
+        "w1": torch.randn(16, 256, 1024, generator=g) / 16,
+        "w2": torch.randn(16, 1024, 256, generator=g) / 32})
+    x = torch.randn(2, 2, 4096, 256, generator=g).to(cuda)
+
+    def block(p, h):
+        return h + torch.tanh(h @ p["w1"]) @ p["w2"], torch.zeros(
+            (), device=h.device)
+
+    def loss(p, xx, remat):
+        y, _ = ttfm.stack_apply(block, p, xx, remat=remat)
+        return (y ** 2).mean()
+
+    held, grads = {}, {}
+    for remat in (False, True):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(cuda)
+        torch.cuda.reset_peak_memory_stats(cuda)
+        grads[remat], _ = vmap(grad_and_value(lambda p, xx: loss(p, xx,
+                                                                 remat)),
+                               in_dims=(None, 0))(params, x)
+        torch.cuda.synchronize()
+        held[remat] = torch.cuda.max_memory_allocated(cuda) - base
+    assert held[True] < 0.5 * held[False], held
+    for k in params:
+        _close(grads[True][k].cpu(), grads[False][k].cpu(), 1e-6)

@@ -433,11 +433,9 @@ def test_configs_match_jax(arch):
     t, j = tconfigs.get_config(arch), jconfigs.get_config(arch)
     assert t.resolved_head_dim == j.resolved_head_dim
     assert t.dtype == torch.bfloat16
-    # the port's AttentionConfig leaves out the JAX package's two perf
-    # levers, which change no result (models/attention.py)
-    theirs = dataclasses.asdict(j.attn_config())
-    del theirs["kv_chunk"], theirs["window_block"]
-    assert dataclasses.asdict(t.attn_config()) == theirs
+    # field for field, the two attention levers included
+    assert dataclasses.asdict(t.attn_config()) == \
+        dataclasses.asdict(j.attn_config())
 
 
 def test_config_lookups_refuse_unknown_names():
