@@ -17,10 +17,11 @@ Phases, each printing its own line(s) before the last line:
    kernels as compiled: registers, shared memory and spills from the
    compiler's report (-Xptxas -v), which must show no spill; then the
    Hopper flash-attention kernel
-   (D = 64 and 128): the same report (registers, which must be 168 for
-   setmaxnreg's balance, spills), its dynamic shared memory, and a
-   cuobjdump -sass count that must show wgmma (HGMMA) and TMA loads
-   (UTMALDG);
+   (its two instances, by padded head width 64 and 128): the same report
+   (registers, which must be 168 for setmaxnreg's balance, and no spill),
+   its dynamic shared memory, no note of ptxas's that it fenced or
+   serialized the wgmma pipeline, and a cuobjdump -sass count that must
+   show wgmma (HGMMA) and TMA loads (UTMALDG) and no local memory;
 3. kernel adaptive_update_slab against its plain version: six modes,
    f32 and bf16 g/w, alpha in {1.2, 1.5, 2.0}, at the main path's slab
    (175,104 entries), at the same slab 3 elements off 16-byte alignment,
@@ -233,12 +234,15 @@ Phases, each printing its own line(s) before the last line:
    bitwise; ms a round, tokens per second and peak memory of
    both;
 15. kernel flash_attention against its plain version: the six
-   FLASH_CASES of tests/test_kernels.py in f32 and bf16, then the
+   FLASH_CASES of tests/test_kernels.py and three small ones at head
+   dims 80, 96 and 112 (padded to 128 by the Hopper kernel) in f32 and
+   bf16, then the
    prefill shapes of Qwen3-14B (1 x 4096, 40 heads, 8 kv heads, D 128,
    causal), StarCoder2-15B (1 x 6144, 48 heads, 4 kv heads, D 128,
    causal, window 4096), Qwen3-MoE-235B-A22B (1 x 4096, 64 heads, 4 kv
    heads, D 128, causal) and Kimi-K2 (1 x 4096, 64 heads, 8 kv heads,
-   D 112, causal: the scalar variant in bf16) and Hymba-1.5B (1 x 4224
+   D 112, causal: the Hopper variant in bf16, padded to 128) and
+   Hymba-1.5B (1 x 4224
    with its 128 meta tokens, and 4 x 192, 25 heads, 5 kv heads, D 64,
    causal, window 1024), Llama-3.2-Vision-11B (32 / 8 heads, D 128: its
    causal 1 x 4096 and 4 x 64, its cross-attention over 1601 image
@@ -247,11 +251,12 @@ Phases, each printing its own line(s) before the last line:
    and 4 x 1500 both ways, the decoder's causal 1 x 448 and 4 x 64, its
    cross-attention over 1500 frames at 1 x 448 and 4 x 64, decode's 4 x 1
    and 1 x 1): B5's first non-causal launches with Sq != Sk and Sq = 1 at
-   a model's shapes, each key count a ragged last tile; then two cases
-   with query rows that see no key,
+   a model's shapes, each key count a ragged last tile; then three
+   cases with query rows that see no key (D 128, 64 and 112),
    each in f32 and bf16 through the variant the wrapper picks (printed,
    and checked against flash_variant): the Hopper kernel (bf16, D 64 or
-   128) per element at 2^-7 |ref| + 2^-8 attn(q, k, |v|) + 2e-5, the
+   80-128 in steps of 16) per element at 2^-7 |ref| + 2^-8 attn(q, k,
+   |v|) + 2e-5, the
    scalar one at 2e-5 in f32 and 2^-7 |ref| + 2e-5 in bf16; before any
    language model is on the card;
 15b. the kernels at the LM runs' shapes against their plain versions:
@@ -288,7 +293,8 @@ Phases, each printing its own line(s) before the last line:
    expert is dropped);
 17c. serve kimi-k2-1t-a32b at full width, 1 of 61 layers (19.4 B
    parameters, 38.8 GB; 384 experts and a shared one), 1 x 4096 -> 8, the
-   same checks (1 scalar launch a prefill: head_dim 112);
+   same checks (1 Hopper launch a prefill: head_dim 112, padded to 128;
+   no scalar launch);
 17d. serve minicpm3-4b at full width and depth (62 layers, 4.26 B
    parameters, MLA), 4 x 64 -> 32 and 1 x 4096 -> 8, the same checks with
    no flash launch (MLA attention is plain torch);
@@ -340,7 +346,10 @@ Phases, each printing its own line(s) before the last line:
    shape in bf16 (Hymba's with its window mask, the non-causal ones with
    none, is_causal as the kernel's), with its TFLOP/s and its ratio to
    scaled_dot_product_attention, and the scalar one at Qwen3-14B's in
-   f32); the accumulating transmit's S, and at the
+   f32; then the scalar kernel at Kimi-K2's bf16 shape through its C
+   entry, which the wrapper no longer sends there: the Hopper kernel's
+   before and after in one call); the accumulating transmit's S, and at
+   the
    million-client chunk the same kernel on the same grid without a fold,
    to show what the fold costs;
 then one JSON line listing the kernels (and the launch floor), and the
@@ -392,6 +401,11 @@ FLASH_CASES = [
     (2, 1, 96, 4, 2, 32, False, None),
     (1, 80, 80, 6, 3, 16, True, 16),
     (1, 33, 65, 2, 1, 8, False, None),
+    # head dims the Hopper kernel pads to 128 columns: ragged, GQA, a
+    # window, Sq != Sk
+    (1, 100, 100, 8, 8, 80, True, 48),
+    (2, 64, 150, 4, 2, 96, False, None),
+    (1, 200, 200, 8, 1, 112, True, None),
 ]
 FLASH_MODEL_SHAPES = {
     "qwen3-14b": (1, 4096, 4096, 40, 8, 128, True, None),
@@ -454,7 +468,8 @@ FLASH = "flash_attention"
 # Query rows that see no key (a window, Sq > Sk + window - 1): each
 # variant must give them the plain version's mean of v over all keys.
 FLASH_KEYLESS = [(1, 300, 100, 4, 2, 128, False, 64),
-                 (1, 300, 100, 4, 2, 64, True, 64)]
+                 (1, 300, 100, 4, 2, 64, True, 64),
+                 (1, 300, 100, 4, 2, 112, True, 64)]
 HOPPER_KERNEL = "flash_attention_sm90_kernel"
 HOPPER_REGS = 168       # 65,536 / 384 threads, what setmaxnreg rebalances
 SLEEP_CYCLES = 4_000_000   # ~2 ms at the H100's 1.98 GHz boost clock
@@ -522,7 +537,10 @@ def phase_build_report(build, lib_path):
     flash-attention kernels: the same report, their
     dynamic shared memory, and their SASS, which must hold wgmma (HGMMA)
     and TMA loads (UTMALDG); a register count other than HOPPER_REGS
-    would unbalance setmaxnreg, so it fails here, before any launch."""
+    would unbalance setmaxnreg, so it fails here, before any launch, as
+    does a spill, local memory, or a note of ptxas's that it fenced or
+    serialized their wgmma pipeline. Two instances, by the padded head
+    width P: 64 (D 64) and 128 (D 80-128 in steps of 16)."""
     import re
 
     full = _ptxas_report(lib_path)
@@ -564,21 +582,35 @@ def phase_build_report(build, lib_path):
             for op in ops[fn]:
                 ops[fn][op] += f" {op}" in line
     lib = build.load_library()
+    # ptxas's notes where it fences (C7519: warpgroup.arrive injected) or
+    # serializes the kernel's wgmma pipeline: a branch around a wgmma
+    # inside a pipeline stage draws them, and spills with them
+    fenced = [line.strip() for line in lib_path.with_suffix(".log")
+              .read_text().splitlines() if HOPPER_KERNEL in line
+              and ("C7519" in line or "serializ" in line)]
+    check(not fenced, f"{HOPPER_KERNEL}: ptxas fenced or serialized its "
+          f"wgmma pipeline: {fenced[:2]}")
     check(len(report) == 2 and len(ops) == 2,
           f"{HOPPER_KERNEL}: {len(report)} compiler reports and {len(ops)} "
-          "SASS listings, want 2 each (D = 64, 128)")
+          "SASS listings, want 2 each (P = 64, 128)")
     for fn in sorted(report):
-        d = 128 if "ILi128E" in fn else 64
+        pw = 128 if "ILi128E" in fn else 64
         regs = int(re.search(r"Used (\d+) registers",
                              report[fn]["regs"]).group(1))
-        check(regs == HOPPER_REGS, f"{HOPPER_KERNEL}<{d}>: {regs} registers "
-              f"at entry, want {HOPPER_REGS}")
+        check(regs == HOPPER_REGS, f"{HOPPER_KERNEL}<{pw}>: {regs} "
+              f"registers at entry, want {HOPPER_REGS}")
         count = ops[fn]
         check(count["HGMMA"] > 0 and count["UTMALDG"] > 0,
-              f"{HOPPER_KERNEL}<{d}> SASS: {count}")
-        print(f"[build] {HOPPER_KERNEL}<D={d}>: {report[fn]['regs']}; "
+              f"{HOPPER_KERNEL}<{pw}> SASS: {count}")
+        # o[] indexed at a run-time bound would live in local memory
+        spills = sum(int(n) for n in re.findall(
+            r"(\d+) bytes spill", report[fn].get("spill", "")))
+        check(spills == 0 and count["LDL"] + count["STL"] == 0,
+              f"{HOPPER_KERNEL}<{pw}>: {spills} bytes of spill stores and "
+              f"loads, SASS {count}")
+        print(f"[build] {HOPPER_KERNEL}<P={pw}>: {report[fn]['regs']}; "
               f"{report[fn].get('spill', '')}; dynamic shared memory "
-              f"{lib.repro_flash_attention_sm90_smem(d)} B; SASS "
+              f"{lib.repro_flash_attention_sm90_smem(pw)} B; SASS "
               + ", ".join(f"{op} x{n}" for op, n in count.items()) + "; ok")
 
 
@@ -3532,7 +3564,7 @@ def phase_kernel_flash(torch, dev):
                                                      flash_variant)
     from repro_torch.kernels.ref import flash_attention_ref
 
-    # the six FLASH_CASES, the two model shapes and the rows without keys,
+    # the FLASH_CASES, the models' shapes and the rows without keys,
     # each in f32 and bf16, through the variant the wrapper picks
     labels = ([f"FLASH_CASES[{i}]" for i in range(len(FLASH_CASES))]
               + [f"{a} shape" for a in FLASH_MODEL_SHAPES]
@@ -3574,7 +3606,8 @@ def phase_kernel_flash(torch, dev):
               f"{share:.3f} of its tier ({tier}); ok")
         del q, k, v, got, want, diff, tol
     torch.cuda.empty_cache()
-    print(f"[kernel flash_attention] {len(cases)} cases (6 FLASH_CASES, "
+    print(f"[kernel flash_attention] {len(cases)} cases "
+          f"({len(FLASH_CASES)} FLASH_CASES, "
           f"{len(FLASH_MODEL_SHAPES) + len(FLASH_SERVE_SHAPES)} model "
           f"shapes and {len(FLASH_KEYLESS)} "
           "with rows without keys, "
@@ -3768,28 +3801,22 @@ def _cross_kv_ms(torch, cfg, params, cache, reps=10):
     return start.elapsed_time(end) / reps
 
 
-_PROFILER_READY = []
-
-
 def _profile_run(torch, fn):
     """Run fn once under torch.profiler: its host-clock ms and the
     profiler's CUDA events (key_averages). fn runs in the active step of
     a schedule whose warm-up step runs one near-empty kernel: that step
     sets up CUPTI's activity tracing, whose first kernel records a
     capture of one step alone can miss (the receive's one-launch check
-    saw no kernel at all in a process's first capture). The process's
-    first call runs one throwaway session around a near-empty kernel
-    before it: a first session's warm-up step alone did not always do
-    (the same check saw no kernel once more)."""
+    saw no kernel at all in a process's first capture). Before it,
+    ``device.warm_up_profiler`` runs one throwaway session in the
+    process: a first session's warm-up step alone did not always do (the
+    same check saw no kernel once more)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
-    if not _PROFILER_READY:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]):
-            torch.cuda._sleep(1)
-            torch.cuda.synchronize()
-        _PROFILER_READY.append(True)
+    from repro_torch.device import warm_up_profiler
+
+    warm_up_profiler()
     traces = []
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -4330,6 +4357,7 @@ def phase_times(torch, dev):
               f"the kernel by {diff:.3e} at most")
         del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+    _flash_scalar_at(torch, dev, flush, "kimi-k2-1t-a32b", rows)
     out = {}
     for name, (ms, plain_ms, nbytes, ops) in rows.items():
         rate, what = rates.get(name, (F32_FLOPS_PER_S,
@@ -4350,6 +4378,48 @@ def phase_times(torch, dev):
                  "library_ms null: no single PyTorch call computes this "
                  "function"))
     return out, floor
+
+
+def _flash_scalar_at(torch, dev, flush, key, rows):
+    """The scalar flash kernel at a FLASH_MODEL_SHAPES shape in bf16 that
+    the wrapper sends to the Hopper kernel, through the library's C entry
+    (``repro_flash_attention``, bf16): checked once against the plain
+    version at the scalar bf16 tier, then timed as the rows are, beside
+    the Hopper row of the same call (its time before the Hopper kernel
+    took the shape). Launches no counter; prints, returns nothing."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import flash_tolerance
+    from repro_torch.kernels.ref import flash_attention_ref
+
+    case = FLASH_MODEL_SHAPES[key]
+    b, sq, sk, h, kh, d, causal, window = case
+    q, k, v = _flash_inputs(torch, dev, case, torch.bfloat16, 7)
+    out = torch.empty_like(q)
+    lib = build.load_library()
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            sk, h, kh, d, int(causal), window or 0, 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(dev).cuda_stream)
+
+    def scalar():
+        build.check(lib.repro_flash_attention(1, *args),
+                    "flash_attention (scalar, C entry)")
+
+    scalar()
+    want = flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    diff = (out.float() - want.float()).abs()
+    share = float((diff / flash_tolerance("scalar", want)).max())
+    check(share <= 1.0, f"{FLASH} scalar bf16 {key}: {share:.3f} of its "
+          "tier")
+    ms = _median_ms(torch, scalar, flush)
+    hopper = rows[_flash_row(torch, key)][0]
+    print(f"[times] {FLASH} scalar bf16 {key} (the C entry; the wrapper "
+          f"sends this shape to the Hopper kernel): {ms:.4f} ms, "
+          f"max_abs_err {float(diff.max()):.3e} ({share:.3f} of the scalar "
+          f"bf16 tier); the Hopper kernel at the same shape {hopper:.4f} "
+          f"ms, {ms / hopper:.2f} x faster")
+    del q, k, v, out, want, diff
+    torch.cuda.empty_cache()
 
 
 def main() -> int:

@@ -3,11 +3,11 @@
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py,
 // flash_attention / _flash_kernel (Pallas), for bf16 q, k and v with a
-// head dimension of 64 or 128 (every dense model of the zoo has 128).
-// The wrapper, kernels/flash_attention.py, sends every other call (f32,
-// another head dimension, strides or addresses TMA refuses) to the
-// scalar kernel in flash_attention.cu; it picks from dtype and shape
-// alone, never on failure.
+// head dimension D in {64, 80, 96, 112, 128} (every dense model of the
+// zoo has 128, Kimi-K2 112). The wrapper, kernels/flash_attention.py,
+// sends every other call (f32, another head dimension, strides or
+// addresses TMA refuses) to the scalar kernel in flash_attention.cu; it
+// picks from dtype and shape alone, never on failure.
 //
 //   out[b, i, h, :] = sum_j softmax_j(s_ij) v[b, j, h / G, :],
 //   s_ij = (q[b, i, h, :] . k[b, j, h / G, :]) / sqrt(D)   if (i, j) is
@@ -20,6 +20,19 @@
 // TFLOP/s), against 100.7 MB, 30 us at 3.35 TB/s. At StarCoder2-15B's
 // (S = 6144, H = 48, K = 4, window 4096) 412.3 GFLOP, 417 us.
 //
+// Head dimensions below 128: two instances, by the padded width P = 64
+// (D = 64) and P = 128 (D = 80, 96, 112 and 128), with the real D a
+// kernel argument. The tensor maps run over the real D (row stride 2 D
+// bytes: 160, 192, 224 at D 80-112, multiples of 16 as TMA needs), so a
+// row's second 64-column box reads columns 64-127 and TMA zero-fills
+// those from D on, under the same expect_tx byte counts as the ragged
+// Sq / Sk edges. Both products run over all P columns: the zero columns
+// add nothing to q k^T and leave o's columns from D on at zero, and the
+// store writes only the D / 8 real column groups. The cost: at D 112
+// both products do 128 / 112 of their work. A guard that skipped q k^T's
+// k-steps past D made ptxas fence the wgmma pipeline and spill at P =
+// 128, and slowed every D; the loop keeps no guard.
+//
 // Design, for the tensor cores:
 // - One block per (128 query rows, query head, batch): two consumer
 //   warpgroups of 64 rows each and a producer warpgroup, of which one
@@ -29,11 +42,11 @@
 //   kStages stages, each with a "full" mbarrier for K, one for V (so
 //   q k^T starts before V lands) and an "empty" one the consumers
 //   release. Each tensor map is 4-D over (D, heads, S, B) with boxes of
-//   64 columns (128 bytes) x 128 rows in the 128-byte swizzle, so a D =
-//   128 row takes two boxes; the ragged Sq / Sk edges are zero-filled by
-//   TMA, with no padded copies.
+//   64 columns (128 bytes) x 128 rows in the 128-byte swizzle, so a row
+//   of P = 128 takes two boxes; the ragged Sq / Sk edges (and the
+//   columns from D to P) are zero-filled by TMA, with no padded copies.
 // - s = q k^T: wgmma m64n128k16, both operands K-major from shared
-//   memory. o += p v: wgmma m64nDk16 with p from registers (the s
+//   memory. o += p v: wgmma m64nPk16 with p from registers (the s
 //   accumulator's layout is the A fragment's) and V read MN-major through
 //   the descriptor's transpose bit.
 // - Softmax in registers: row max and sum over the 4 lanes of a quad,
@@ -253,26 +266,28 @@ __device__ __forceinline__ float quad_sum(float x) {
 }
 
 // Shared memory from a 1024-byte aligned base (the swizzle's period): q,
-// then the K stages, then the V stages, each tile D / 64 boxes of 16 KB;
+// then the K stages, then the V stages, each tile P / 64 boxes of 16 KB;
 // then the barriers: full_q, full_k[kStages], full_v[kStages],
 // empty[kStages].
-template <int D>
+template <int P>
 struct Layout {
-  static constexpr uint32_t kTile = D / kBox * kBoxBytes;
+  static constexpr uint32_t kTile = P / kBox * kBoxBytes;
   static constexpr uint32_t kBars = (1 + 2 * kStages) * kTile;
   static constexpr uint32_t kBytes = kBars + 8 * (1 + 3 * kStages) + 1024;
 };
 
-template <int D>
+// P: the padded head width of the tiles and accumulators (64 or 128);
+// D: the real head dimension, a multiple of 16 in (P - 64, P].
+template <int P>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_attention_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
                                 const __grid_constant__ CUtensorMap tv,
                                 __nv_bfloat16* __restrict__ out, int Sq,
-                                int Sk, int H, int KH, int causal, int window,
-                                float scale_log2) {
-  using L = Layout<D>;
-  constexpr int NB = D / kBox;
+                                int Sk, int H, int KH, int D, int causal,
+                                int window, float scale_log2) {
+  using L = Layout<P>;
+  constexpr int NB = P / kBox;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t s_q = base;
@@ -351,9 +366,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row_b = row_a + 8;
     const int col = 2 * (lane % 4);
 
-    float o[D / 2];
+    float o[P / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < P / 2; ++i) o[i] = 0.f;
     float m_a = kMasked, m_b = kMasked, l_a = 0.f, l_b = 0.f;
 
     mbar_wait(bar_q, 0);
@@ -362,13 +377,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint32_t ph = (it / kStages) & 1;
       const int t0 = kv_lo + it * kBK;
 
-      // s = q k^T over D / 16 steps of 16 columns: box kk / 4, 32 bytes
-      // a step inside the 128-byte swizzled row.
+      // s = q k^T over P / 16 steps of 16 columns (those from D on are
+      // zeros in both tiles): box kk / 4, 32 bytes a step inside the
+      // 128-byte swizzled row.
       float sc[kBK / 2];
       mbar_wait(bar_k + 8 * s, ph);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < P / 16; ++kk) {
         const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
         wgmma_ss_n128(sc, smem_desc(s_q + off + wg * 64 * 128, 16, 1024),
                       smem_desc(s_k + s * L::kTile + off, 16, 1024),
@@ -429,14 +445,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       l_a = l_a * c_a + sum_a;
       l_b = l_b * c_b + sum_b;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
+      for (int n = 0; n < P / 8; ++n) {
         o[4 * n] *= c_a;
         o[4 * n + 1] *= c_a;
         o[4 * n + 2] *= c_b;
         o[4 * n + 3] *= c_b;
       }
 
-      // o += p v over kBK / 16 steps of 16 keys (2048 bytes of V each).
+      // o += p v over kBK / 16 steps of 16 keys (2048 bytes of V each),
+      // over all P columns of V (those from D on are zeros).
       mbar_wait(bar_v + 8 * s, ph);
       fence_regs(o);
       wgmma_fence();
@@ -444,7 +461,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int kk = 0; kk < kBK / 16; ++kk) {
         const uint64_t dv =
             smem_desc(s_v + s * L::kTile + kk * 2048, kBoxBytes, 1024);
-        if constexpr (D == 128)
+        if constexpr (P == 128)
           wgmma_rs_n128(o, pa[kk], dv);
         else
           wgmma_rs_n64(o, pa[kk], dv);
@@ -459,8 +476,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float inv_b = 1.f / fmaxf(quad_sum(l_b), 1e-30f);
     __nv_bfloat16* out_a = out + (((int64_t)b * Sq + row_a) * H + h) * D;
     __nv_bfloat16* out_b = out + (((int64_t)b * Sq + row_b) * H + h) * D;
+    // the D / 8 real column groups; the loop unrolled over P / 8 keeps o
+    // in registers (a bound known only at run time would index it from
+    // local memory)
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
+    for (int n = 0; n < P / 8; ++n) {
+      if (n >= D / 8) continue;
       if (row_a < Sq)
         *reinterpret_cast<__nv_bfloat162*>(out_a + 8 * n + col) =
             __floats2bfloat162_rn(o[4 * n] * inv_a, o[4 * n + 1] * inv_a);
@@ -507,28 +528,38 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* ptr, int B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int P>
 int launch(const CUtensorMap& tq, const CUtensorMap& tk,
            const CUtensorMap& tv, void* out, int B, int Sq, int Sk, int H,
-           int KH, int causal, int window, float scale_log2,
+           int KH, int D, int causal, int window, float scale_log2,
            cudaStream_t s) {
-  const int smem = (int)Layout<D>::kBytes;
+  const int smem = (int)Layout<P>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_sm90_kernel<D>,
+      flash_attention_sm90_kernel<P>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(H * B, (Sq + kBQ - 1) / kBQ);
-  flash_attention_sm90_kernel<D><<<grid, kThreads, smem, s>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KH, causal,
-      window, scale_log2);
+  flash_attention_sm90_kernel<P><<<grid, kThreads, smem, s>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), Sq, Sk, H, KH, D,
+      causal, window, scale_log2);
   return (int)cudaGetLastError();
+}
+
+// The padded width of the instance that takes head dimension D, or 0 for
+// a D that no instance takes.
+int padded_width(int D) {
+  if (D == 64) return 64;
+  if (D > 64 && D <= 128 && D % 16 == 0) return 128;
+  return 0;
 }
 
 }  // namespace
 
 // One launch. q: (B, Sq, H, D); k, v: (B, Sk, KH, D); out: (B, Sq, H, D);
-// all contiguous bf16 at 16-byte aligned addresses, D in {64, 128}, H % KH
-// == 0; window 0 means no window; scale = 1 / sqrt(D).
+// all contiguous bf16 at 16-byte aligned addresses, D in {64, 80, 96,
+// 112, 128} (row strides of 128, 160, 192, 224 and 256 bytes), H % KH ==
+// 0; window 0 means no window; scale = 1 / sqrt(D). Nothing past out's
+// B Sq H D elements is written.
 extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
                                           const void* v, void* out, int B,
                                           int Sq, int Sk, int H, int KH, int D,
@@ -538,7 +569,7 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
   const auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
-  if (Sk <= 0 || KH <= 0 || H <= 0 || H % KH != 0 || (D != 64 && D != 128) ||
+  if (Sk <= 0 || KH <= 0 || H <= 0 || H % KH != 0 || padded_width(D) == 0 ||
       window < 0 || (long long)H * B > 0x7fffffffLL ||
       (Sq + kBQ - 1) / kBQ > 65535 || !aligned(q) || !aligned(k) ||
       !aligned(v) || !aligned(out))
@@ -552,17 +583,18 @@ extern "C" int repro_flash_attention_sm90(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   const float scale_log2 = scale * 1.4426950408889634f;  // log2(e)
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch<64>(tq, tk, tv, out, B, Sq, Sk, H, KH, causal, window,
+  if (padded_width(D) == 64)
+    return launch<64>(tq, tk, tv, out, B, Sq, Sk, H, KH, D, causal, window,
                       scale_log2, s);
-  return launch<128>(tq, tk, tv, out, B, Sq, Sk, H, KH, causal, window,
+  return launch<128>(tq, tk, tv, out, B, Sq, Sk, H, KH, D, causal, window,
                      scale_log2, s);
 }
 
 // Dynamic shared memory a block of the kernel for head dimension D takes
-// (0 for a D it does not take); printed beside the compiler's report.
+// (its padded width's; 0 for a D it does not take); printed beside the
+// compiler's report.
 extern "C" int repro_flash_attention_sm90_smem(int D) {
-  if (D == 64) return (int)Layout<64>::kBytes;
-  if (D == 128) return (int)Layout<128>::kBytes;
+  if (padded_width(D) == 64) return (int)Layout<64>::kBytes;
+  if (padded_width(D) == 128) return (int)Layout<128>::kBytes;
   return 0;
 }

@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 DeviceLike = Optional[Union[str, torch.device]]
 
@@ -32,3 +33,21 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     if dev.type == "cuda" and dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     return dev
+
+
+_PROFILER_READY = []
+
+
+def warm_up_profiler() -> None:
+    """Run one throwaway ``torch.profiler`` session (CPU and CUDA
+    activities) around a near-empty kernel, once a process, before the
+    process's first capture that counts kernels. A process's first CUPTI
+    capture can drop its first kernel record, even in the active step of
+    a schedule with a warm-up step; a session before it sets the tracing
+    up. Later calls do nothing."""
+    if _PROFILER_READY:
+        return
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
+    _PROFILER_READY.append(True)

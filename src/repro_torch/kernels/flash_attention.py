@@ -14,12 +14,14 @@ or raises; ``flash_variant`` picks which from dtype and shape alone,
 never on a failure:
 
 * ``"hopper"``, ``csrc/flash_attention_sm90.cu`` (TMA, a shared-memory
-  ring, ``wgmma``): bf16 with a head dimension of 64 or 128 at addresses
-  TMA takes. Its ``p @ v`` rounds p to bf16 (the TPU kernel's is f32),
-  so its tier against the plain version is ``flash_tolerance``'s.
+  ring, ``wgmma``): bf16 with a head dimension in ``HOPPER_HEAD_DIMS``
+  (64, and 80 to 128 in steps of 16, which the kernel pads to 128 in
+  shared memory: Kimi-K2's 112 among them) at addresses TMA takes. Its
+  ``p @ v`` rounds p to bf16 (the TPU kernel's is f32), so its tier
+  against the plain version is ``flash_tolerance``'s.
 * ``"scalar"``, ``csrc/flash_attention.cu`` (scalar f32 FMAs): all
-  else, f32 and every other head dimension; it agrees with the plain
-  version to 2e-5 in f32.
+  else, f32 and every other head dimension (below 64, not a multiple of
+  16, or above 128); it agrees with the plain version to 2e-5 in f32.
 
 On a CPU tensor it runs the plain version,
 ``kernels.ref.flash_attention_ref``. Nothing else selects among the
@@ -47,7 +49,7 @@ from repro_torch.kernels.ref import flash_attention_ref
 
 MAX_HEAD_DIM = 256
 _DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
-HOPPER_HEAD_DIMS = (64, 128)
+HOPPER_HEAD_DIMS = (64, 80, 96, 112, 128)
 HOPPER_MAX_SEQ_Q = 65535 * 128     # the q tiles of 128 rows on grid.y
 
 
@@ -58,8 +60,10 @@ def flash_variant(dtype: torch.dtype, head_dim: int, seq_q: int,
     ``HOPPER_MAX_SEQ_Q`` query rows and every address in ``data_ptrs``
     (q, k, v, out) 16-byte aligned, which TMA needs; else ``"scalar"``.
     TMA also needs global strides in multiples of 16 bytes: the wrapper
-    takes contiguous (B, S, heads, D) tensors only, whose strides at D = 64
-    or 128 in bf16 are multiples of 128 bytes."""
+    takes contiguous (B, S, heads, D) tensors only, whose row strides in
+    bf16 are 2 D bytes: 128 and 256 at D = 64 and 128, and 160, 192 and
+    224 at D = 80, 96 and 112, which the kernel pads to 128 columns in
+    shared memory."""
     if (dtype == torch.bfloat16 and head_dim in HOPPER_HEAD_DIMS
             and seq_q <= HOPPER_MAX_SEQ_Q
             and all(p % 16 == 0 for p in data_ptrs)):

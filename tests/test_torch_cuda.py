@@ -402,10 +402,14 @@ def test_receive_statistics_are_one_launch_and_the_same_bits(cuda, packed):
     The kernels are counted in the active step of a profiler schedule
     with one warm-up step, CPU and CUDA activities on: the warm-up step
     sets up CUPTI's activity tracing, whose first kernel records a
-    capture of one step with CUDA activity alone could miss."""
+    capture of one step with CUDA activity alone could miss. Before it,
+    ``device.warm_up_profiler`` runs one throwaway session in the
+    process (as ``chip_smoke.py``'s profiler helper does): a process's
+    first capture could drop the kernel even with the warm-up step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    from repro_torch.device import warm_up_profiler
     from repro_torch.kernels.ota_channel import _PACKED, _TILE_COUNTERS
     d = 175104
     gen = torch.Generator(device=cuda).manual_seed(6)
@@ -421,6 +425,7 @@ def test_receive_statistics_are_one_launch_and_the_same_bits(cuda, packed):
     kw = dict(alpha=1.5, scale=0.1, packed=packed, pilot_stats=True)
     first = ota_receive_slab(payload, s, u, e, **kw)
     torch.cuda.synchronize()
+    warm_up_profiler()
     traces = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
@@ -918,7 +923,8 @@ def _flash_run(cuda, case, dtype, seed):
 @pytest.mark.parametrize("variant, dtype, d", [
     ("scalar", torch.float32, 32), ("scalar", torch.bfloat16, 32),
     ("scalar", torch.float32, 128), ("hopper", torch.bfloat16, 64),
-    ("hopper", torch.bfloat16, 128)])
+    ("hopper", torch.bfloat16, 128), ("hopper", torch.bfloat16, 80),
+    ("hopper", torch.bfloat16, 96), ("hopper", torch.bfloat16, 112)])
 @pytest.mark.parametrize("causal", [False, True])
 def test_flash_attention_rows_without_keys_match_plain(cuda, variant, dtype,
                                                        d, causal):
@@ -948,6 +954,11 @@ HOPPER_CASES = [
     (1, 700, 650, 12, 1, 64, False, 300),
     (2, 1, 96, 4, 2, 128, False, None),
     (1, 1000, 1000, 10, 2, 128, True, 1000),
+    # D 80, 96, 112: the 128-column instance over zero-padded tiles;
+    # ragged, unequal Sq / Sk, GQA (Kimi-K2's 64 / 8 heads), a window
+    *((2, 333, 200, 8, 2, d, True, None) for d in (80, 96, 112)),
+    *((1, 200, 333, 64, 8, d, False, None) for d in (80, 96, 112)),
+    *((1, 700, 650, 4, 1, d, True, 300) for d in (80, 96, 112)),
 ]
 
 
@@ -986,7 +997,8 @@ def test_flash_attention_hopper_kernel_at_16_byte_offsets(cuda):
 
 
 def test_flash_attention_variant_counters(cuda):
-    """bf16 at D = 64 / 128 goes to the Hopper kernel; f32, D = 32 and a
+    """bf16 at D = 64 / 128, and at D = 80 / 112 (padded to 128), goes to
+    the Hopper kernel; f32, D = 32, D = 72 (not a multiple of 16) and a
     misaligned address to the scalar one; ``launches`` is their sum."""
     from repro_torch.kernels.flash_attention import flash_attention
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -997,6 +1009,9 @@ def test_flash_attention_variant_counters(cuda):
 
     calls = [(qkv(128, torch.bfloat16), "hopper"),
              (qkv(64, torch.bfloat16), "hopper"),
+             (qkv(112, torch.bfloat16), "hopper"),
+             (qkv(80, torch.bfloat16), "hopper"),
+             (qkv(72, torch.bfloat16), "scalar"),
              (qkv(128, torch.float32), "scalar"),
              (qkv(32, torch.bfloat16), "scalar"),
              (qkv(32, torch.float32), "scalar")]
@@ -1015,6 +1030,44 @@ def test_flash_attention_variant_counters(cuda):
         other = "scalar" if variant == "hopper" else "hopper"
         assert after == {"launches": 1, f"{variant}_launches": 1,
                          f"{other}_launches": 0}, (q.dtype, q.shape[-1])
+
+
+@pytest.mark.parametrize("d", [80, 96, 112])
+def test_flash_attention_hopper_kernel_writes_only_its_output(cuda, d):
+    """At a head dimension the Hopper kernel pads to 128 columns, through
+    its C entry, with q, k, v and out 16 bytes past a 128-byte boundary:
+    nothing is written past (or before) the output, a view into a larger
+    buffer of a sentinel that stays whole around it, and the output
+    holds the Hopper tier of the plain version, bitwise the wrapper's."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_tolerance)
+    from repro_torch.kernels.ref import flash_attention_ref
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    b, sq, sk, h, kh = 1, 200, 257, 4, 2
+    shapes = ((b, sq, h, d), (b, sk, kh, d), (b, sk, kh, d), (b, sq, h, d))
+    sentinel = -768.0
+    bufs = [torch.full((int(np.prod(sh)) + 64,), sentinel, device=cuda,
+                       dtype=torch.bfloat16) for sh in shapes]
+    q, k, v, out = (buf[8:8 + int(np.prod(sh))].view(sh)
+                    for buf, sh in zip(bufs, shapes))
+    for t in (q, k, v):
+        t.copy_(torch.randn(t.shape, generator=gen, device=cuda))
+    assert all(t.data_ptr() % 128 == 16 for t in (q, k, v, out))
+    lib = build.load_library()
+    code = lib.repro_flash_attention_sm90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk,
+        h, kh, d, 1, 0, 1.0 / float(np.sqrt(d)),
+        torch.cuda.current_stream().cuda_stream)
+    build.check(code, "flash_attention (hopper)")
+    torch.cuda.synchronize()
+    n = out.numel()
+    assert bool((bufs[3][:8] == sentinel).all())
+    assert bool((bufs[3][8 + n:] == sentinel).all())
+    want = flash_attention_ref(q, k, v, causal=True)
+    tol = flash_tolerance("hopper", want, flash_attention_ref(
+        q.float(), k.float(), v.float().abs(), causal=True))
+    assert float(((out.float() - want.float()).abs() / tol).max()) <= 1.0
+    assert torch.equal(out, flash_attention(q, k, v, causal=True))
 
 
 def test_flash_attention_wrapper_refuses_on_the_card(cuda):

@@ -151,7 +151,13 @@ VARIANT_CASES = {
                                    "scalar"),
     "f32 D128": (_F32, 128, 4096, _ALIGNED, "scalar"),
     "bf16 D32": (_BF, 32, 64, _ALIGNED, "scalar"),
-    "bf16 D80": (_BF, 80, 64, _ALIGNED, "scalar"),
+    # 80-112: padded to 128 columns in shared memory
+    "bf16 D80": (_BF, 80, 64, _ALIGNED, "hopper"),
+    "bf16 D96": (_BF, 96, 64, _ALIGNED, "hopper"),
+    "bf16 D112 (Kimi-K2)": (_BF, 112, 4096, _ALIGNED, "hopper"),
+    "f32 D112": (_F32, 112, 4096, _ALIGNED, "scalar"),
+    "bf16 D72": (_BF, 72, 64, _ALIGNED, "scalar"),    # not a multiple of 16
+    "bf16 D144": (_BF, 144, 64, _ALIGNED, "scalar"),
     "bf16 D256": (_BF, 256, 64, _ALIGNED, "scalar"),
     "bf16 k 8-byte aligned": (_BF, 128, 64, (_ALIGNED[0], _ALIGNED[1] + 8,
                                              *_ALIGNED[2:]), "scalar"),
@@ -192,15 +198,17 @@ def test_flash_tolerance_refuses_unknown_variants():
         flash_tolerance("cutlass", _REF)
 
 
-def _hopper_model(q, k, v, causal, window, skip_tile=None):
+def _hopper_model(q, k, v, causal, window, skip_tile=None, scale=None):
     """The Hopper kernel's arithmetic on the CPU: f32 scores and softmax,
     p rounded to bf16 for ``p @ v`` with f32 sums, l from the f32 p, the
     output rounded to bf16. ``skip_tile`` drops the 128 keys from that
-    index on, in both sums (a fault the tier must catch)."""
+    index on, in both sums (a fault the tier must catch); ``scale`` is
+    the scores' scale, 1 / sqrt(D) by default."""
     b, sq, hn, d = q.shape
     kh = k.shape[2]
     qg = q.reshape(b, sq, kh, hn // kh, d).float()
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) / d ** 0.5
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * (
+        d ** -0.5 if scale is None else scale)
     dpos = torch.arange(sq)[:, None] - torch.arange(k.shape[1])[None, :]
     ok = torch.ones_like(dpos, dtype=torch.bool)
     if causal:
@@ -249,6 +257,79 @@ def test_hopper_tier_holds_p_rounded_to_bf16(case):
         dropped = _hopper_model(q, k, v, causal, window,
                                 skip_tile=case[2] - 128)
         assert float(((dropped.float() - ref.float()).abs() / tol).max()) > 1
+
+
+def _padded_hopper_model(q, k, v, causal, window, scale_dim=None):
+    """The Hopper kernel at a head dimension D in 80-112: q, k and v
+    zero-padded to the 128 columns of its tiles (what TMA's fill leaves
+    in shared memory), its arithmetic (``_hopper_model``) at the scale
+    1 / sqrt(``scale_dim``) (the real D by default), the first D columns
+    kept (the store's)."""
+    d = q.shape[-1]
+    pad = [torch.nn.functional.pad(t, (0, 128 - d)) for t in (q, k, v)]
+    out = _hopper_model(*pad, causal, window,
+                        scale=(scale_dim or d) ** -0.5)
+    return out[..., :d]
+
+
+PADDED_MODEL_CASES = [
+    (1, 256, 256, 2, 1, 112, True, None),      # Kimi-K2's head dimension
+    (1, 300, 300, 4, 2, 80, True, 100),        # ragged Sq / Sk, a window
+    (1, 64, 1024, 2, 2, 96, False, None),      # Sq != Sk, unmasked
+]
+
+
+@pytest.fixture(scope="module")
+def padded_model_runs():
+    """For each PADDED_MODEL_CASES case: the padded model at the real
+    scale and at 1 / sqrt(128), the plain version, JAX's Pallas kernel
+    in interpret mode and the Hopper tier."""
+    runs = {}
+    for case in PADDED_MODEL_CASES:
+        causal, window = case[6:]
+        q, k, v = _bf16_qkv(case, sum(case[:6]))
+        ref = flash_attention_ref(q, k, v, causal=causal, window=window)
+        ref_abs_v = flash_attention_ref(q.float(), k.float(),
+                                        v.float().abs(), causal=causal,
+                                        window=window)
+        jq, jk, jv = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+                      for t in (q, k, v))
+        pallas = torch.from_numpy(np.array(j_flash(
+            jq, jk, jv, causal=causal, window=window,
+            interpret=True).astype(jnp.float32)))
+        runs[case] = dict(
+            model=_padded_hopper_model(q, k, v, causal, window),
+            wrong_scale=_padded_hopper_model(q, k, v, causal, window,
+                                             scale_dim=128),
+            ref=ref, pallas=pallas,
+            tol=flash_tolerance("hopper", ref, ref_abs_v))
+    return runs
+
+
+@pytest.mark.parametrize("against", ["plain version", "pallas"])
+@pytest.mark.parametrize("case", PADDED_MODEL_CASES, ids=str)
+def test_padded_hopper_model_holds_the_tier(padded_model_runs, case,
+                                            against):
+    """The Hopper kernel's design at D 80-112, q, k and v padded to 128
+    columns with the scale of the real D, lies within 0.9 of the Hopper
+    tier of both the plain version and JAX's Pallas kernel."""
+    r = padded_model_runs[case]
+    assert r["model"].shape == r["ref"].shape
+    want = r["ref"] if against == "plain version" else r["pallas"]
+    share = float(((r["model"].float() - want.float()).abs()
+                   / r["tol"]).max())
+    assert share <= 0.9, share
+
+
+@pytest.mark.parametrize("case", PADDED_MODEL_CASES, ids=str)
+def test_padded_hopper_model_at_the_padded_scale_fails_the_tier(
+        padded_model_runs, case):
+    """The padding's likeliest fault, the scale of the padded width
+    (1 / sqrt(128)) in place of the real D's, lies outside the tier."""
+    r = padded_model_runs[case]
+    share = float(((r["wrong_scale"].float() - r["ref"].float()).abs()
+                   / r["tol"]).max())
+    assert share > 1.0, share
 
 
 KEYLESS_CASES = [
