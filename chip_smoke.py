@@ -214,6 +214,22 @@ Phases, each printing its own line(s) before the last line:
    true-alpha 1.2 channel, matched, alpha 2.0 and alpha="auto", 80
    rounds each (one B2 and one B1 a round, counted); the tracked
    alpha_hat within 0.1 of 1.2, the example's verdict line printed;
+14o. the paper's figure experiments (repro_torch/experiments/
+   paper_figs.py, the twin of benchmarks/paper_figs.py) on the card
+   through the per-round API: examples/paper_experiment_torch.py
+   --skip-mismatch at its defaults (fig 2 and fig 5 on logistic
+   regression, 50 clients, 60 rounds; its assertion, Adam-OTA's
+   accuracy >= FedAvgM's, must hold), then fig3, fig4, fig6 (2 to 100
+   clients), fig7 (the MLP), beyond_yogi and fig2 on the cnn task
+   (ResNet-tiny at channels 8/16, one block a stage) at 80 rounds, the
+   count the JAX script runs; a line a run (final_loss, speed_loss,
+   accuracy, us_per_round); every counter set to 0 before and read
+   after: one B2 and one B1 a round (2020 each), nothing else; the
+   paper's orderings printed OK / VIOLATED (not held); B1 (adam,
+   adagrad, yogi, momentum) and B2 against their plain versions at the
+   figure shapes (d = 384 / 2816 / 5248, N = 2 / 50 / 100); a 5-round
+   _run card vs CPU on the same draws, the losses and accuracy within
+   1e-5; the phase's seconds beside the card's name and power limit;
 14e. the sharded engine (core/shard.py) on the (1,)-mesh: one rank in
    this process, NCCL on a HashStore. ResNet-tiny at full width, 5
    rounds of adam_ota on f32, int8 + EF + int8 downlink + alpha "auto",
@@ -352,8 +368,8 @@ Phases, each printing its own line(s) before the last line:
    the
    million-client chunk the same kernel on the same grid without a fold,
    to show what the fold costs;
-then one JSON line listing the kernels (and the launch floor), and the
-result line.
+then the script's seconds so far, one JSON line listing the kernels (and
+the launch floor), and the result line.
 
 Exits non-zero, and prints no result, without a CUDA device, without the
 repository beside it, or when any phase fails.
@@ -2776,6 +2792,213 @@ def phase_alpha_mismatch(torch, counters):
     return counts
 
 
+# The paper's figure runs (repro_torch/experiments/paper_figs.py): the
+# count benchmarks/paper_figs.py really runs (its _run binds ROUNDS at
+# import) and the example twin's default.
+PAPER_ROUNDS = 80
+PAPER_EXAMPLE_ROUNDS = 60
+# the figure tasks' slabs, padded -> total (logreg, mlp, cnn), and fig 6's
+# client counts at their ends and fig 2's 50
+PAPER_SLABS = {384: 330, 2816: 2762, 5248: 5234}
+PAPER_CLIENTS = (2, 50, 100)
+# what each figure varies, as its records name it
+PAPER_VARIED = {"fig2": "optimizer", "fig5": "alpha", "fig3": "optimizer",
+                "fig4": "beta2", "fig6": "n_clients", "fig7": "dir_alpha",
+                "beyond_yogi": "optimizer", "fig2 cnn": "optimizer"}
+
+
+def _falls(recs, key, metric) -> bool:
+    """``metric`` never rises as ``key`` rises."""
+    ys = [r[metric] for r in sorted(recs, key=lambda r: r[key])]
+    return all(a >= b for a, b in zip(ys, ys[1:]))
+
+
+def _beats_fedavgm(recs) -> bool:
+    by = {r["optimizer"]: r for r in recs}
+    return by["adam_ota"]["accuracy"] >= by["fedavgm"]["accuracy"]
+
+
+# (figure, the paper's ordering, its check)
+PAPER_ORDERINGS = (
+    ("fig3", "Adam-OTA accuracy >= FedAvgM's", _beats_fedavgm),
+    ("fig4", "beta2 = 0.3 lowest final_loss",
+     lambda recs: min(recs, key=lambda r: r["final_loss"])["beta2"] == 0.3),
+    ("fig5", "final_loss falls as alpha rises",
+     lambda recs: _falls(recs, "alpha", "final_loss")),
+    ("fig6", "final_loss falls as N rises",
+     lambda recs: _falls(recs, "n_clients", "final_loss")),
+    ("fig7", "speed_loss falls as Dir rises",
+     lambda recs: _falls(recs, "dir_alpha", "speed_loss")),
+    ("fig2 cnn", "Adam-OTA accuracy >= FedAvgM's", _beats_fedavgm))
+
+
+def _paper_kernels(torch, dev):
+    """B1 (the figures' four modes) and B2 against their plain versions
+    at the figure shapes: d in PAPER_SLABS (the padding tail zero, u and e
+    its fixed point), B2 at N in PAPER_CLIENTS, alpha 1.2 to 2.0. Returns
+    the largest error of each, absolute and as a share of its output's
+    scale."""
+    from repro_torch.core.channel import CMS_U_BOUND
+    from repro_torch.kernels.adaptive_update import adaptive_update_slab
+    from repro_torch.kernels.ota_channel import ota_channel_slab
+    from repro_torch.kernels.ref import adaptive_update_ref, ota_channel_ref
+
+    gen = torch.Generator(device=dev).manual_seed(27)
+    worst = {"B1": [0.0, 0.0], "B2": [0.0, 0.0]}
+    cases = 0
+
+    def held(kernel, got, want, what):
+        err = (got - want).abs()
+        scale = float(want.abs().max())
+        check(bool(torch.all(err <= 1e-6 * want.abs() + 1e-6 * scale)),
+              f"{what}: max err {float(err.max())} at scale {scale}")
+        w = worst[kernel]
+        w[0] = max(w[0], float(err.max()))
+        w[1] = max(w[1], float(err.max()) / max(scale, 1e-30))
+
+    for d, total in PAPER_SLABS.items():
+        def r(scale=1.0, rows=()):
+            x = scale * torch.randn(*rows, d, generator=gen, device=dev)
+            x[..., total:] = 0.0
+            return x
+        g, w, delta, nu = r(), r(), r(0.1), r(0.01).abs()
+        for mode in ("adam", "adagrad", "yogi", "momentum"):
+            for alpha in (1.2, 1.5, 1.8, 2.0):
+                kw = dict(lr=0.05, beta1=0.9, beta2=0.3, alpha=alpha,
+                          eps=1e-8, mode=mode, nu_max=None)
+                got = adaptive_update_slab(g, delta, nu, w, **kw)
+                want = adaptive_update_ref(g, delta, nu, w, **kw)
+                torch.cuda.synchronize()
+                for i, (a, b) in enumerate(zip(got, want)):
+                    held("B1", a, b, f"paper B1 d={d} {mode} a={alpha} "
+                         f"output {i}")
+                cases += 1
+        u = (2 * torch.rand(d, generator=gen, device=dev) - 1) * CMS_U_BOUND
+        e = -torch.log(torch.rand(d, generator=gen, device=dev))
+        u[total:], e[total:] = 0.0, 1.0
+        for n in PAPER_CLIENTS:
+            grads = r(rows=(n,))
+            h = 0.5 + torch.rand(n, generator=gen, device=dev)
+            for alpha in (1.2, 1.5, 1.8, 2.0):
+                got = ota_channel_slab(grads, h, u, e, alpha=alpha, scale=0.3)
+                want = ota_channel_ref(grads, h, u, e, alpha=alpha,
+                                       scale=0.3)
+                torch.cuda.synchronize()
+                what = f"paper B2 {n}x{d} a={alpha}"
+                held("B2", got, want, what)
+                check(bool(torch.all(got[total:] == 0.0)),
+                      f"{what}: padding not 0")
+                cases += 1
+    print(f"[paper figures] kernels at the figure shapes, {cases} cases: "
+          f"B1 (adam, adagrad, yogi, momentum) at d = "
+          f"{'/'.join(map(str, PAPER_SLABS))} max_abs_err "
+          f"{worst['B1'][0]:.3e} ({worst['B1'][1]:.3e} of scale); B2 at N = "
+          f"{'/'.join(map(str, PAPER_CLIENTS))} x the same d, scale 0.3, "
+          f"max_abs_err {worst['B2'][0]:.3e} ({worst['B2'][1]:.3e} of "
+          "scale); alpha 1.2 / 1.5 / 1.8 / 2.0; tol 1e-6 rel + 1e-6 of "
+          "scale; padding exactly 0; ok")
+    return worst
+
+
+def _paper_card_vs_cpu(paper_figs, dev, rounds=5):
+    """One ``_run("adam_ota")`` on the card and on the CPU, on the same
+    draws (made on the CPU; the round moves them to the card): the raw
+    losses and the accuracy within 1e-5."""
+    real_draws, real_rounds = paper_figs.TorchDraws, paper_figs.run_rounds
+    losses = []
+
+    def keep(*args):
+        out = real_rounds(*args)
+        losses.append([h["loss"] for h in out[2]])
+        return out
+
+    paper_figs.TorchDraws = lambda ch, spec, n, seed, device: real_draws(
+        ch, spec, n, seed=seed, device="cpu")
+    paper_figs.run_rounds = keep
+    try:
+        cpu = paper_figs._run("adam_ota", rounds=rounds, device="cpu")
+        card = paper_figs._run("adam_ota", rounds=rounds, device=dev)
+    finally:
+        paper_figs.TorchDraws, paper_figs.run_rounds = real_draws, real_rounds
+    err = max(abs(a - b) for a, b in zip(*losses))
+    acc_err = abs(card["accuracy"] - cpu["accuracy"])
+    check(len(losses[1]) == rounds and err <= 1e-5 and acc_err <= 1e-5,
+          f"paper _run card vs CPU: losses {losses}, accuracy "
+          f"{card['accuracy']} vs {cpu['accuracy']}")
+    print(f"[paper figures] _run('adam_ota'), {rounds} rounds, card vs CPU "
+          f"on the same draws: losses within {err:.3e}, accuracy {card['accuracy']:.4f} vs {cpu['accuracy']:.4f} (tol "
+          "1e-5); ok")
+
+
+def phase_paper_figs(torch, dev, counters):
+    """Phase 14o: the paper's figure experiments on the card through the
+    per-round API. (a) examples/paper_experiment_torch.py --skip-mismatch
+    at its defaults (fig 2 and fig 5, PAPER_EXAMPLE_ROUNDS rounds; its
+    assertion must hold); (b) fig3, fig4, fig6, fig7, beyond_yogi and
+    fig2(task="cnn") at PAPER_ROUNDS, a line a run; every counter set to
+    0 before (a) and read after (b): one B2 and one B1 a round, nothing
+    else; (c) the paper's orderings, OK / VIOLATED (printed, not held);
+    (e) B1 and B2 against their plain versions at the figure shapes;
+    (f) a 5-round run card vs CPU on the same draws. Returns the
+    launches."""
+    import importlib.util
+
+    from repro_torch.experiments import paper_figs
+
+    t0 = time.perf_counter()
+    spec = importlib.util.spec_from_file_location(
+        "paper_experiment_torch",
+        ROOT / "examples" / "paper_experiment_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    figs = {"fig3": paper_figs.fig3, "fig4": paper_figs.fig4,
+            "fig6": paper_figs.fig6, "fig7": paper_figs.fig7,
+            "beyond_yogi": paper_figs.beyond_yogi,
+            "fig2 cnn": lambda: paper_figs.fig2(task="cnn")}
+    for c in counters:
+        c.launches = 0
+    out = example.main(["--skip-mismatch"])
+    recs = {"fig2": out["fig2"], "fig5": out["fig5"]}
+    saved, paper_figs.ROUNDS = paper_figs.ROUNDS, PAPER_ROUNDS
+    try:
+        for name, fn in figs.items():
+            recs[name] = fn()
+    finally:
+        paper_figs.ROUNDS = saved
+    torch.cuda.synchronize()
+    counts = {c.__name__: c.launches for c in counters}
+    rounds = sum(len(r["loss_curve"]) for rs in recs.values() for r in rs)
+    check(rounds == 7 * PAPER_EXAMPLE_ROUNDS + 20 * PAPER_ROUNDS,
+          f"paper figures: {rounds} rounds")
+    want = {k: rounds if k in (CHAN, UPD) else 0 for k in counts}
+    check(counts == want, f"paper figures: launches {counts}, want {want}")
+    for name, rs in recs.items():
+        key = PAPER_VARIED[name]
+        for r in rs:
+            check(all(math.isfinite(x) for x in r["loss_curve"]),
+                  f"paper {name}: losses {r['loss_curve']}")
+            print(f"[paper figures] {name} ({r['task']}, "
+                  f"{len(r['loss_curve'])} rounds) {key}={r[key]}: "
+                  f"final_loss {r['final_loss']:.4f} speed_loss "
+                  f"{r['speed_loss']:.4f} accuracy {r['accuracy']:.4f} "
+                  f"us_per_round {r['us_per_round']:.1f}")
+    verdicts = {}
+    for name, claim, holds in PAPER_ORDERINGS:
+        verdicts[name] = "OK" if holds(recs[name]) else "VIOLATED"
+        print(f"[paper figures] {name}: {claim}: {verdicts[name]}")
+    t_runs = time.perf_counter() - t0
+    worst = _paper_kernels(torch, dev)
+    _paper_card_vs_cpu(paper_figs, dev)
+    print(f"[paper figures] {rounds} rounds in {len(recs)} figures "
+          f"({7 * PAPER_EXAMPLE_ROUNDS} of the example at its default "
+          f"{PAPER_EXAMPLE_ROUNDS}, {20 * PAPER_ROUNDS} at {PAPER_ROUNDS}) "
+          f"in {t_runs:.1f} s; launches {counts}: one {CHAN} and one {UPD} "
+          f"a round, no other; orderings {verdicts}; B1 / B2 max_abs_err "
+          f"{worst['B1'][0]:.3e} / {worst['B2'][0]:.3e}; phase "
+          f"{time.perf_counter() - t0:.1f} s on {nvidia_smi()}; ok")
+    return counts
+
+
 def phase_serve_example(torch, flash_attention):
     """Phase 14j: examples/serve_decode_torch.py (the twin of the JAX
     example) on the card with its defaults: rwkv6-7b at --preset tiny,
@@ -4423,6 +4646,7 @@ def _flash_scalar_at(torch, dev, flush, key, rows):
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import os
     # before torch allocates on the card: phase 14d's 4 GB slabs leave the
     # default pool's segments too fragmented for its int8 round
@@ -4514,6 +4738,7 @@ def main() -> int:
     phase_long_sequence(torch, dev, all_counters + (flash_attention,))
     phase_serve_example(torch, flash_attention)
     phase_alpha_mismatch(torch, all_counters + (flash_attention,))
+    phase_paper_figs(torch, dev, all_counters + (flash_attention,))
     nocarry = Counter(ota_transmit_slab, "nocarry_launches", NOCARRY)
     rxstats = Counter(ota_receive_slab, "stats_launches", RXSTATS)
     sh = phase_sharded(torch, np, dev, all_counters + (nocarry, rxstats))
@@ -4666,6 +4891,8 @@ def main() -> int:
                                                    "bound_ms", "bound_by",
                                                    "library_ms")})
                for name, source, replaces, err in rows]
+    print(f"[chip_smoke] {time.perf_counter() - t_start:.1f} s from start "
+          f"to the kernels line, on {nvidia_smi()}")
     print(json.dumps({"kernels": kernels, "launch_floor_ms": floor}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -40,6 +40,7 @@ from repro_torch.core.channel import (CMS_U_BOUND, OTAChannelConfig,
 from repro_torch.core.draws import TorchDraws
 from repro_torch.core.fl import FLConfig, make_slab_round_step
 from repro_torch.core.slab_state import init_train_state
+from repro_torch.experiments import paper_figs
 from repro_torch.kernels import build
 from repro_torch.kernels.adaptive_update import MODES, adaptive_update_slab
 from repro_torch.kernels.ota_channel import (ota_channel_slab,
@@ -263,6 +264,37 @@ def test_round_on_the_card_matches_the_cpu_round(cuda, optimizer):
     _close(states["cuda"].w.cpu(), states["cpu"].w, 1e-5)
     for a, b_ in zip(states["cuda"].opt, states["cpu"].opt):
         _close(a.cpu(), b_, 1e-5)
+
+
+def test_paper_figure_run_on_the_card_matches_the_cpu_run(cuda,
+                                                         monkeypatch):
+    """``paper_figs._run("adam_ota")`` (fig 2's logistic regression, 50
+    clients) for 3 rounds on the card, on draws made on the CPU and moved
+    there, against the same run on the CPU: the losses within 1e-5, the
+    accuracy equal, one B1 and one B2 launch a round."""
+    real = paper_figs.TorchDraws
+    monkeypatch.setattr(
+        paper_figs, "TorchDraws",
+        lambda ch, spec, n, seed, device: real(ch, spec, n, seed=seed,
+                                               device="cpu"))
+    losses = []
+    run_rounds = paper_figs.run_rounds
+
+    def keep(*args):
+        out = run_rounds(*args)
+        losses.append([h["loss"] for h in out[2]])
+        return out
+
+    monkeypatch.setattr(paper_figs, "run_rounds", keep)
+    cpu = paper_figs._run("adam_ota", scale=0.3, rounds=3, device="cpu")
+    launches = (adaptive_update_slab.launches, ota_channel_slab.launches)
+    card = paper_figs._run("adam_ota", scale=0.3, rounds=3, device=cuda)
+    assert (adaptive_update_slab.launches - launches[0],
+            ota_channel_slab.launches - launches[1]) == (3, 3)
+    np.testing.assert_allclose(losses[1], losses[0], rtol=1e-5, atol=1e-5)
+    for k in ("final_loss", "speed_loss", "first_loss"):
+        assert abs(card[k] - cpu[k]) <= 1e-5, k
+    assert abs(card["accuracy"] - cpu["accuracy"]) <= 1e-5
 
 
 def _wire_inputs(cuda, n, d, pad=38, seed=3):

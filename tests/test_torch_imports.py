@@ -1,7 +1,11 @@
-"""Import hygiene of the port: ``repro_torch`` and ``chip_smoke.py``
-import neither jax nor anything of the JAX package ``repro``, in any
-import order, and importing them builds and launches nothing."""
+"""Import hygiene of the port: ``repro_torch``, ``chip_smoke.py`` and the
+example twins import neither jax nor anything of the JAX package
+``repro`` or of its ``benchmarks``, in any import order, and importing
+them builds and launches nothing. The port's contract checks
+(``python -m repro_torch.analysis``) cover every module of the package
+and find nothing."""
 
+import os
 import pathlib
 import subprocess
 import sys
@@ -21,7 +25,7 @@ sys.path[:0] = [{src!r}, {root!r}]
 for name in {names!r}:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"))
 assert not bad, bad
 from repro_torch.kernels.adaptive_update import adaptive_update_slab
 from repro_torch.kernels.ota_channel import ota_channel_slab
@@ -52,7 +56,7 @@ def test_module_list_covers_the_package():
                  "models.model", "launch.serve", "launch.train",
                  "core.shard", "launch.mesh", "launch.shard_check",
                  "models.moe", "models.mla", "optim", "models.rwkv",
-                 "models.ssm"):
+                 "models.ssm", "experiments", "experiments.paper_figs"):
         assert f"repro_torch.{name}" in MODULES
     assert len(MODULES) >= 40
 
@@ -78,7 +82,7 @@ for path in {paths!r}:
     spec = importlib.util.spec_from_file_location("example", path)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "benchmarks"))
 assert not bad, bad
 print("ok")
 """
@@ -89,8 +93,22 @@ def test_example_twins_import_no_jax():
     assert any(p.endswith("train_lm_federated_torch.py") for p in paths)
     assert any(p.endswith("alpha_mismatch_torch.py") for p in paths)
     assert any(p.endswith("serve_decode_torch.py") for p in paths)
+    assert any(p.endswith("paper_experiment_torch.py") for p in paths)
     code = EXAMPLE_CHECK.format(src=str(SRC), paths=paths)
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, cwd=str(ROOT))
     assert r.returncode == 0, r.stdout + r.stderr
     assert r.stdout.startswith("ok")
+
+
+def test_analysis_covers_the_package_and_finds_nothing():
+    """``python -m repro_torch.analysis`` reads every module of the
+    package, the experiments among them, and reports 0 findings."""
+    files = sorted((SRC / "repro_torch").rglob("*.py"))
+    assert SRC / "repro_torch" / "experiments" / "paper_figs.py" in files
+    r = subprocess.run([sys.executable, "-m", "repro_torch.analysis"],
+                       capture_output=True, text=True, timeout=120,
+                       cwd=str(ROOT), env={**os.environ,
+                                           "PYTHONPATH": str(SRC)})
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "0 new finding(s), 0 baselined (0 total)" in r.stderr
