@@ -4038,6 +4038,7 @@ def _profile_run(torch, fn):
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.device import warm_up_profiler
+    from repro_torch.spans import PREFIX
 
     warm_up_profiler()
     traces = []
@@ -4055,9 +4056,10 @@ def _profile_run(torch, fn):
         wall_ms = 1e3 * (time.perf_counter() - t0)
         prof.step()
     check(len(traces) == 1, f"the profiler gave {len(traces)} traces")
-    # the step's own annotation shows on the card's timeline too
+    # annotations show on the card's timeline too, each over the kernels
+    # launched inside it: the step's own and the round's spans
     return wall_ms, [a for a in traces[0] if a.device_type == DeviceType.CUDA
-                     and not a.key.startswith("ProfilerStep")]
+                     and not a.key.startswith(("ProfilerStep", PREFIX))]
 
 
 def _profile(torch, what, fn):

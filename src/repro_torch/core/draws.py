@@ -72,6 +72,7 @@ from repro_torch.core.channel import (CMS_E_FLOOR, CMS_U_BOUND,
                                       power_control, rayleigh_from_uniform)
 from repro_torch.core.slab import SlabSpec
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.spans import span
 
 _TINY = torch.finfo(torch.float32).tiny
 
@@ -206,6 +207,10 @@ class TorchDraws:
         self.generator = torch.Generator(device=self.device)
 
     def __call__(self, t: int) -> RoundDraws:
+        with span("draws"):
+            return self._draw(t)
+
+    def _draw(self, t: int) -> RoundDraws:
         if not 0 <= t < 2**32 or not 0 <= self.seed < 2**31:
             raise ValueError("round index must be in [0, 2^32) and seed in "
                              "[0, 2^31)")

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch import spans
 from repro_torch.core.adaptive import (AdaptiveConfig, ServerOptState,
                                        apply_slab_update,
                                        make_server_optimizer,
@@ -70,6 +71,7 @@ from repro_torch.core.slab_state import SlabTrainState
 from repro_torch.core.stream import client_weight_array, streamed_round_parts
 from repro_torch.core.tail_index import effective_alpha, update_alpha_ema
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.spans import span
 
 PyTree = Any
 LossFn = Callable[[PyTree, Any], torch.Tensor]   # (params, batch) -> scalar
@@ -394,8 +396,12 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
         return alpha_hat, alpha_metric, new_opt, w_new
 
     def to_dev(client_batches):
-        return tree_map(lambda x: torch.as_tensor(x, device=dev),
-                        client_batches)
+        def move(x):
+            if dev.type == "cuda" and not (isinstance(x, torch.Tensor)
+                                           and x.device.type == "cuda"):
+                spans.host_syncs += 1    # a blocking copy from the host
+            return torch.as_tensor(x, device=dev)
+        return tree_map(move, client_batches)
 
     if fl_cfg.dynamic_round:
         can_skip = fl_cfg.dynamic_norm
@@ -404,45 +410,51 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
                          client_batches=None):
             check_state(state)
             spec = state.spec
-            draws = draws.to(dev)
-            params = slab_to_tree(spec, broadcast_slab(state, draws))
-            parts = streamed_round_parts(
-                draws, channel_cfg, fl_cfg, spec, client_fn, params,
-                client_batches=(None if client_batches is None
-                                else to_dev(client_batches)),
-                batch_gen=batch_gen, pilot_stats=track,
-                ef=state.ef[0] if use_ef else None, weights=weights)
-            a_new, alpha_metric, new_opt, w_new = server_half(
-                state, params, parts.g_slab, parts.stats)
-            ef_next = parts.ef_new[None] if use_ef else state.ef
-            alpha_hat = a_new
-            if can_skip:
-                # Dead round: nobody transmitted, so the server state
-                # carries over (only the round counter advances). Only a
-                # dynamic normaliser can give one; with the static 1/N
-                # the selects are left out.
-                ok = parts.norm > 0.0
-                w_new = torch.where(ok, w_new, state.w)
-                new_opt = tuple(torch.where(ok, a, b)
-                                for a, b in zip(new_opt, state.opt))
-                if track:
-                    alpha_hat = torch.where(ok, a_new, state.alpha_hat)
-                    alpha_metric = alpha_hat
-                if use_ef:
-                    # the residual of a transmission that never happened
-                    # must not replace the carried one
-                    ef_next = torch.where(ok, ef_next, state.ef)
-            nf = torch.clamp_min(parts.n_participants, 1.0)
-            metrics = RoundMetrics(
-                loss=parts.loss_sum / nf,
-                grad_norm=torch.sqrt(torch.sum(torch.square(
-                    parts.clean_slab / nf))),
-                noisy_grad_norm=torch.sqrt(torch.sum(torch.square(
-                    parts.g_slab))),
-                fading_mean=torch.mean(parts.h),
-                alpha_hat=alpha_metric,
-                n_participants=parts.n_participants,
-            )
+            with span("h2d"):
+                draws = draws.to(dev)
+                batches = (None if client_batches is None
+                           else to_dev(client_batches))
+            with span("broadcast"):
+                params = slab_to_tree(spec, broadcast_slab(state, draws))
+            with span("mac"):    # each chunk's clients in a span of theirs
+                parts = streamed_round_parts(
+                    draws, channel_cfg, fl_cfg, spec, client_fn, params,
+                    client_batches=batches, batch_gen=batch_gen,
+                    pilot_stats=track, ef=state.ef[0] if use_ef else None,
+                    weights=weights)
+            with span("server"):
+                a_new, alpha_metric, new_opt, w_new = server_half(
+                    state, params, parts.g_slab, parts.stats)
+                ef_next = parts.ef_new[None] if use_ef else state.ef
+                alpha_hat = a_new
+                if can_skip:
+                    # Dead round: nobody transmitted, so the server state
+                    # carries over (only the round counter advances).
+                    # Only a dynamic normaliser can give one; with the
+                    # static 1/N the selects are left out.
+                    ok = parts.norm > 0.0
+                    w_new = torch.where(ok, w_new, state.w)
+                    new_opt = tuple(torch.where(ok, a, b)
+                                    for a, b in zip(new_opt, state.opt))
+                    if track:
+                        alpha_hat = torch.where(ok, a_new, state.alpha_hat)
+                        alpha_metric = alpha_hat
+                    if use_ef:
+                        # the residual of a transmission that never
+                        # happened must not replace the carried one
+                        ef_next = torch.where(ok, ef_next, state.ef)
+            with span("metrics"):
+                nf = torch.clamp_min(parts.n_participants, 1.0)
+                metrics = RoundMetrics(
+                    loss=parts.loss_sum / nf,
+                    grad_norm=torch.sqrt(torch.sum(torch.square(
+                        parts.clean_slab / nf))),
+                    noisy_grad_norm=torch.sqrt(torch.sum(torch.square(
+                        parts.g_slab))),
+                    fading_mean=torch.mean(parts.h),
+                    alpha_hat=alpha_metric,
+                    n_participants=parts.n_participants,
+                )
             return SlabTrainState(state.step + 1, w_new, new_opt, alpha_hat,
                                   spec, ef_next), metrics
 
@@ -451,29 +463,36 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
     def step(state: SlabTrainState, draws: RoundDraws, client_batches):
         check_state(state)
         spec = state.spec
-        draws = draws.to(dev)
-        if draws.mask is not None:
-            raise ValueError("draws.mask is set but the round config is "
-                             "resident (FLConfig.sample_rate is 1)")
-        batches = to_dev(client_batches)
+        with span("h2d"):
+            draws = draws.to(dev)
+            if draws.mask is not None:
+                raise ValueError("draws.mask is set but the round config is "
+                                 "resident (FLConfig.sample_rate is 1)")
+            batches = to_dev(client_batches)
         # Model broadcast: the one pytree the round materialises.
-        params = slab_to_tree(spec, broadcast_slab(state, draws))
-        grads, losses = client_fn(params, batches)
+        with span("broadcast"):
+            params = slab_to_tree(spec, broadcast_slab(state, draws))
+        with span("clients"):
+            grads, losses = client_fn(params, batches)
         # The MAC: one channel launch (f32) or transmit + receive
         # (quantized; the carried residual joins the transmit quantizer
         # and the fresh one comes back from the same launch).
-        g_slab, h, grads_slab, stats, ef_new = ota_aggregate_slab(
-            draws, channel_cfg, grads, spec, pilot_stats=track,
-            ef=state.ef[0] if use_ef else None)
+        with span("mac"):
+            g_slab, h, grads_slab, stats, ef_new = ota_aggregate_slab(
+                draws, channel_cfg, grads, spec, pilot_stats=track,
+                ef=state.ef[0] if use_ef else None)
         # The client gradients, in both forms, are the round's largest
         # buffers (4 x 4 GB at a billion parameters): reduce them to the
         # metric and let them go before the server update allocates.
-        clean_slab = torch.mean(grads_slab, dim=0)
+        with span("metrics"):
+            clean_slab = torch.mean(grads_slab, dim=0)
         del grads, grads_slab
-        alpha_hat, alpha_metric, new_opt, w_new = server_half(
-            state, params, g_slab, stats)
-        metrics = _round_metrics(losses, clean_slab, g_slab, h, alpha_metric,
-                                 _fill(n_metric, dev))
+        with span("server"):
+            alpha_hat, alpha_metric, new_opt, w_new = server_half(
+                state, params, g_slab, stats)
+        with span("metrics"):
+            metrics = _round_metrics(losses, clean_slab, g_slab, h,
+                                     alpha_metric, _fill(n_metric, dev))
         return SlabTrainState(state.step + 1, w_new, new_opt, alpha_hat,
                               spec, ef_new[None] if use_ef else state.ef
                               ), metrics
@@ -514,11 +533,14 @@ def make_slab_round_runner(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
                              "client_batches")
         ms: List[RoundMetrics] = []
         for r in range(len(draws)):
-            batch = (None if batch_gen is not None else
-                     tree_map(lambda x: x[r], client_batches))
-            state, m = step(state, draws[r], batch)
+            with span("round"):
+                batch = (None if batch_gen is not None else
+                         tree_map(lambda x: x[r], client_batches))
+                state, m = step(state, draws[r], batch)
             ms.append(m)
-        return state, RoundMetrics(*(torch.stack(f) for f in zip(*ms)))
+        with span("metrics"):
+            stacked = RoundMetrics(*(torch.stack(f) for f in zip(*ms)))
+        return state, stacked
 
     return run
 
@@ -529,6 +551,12 @@ def _log_round(log, t: int, rec: dict) -> None:
         f"|g| {rec['grad_norm']:.3e}  |g_t| {rec['noisy_grad_norm']:.3e}"
         + (f"  acc {rec.get('accuracy', float('nan')):.4f}"
            if 'accuracy' in rec else ""))
+
+
+def _read_back(x: torch.Tensor) -> list:
+    """A metric column on the host: the loop waits for the card."""
+    spans.host_syncs += 1
+    return x.tolist()
 
 
 def _stack(*xs):
@@ -597,14 +625,16 @@ def run_rounds_slab(run_chunk, state: SlabTrainState,
         for period in (eval_every, *align):
             if period:
                 r = min(r, period - t % period)
-        draws = [draws_fn(t + i) for i in range(r)]
-        bs = [batch_fn(t + i) for i in range(r)]
-        batches = (None if all(b is None for b in bs)
-                   else tree_map(_stack, *bs))
+        with span("feed"):
+            draws = [draws_fn(t + i) for i in range(r)]
+            bs = [batch_fn(t + i) for i in range(r)]
+            batches = (None if all(b is None for b in bs)
+                       else tree_map(_stack, *bs))
         state, ms = run_chunk(state, draws, batches)
-        cols = {k: getattr(ms, k).tolist() for k in
-                ("loss", "grad_norm", "noisy_grad_norm", "alpha_hat",
-                 "n_participants")}
+        with span("readback"):
+            cols = {k: _read_back(getattr(ms, k)) for k in
+                    ("loss", "grad_norm", "noisy_grad_norm", "alpha_hat",
+                     "n_participants")}
         for i in range(r):
             history.append({"round": t + i,
                             **{k: float(v[i]) for k, v in cols.items()}})

@@ -47,6 +47,7 @@ from repro_torch.core.draws import RoundDraws, participation_mask
 from repro_torch.core.ota import mac_slab
 from repro_torch.core.slab import SlabSpec, stack_to_slab, tree_map
 from repro_torch.kernels.ota_channel import ota_transmit_slab
+from repro_torch.spans import span
 
 PyTree = Any
 
@@ -180,20 +181,21 @@ def streamed_round_parts(draws: RoundDraws, channel_cfg: OTAChannelConfig,
         """Chunk c's client compute and per-row operands: one slot of
         the double-buffered pipeline."""
         start = c * chunk
-        if batch_gen is not None or ragged:
-            idx = torch.arange(start, start + chunk, device=dev)
-            if ragged:
-                # padding rows re-read row N-1 (with zero gain and mask)
-                idx = torch.clamp_max(idx, n - 1)
-        if batch_gen is not None:
-            batch = batch_gen(draws, idx)
-        elif ragged:
-            batch = tree_map(lambda b: b.index_select(0, idx),
-                             client_batches)
-        else:
-            batch = tree_map(lambda b: b[start:start + chunk],
-                             client_batches)
-        grads, losses = client_fn(params, batch)
+        with span("clients"):
+            if batch_gen is not None or ragged:
+                idx = torch.arange(start, start + chunk, device=dev)
+                if ragged:
+                    # padding rows re-read row N-1 (with zero gain and mask)
+                    idx = torch.clamp_max(idx, n - 1)
+            if batch_gen is not None:
+                batch = batch_gen(draws, idx)
+            elif ragged:
+                batch = tree_map(lambda b: b.index_select(0, idx),
+                                 client_batches)
+            else:
+                batch = tree_map(lambda b: b[start:start + chunk],
+                                 client_batches)
+            grads, losses = client_fn(params, batch)
         g_stack = stack_to_slab(spec, grads)
         return (g_stack, h_sched[start:start + chunk],
                 mask_sched[start:start + chunk], losses)
@@ -215,9 +217,10 @@ def streamed_round_parts(draws: RoundDraws, channel_cfg: OTAChannelConfig,
         # A single chunk: the resident compute feeding the transmit
         # kernel once, with no slicing and no carry (0 + x == x), so the
         # kernel sums the rows in the channel kernel's order.
-        batch = (batch_gen(draws, torch.arange(n, device=dev))
-                 if batch_gen is not None else client_batches)
-        grads, losses = client_fn(params, batch)
+        with span("clients"):
+            batch = (batch_gen(draws, torch.arange(n, device=dev))
+                     if batch_gen is not None else client_batches)
+            grads, losses = client_fn(params, batch)
         g_stack = stack_to_slab(spec, grads)
         acc = ota_transmit_slab(g_stack, h_eff, n_total=n_div)
         clean = torch.sum(mask[:, None] * g_stack, dim=0)
