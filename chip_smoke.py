@@ -13,10 +13,10 @@ Phases, each printing its own line(s) before the last line:
    card; phase 14d's 4 GB slabs fragment the default pool);
 2. build: nvcc builds the kernels from src/repro_torch/csrc, each source
    by its own nvcc, all started together; the update (B1), channel (B2),
-   accumulating transmit (B3b), quantize transmit (B3c) and receive (B4)
-   kernels as compiled: registers, shared memory and spills from the
-   compiler's report (-Xptxas -v), which must show no spill; then the
-   Hopper flash-attention kernel
+   accumulating transmit (B3b), quantize transmit (B3c), receive (B4)
+   and CMS-draw kernels as compiled: registers, shared memory and
+   spills from the compiler's report (-Xptxas -v), which must show no
+   spill; then the Hopper flash-attention kernel
    (its two instances, by padded head width 64 and 128): the same report
    (registers, which must be 168 for setmaxnreg's balance, and no spill),
    its dynamic shared memory, no note of ptxas's that it fenced or
@@ -53,6 +53,13 @@ Phases, each printing its own line(s) before the last line:
    plain version, and the server half of a tracked round (the MAC with
    statistics, the EMA, the update) under the same mode: no read back
    to the host;
+7b. kernel cms_draws_slab, the round's CMS draws, against its plain
+   version (kernels.ref.cms_draws_ref: two torch.rand calls, the
+   transforms, the padding) on two card generators seeded alike, at the
+   main path's slab (175,066 entries padded to 175,104) and at run (b)'s
+   (987,833,344, no padding): u, e and the (0, 1) tail bitwise, the
+   generators' offsets after the draw equal, the next torch.rand of each
+   bitwise, one launch a draw;
 8. reference: small inputs through the round on the card and on the CPU
    (plain versions), same draws: logistic regression and a small
    ResNet-tiny agree within their tiers; then quantized rounds (int8 +
@@ -61,8 +68,9 @@ Phases, each printing its own line(s) before the last line:
    per stage; 175,066 parameters), 50 clients, batch 8 of 32x32x3,
    adam_ota then adagrad_ota, 5 rounds each, through
    make_slab_round_runner + run_rounds_slab with the port's own draws.
-   Every launch counter is set to 0 just before and read just after:
-   each kernel must have launched exactly once per round. Then four
+   Every launch counter (the CMS draws' among them) is set to 0 just
+   before and read just after: each kernel must have launched exactly
+   once per round. Then four
    wire runs of adam_ota, 5 rounds each, the counters set to 0 before
    and read after each: f32 uplink with alpha="auto"; int8 uplink with
    error feedback and the int8 downlink, alpha="auto"; folded sign with
@@ -151,8 +159,9 @@ Phases, each printing its own line(s) before the last line:
    3.95 GB f32 slab), 4 clients x batch 2 x seq 128, 4 rounds on the f32
    wire and 4 on int8 + EF (the first cold, the median of the rest
    quoted) through make_slab_round_runner(model.loss_fn)
-   + run_rounds_slab, the calls the CLI makes: the same launch counts,
-   ms a round, tokens per second and peak memory;
+   + run_rounds_slab, the calls the CLI makes: the same launch counts
+   and one CMS draw a round (runs (b)-(g) alike), ms a round, tokens
+   per second and peak memory;
 14g. (after 14d) the moe, mla, rwkv and hybrid families trained: the
    training CLI at --preset tiny for qwen3-moe-235b-a22b,
    kimi-k2-1t-a32b, minicpm3-4b, rwkv6-7b and hymba-1.5b (its defaults
@@ -353,8 +362,10 @@ Phases, each printing its own line(s) before the last line:
    at 50 x 175,104 in turns with B3b's no-carry call, with pilot
    statistics, and at the streamed finishes 1 x 175,104 and 1 x 4096;
    B3c at 50 x 175,104 in turns with B3b's no-carry call, with in-kernel
-   rounding, and at S3's finish 1 x 175,104; B4 with pilot statistics),
-   beside the least time the card needs for the bytes or the operations
+   rounding, and at S3's finish 1 x 175,104; B4 with pilot statistics;
+   the CMS draws at 175,104 and at run (b)'s 987,833,344: 8 B an entry
+   written), beside the least time the card needs for the bytes or the
+   operations
    and the launch floor (and, where one
    PyTorch call computes the same function, that call: torch.addmv for
    the accumulating transmit, scaled_dot_product_attention for flash
@@ -547,9 +558,10 @@ def _ptxas_report(lib_path):
 def phase_build_report(build, lib_path):
     """The kernels as compiled. B1 (adaptive_update_kernel, 24
     instances), B2 (ota_channel_kernel, 4), B3b
-    (ota_transmit_stream_kernel, 2), B3c (ota_transmit_kernel, 5) and B4
-    (ota_receive_kernel, 6): registers, shared memory and spills from the
-    compiler's report (-Xptxas -v), which must show no spill. The Hopper
+    (ota_transmit_stream_kernel, 2), B3c (ota_transmit_kernel, 5), B4
+    (ota_receive_kernel, 6) and the CMS draws (cms_draws_kernel, 1):
+    registers, shared memory and spills from the compiler's report
+    (-Xptxas -v), which must show no spill. The Hopper
     flash-attention kernels: the same report, their
     dynamic shared memory, and their SASS, which must hold wgmma (HGMMA)
     and TMA loads (UTMALDG); a register count other than HOPPER_REGS
@@ -562,7 +574,7 @@ def phase_build_report(build, lib_path):
     full = _ptxas_report(lib_path)
     for kernel in ("adaptive_update_kernel", "ota_channel_kernel",
                    "ota_transmit_stream_kernel", "ota_transmit_kernel",
-                   "ota_receive_kernel"):
+                   "ota_receive_kernel", "cms_draws_kernel"):
         found = {fn: r for fn, r in full.items() if kernel in fn}
         check(len(found) > 0 and all("regs" in r for r in found.values()),
               f"no compiler report for {kernel}")
@@ -1134,6 +1146,59 @@ def phase_runtime_alpha(torch, dev, total):
           f"steps (MAC + stats, EMA, update) under sync_debug_mode='error' "
           f"with no host sync, alpha_hat={float(alpha_hat):.4f}; ok")
     return worst
+
+
+def _draws_spec(torch, total):
+    """A one-leaf slab spec of ``total`` entries, padded as the round's."""
+    from repro_torch.core.slab import make_slab_spec
+    return make_slab_spec({"x": torch.empty(total, device="meta")})
+
+
+def phase_kernel_draws(torch, dev, total):
+    """The round's CMS draws (cms_draws_slab) against their plain version
+    on two card generators seeded alike, each after the same fading draw,
+    at the main path's slab (``total`` entries) and at run (b)'s: u, e
+    and the tail bitwise, the offsets after the draw equal, the next
+    torch.rand of each bitwise. Returns the largest |difference| (0.0:
+    bitwise) by padded slab, the kernels line's max_abs_err."""
+    from repro_torch.kernels.cms_draws import cms_draws_slab
+    from repro_torch.kernels.ref import cms_draws_ref
+
+    out = {}
+    for d in (total, D_WIDTH):
+        spec = _draws_spec(torch, d)
+        gk, gr = (torch.Generator(device=dev).manual_seed(4_000_000_007 + d)
+                  for _ in range(2))
+        for g in (gk, gr):
+            torch.rand((N_CLIENTS,), generator=g, device=dev)
+        before = cms_draws_slab.launches
+        u, e = cms_draws_slab(spec, gk)
+        check(cms_draws_slab.launches == before + 1,
+              f"cms_draws_slab {d}: {cms_draws_slab.launches - before} "
+              "launches, want 1")
+        ur, er = cms_draws_ref(spec, gr)
+        bad_u, bad_e = int((u != ur).sum()), int((e != er).sum())
+        check(bad_u == 0 and bad_e == 0, f"cms_draws_slab {d}: {bad_u} u and "
+              f"{bad_e} e entries differ from the plain version")
+        pad = spec.padded - spec.total
+        check(bool(torch.all(u[spec.total:] == 0.0))
+              and bool(torch.all(e[spec.total:] == 1.0)),
+              f"cms_draws_slab {d}: the tail is not (0, 1)")
+        off_k, off_r = gk.get_offset(), gr.get_offset()
+        check(off_k == off_r, f"cms_draws_slab {d}: offset {off_k}, the "
+              f"plain version's {off_r}")
+        nxt = torch.equal(torch.rand((1000,), generator=gk, device=dev),
+                          torch.rand((1000,), generator=gr, device=dev))
+        check(nxt, f"cms_draws_slab {d}: the next torch.rand differs")
+        out[spec.padded] = 0.0
+        print(f"[kernel] cms_draws_slab at {d:,} entries (padded "
+              f"{spec.padded:,}, a tail of {pad}) against cms_draws_ref on "
+              f"two generators seeded alike: u, e and the tail bitwise, "
+              f"offsets {off_k} both, the next torch.rand bitwise, 1 "
+              f"launch; ok")
+        del u, e, ur, er
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_reference(torch, np):
@@ -2146,6 +2211,7 @@ LM_LR = 0.002
 LM_PARAMS = 62_928_640        # the 100m preset (8 layers, d_model 768)
 D_LM = 62_928_640             # its slab (a multiple of 128 already)
 LM_TOKENS = 8 * 2 * 128       # the CLI's defaults: clients x batch x seq
+CMS = "cms_draws_slab"      # the round's CMS draws, one launch a round
 TX, RX, UPD, CHAN = ("ota_transmit_slab", "ota_receive_slab",
                      "adaptive_update_slab", "ota_channel_slab")
 # (name, flags, launches a round of each kernel)
@@ -2406,7 +2472,8 @@ def phase_lm_width(torch, dev, counters, run=WIDTH_ARCH):
         torch.cuda.reset_peak_memory_stats(dev)
         stamps = [time.perf_counter()]
         (state, hist), out[name] = _lm_counted(
-            torch, counters, per_round, WIDTH_ROUNDS, f"{tag} {name}",
+            torch, counters, {**per_round, CMS: 1}, WIDTH_ROUNDS,
+            f"{tag} {name}",
             lambda: run_rounds_slab(
                 runner, box.pop(), draws, batch_fn, WIDTH_ROUNDS, chunk=1,
                 chunk_hook=lambda t, st, h: stamps.append(
@@ -3454,11 +3521,10 @@ def _pieces(d: int, cols: int = 1 << 26):
 
 def _lm_draws(torch, gen, d):
     """(u, e) over a (d,) slab as the round's draws make them
-    (``core.draws.cms_slab_inputs``: e floored, never inf)."""
-    from repro_torch.core.draws import cms_slab_inputs
-    from repro_torch.core.slab import make_slab_spec
-    return cms_slab_inputs(make_slab_spec(
-        {"x": torch.empty(d, device="meta")}), gen)
+    (``kernels.cms_draws.cms_draws_slab``, held to its plain version in
+    phase 7b: e floored, never inf)."""
+    from repro_torch.kernels.cms_draws import cms_draws_slab
+    return cms_draws_slab(_draws_spec(torch, d), gen)
 
 
 def phase_kernel_lm(torch, dev):
@@ -4330,16 +4396,19 @@ def _in_turns(torch, flush, fns, turns=2):
     return ms
 
 
-def phase_times(torch, dev):
+def phase_times(torch, dev, total):
     """Times of every kernel at its main-path shapes (see the module
-    docstring, phase 19). Returns the rows by name and the launch floor:
+    docstring, phase 19; ``total``, the main path's slab entries).
+    Returns the rows by name and the launch floor:
     a near-empty launch (torch.cuda._sleep of one cycle) timed the same
     way, the least any kernel's time can read in this harness."""
     from repro_torch.kernels.adaptive_update import adaptive_update_slab
     from repro_torch.kernels.ota_channel import (channel_blocks,
                                                  ota_channel_slab,
                                                  ota_transmit_slab)
-    from repro_torch.kernels.ref import adaptive_update_ref, ota_channel_ref
+    from repro_torch.kernels.cms_draws import cms_draws_slab
+    from repro_torch.kernels.ref import (adaptive_update_ref, cms_draws_ref,
+                                         ota_channel_ref)
 
     flush = torch.empty(64 * 2 ** 20, device=dev)      # 256 MB > 50 MB L2
     gen = torch.Generator(device=dev).manual_seed(2)
@@ -4351,6 +4420,18 @@ def phase_times(torch, dev):
     b3a_rows, b3a_library = _b3a_times(torch, dev, gen, flush)
     rows.update(b3a_rows)
     library.update(b3a_library)
+    # the CMS draws: read nothing and write u and e (f32) over the padded
+    # slab; about 6 f32 operations an entry (the Philox rounds and the
+    # conversion to a uniform are integer work, not counted). At the main
+    # path's slab and at run (b)'s.
+    g_cms = torch.Generator(device=dev).manual_seed(3)
+    for t_c, name in ((total, CMS), (D_WIDTH, f"{CMS} d={D_WIDTH}")):
+        spec_c = _draws_spec(torch, t_c)
+        rows[name] = (
+            _median_ms(torch, lambda: cms_draws_slab(spec_c, g_cms), flush),
+            _median_ms(torch, lambda: cms_draws_ref(spec_c, g_cms), flush),
+            8 * spec_c.padded, 6 * t_c)
+        torch.cuda.empty_cache()
     d, n = D_MAIN, N_CLIENTS
     kw = dict(lr=0.01, beta1=0.9, beta2=0.3, alpha=1.5, eps=1e-8, mode="adam")
     # adam: reads g, delta, nu, w and writes delta, nu, w (f32); about 16
@@ -4665,6 +4746,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
     from repro_torch.kernels.adaptive_update import adaptive_update_slab
+    from repro_torch.kernels.cms_draws import cms_draws_slab
     from repro_torch.kernels.ota_channel import (ota_channel_slab,
                                                  ota_receive_slab,
                                                  ota_transmit_slab)
@@ -4700,6 +4782,7 @@ def main() -> int:
     err_receive = phase_kernel_receive(torch, dev, spec.total)
     err_update[D_MAIN] = max(err_update[D_MAIN],
                              phase_runtime_alpha(torch, dev, spec.total))
+    err_draws = phase_kernel_draws(torch, dev, spec.total)
     err_stream = phase_kernel_stream(torch, dev, spec.total)
     err_b3a = phase_kernel_b3a(torch, dev, spec.total)
     err_flash = phase_kernel_flash(torch, dev)
@@ -4710,7 +4793,7 @@ def main() -> int:
     phase_reference_lm(torch, dev)
     phase_stream_equals_resident(torch, np, dev)
     counters = (adaptive_update_slab, ota_channel_slab)
-    launches = phase_main_path(torch, np, dev, counters)
+    launches = phase_main_path(torch, np, dev, counters + (cms_draws_slab,))
     all_counters = counters + (ota_transmit_slab, ota_receive_slab,
                                Counter(ota_transmit_slab, "stream_launches",
                                        STREAM))
@@ -4723,18 +4806,19 @@ def main() -> int:
     ckpt_launches = phase_checkpoint(torch, np, dev, all_counters)
     from repro_torch.kernels.flash_attention import flash_attention
     lm = phase_lm_train(torch, dev, all_counters + (flash_attention,))
-    wd = phase_lm_width(torch, dev, all_counters + (flash_attention,))
+    wd = phase_lm_width(torch, dev,
+                        all_counters + (flash_attention, cms_draws_slab))
     phase_families_train(torch, all_counters + (flash_attention,))
-    wd_c = phase_lm_width(torch, dev, all_counters + (flash_attention,),
-                          C_ARCH)
-    wd_d = phase_lm_width(torch, dev, all_counters + (flash_attention,),
-                          D_ARCH)
-    wd_e = phase_lm_width(torch, dev, all_counters + (flash_attention,),
-                          E_ARCH)
-    wd_f = phase_lm_width(torch, dev, all_counters + (flash_attention,),
-                          F_ARCH)
-    wd_g = phase_lm_width(torch, dev, all_counters + (flash_attention,),
-                          G_ARCH)
+    wd_c = phase_lm_width(
+        torch, dev, all_counters + (flash_attention, cms_draws_slab), C_ARCH)
+    wd_d = phase_lm_width(
+        torch, dev, all_counters + (flash_attention, cms_draws_slab), D_ARCH)
+    wd_e = phase_lm_width(
+        torch, dev, all_counters + (flash_attention, cms_draws_slab), E_ARCH)
+    wd_f = phase_lm_width(
+        torch, dev, all_counters + (flash_attention, cms_draws_slab), F_ARCH)
+    wd_g = phase_lm_width(
+        torch, dev, all_counters + (flash_attention, cms_draws_slab), G_ARCH)
     phase_remat_trade(torch, dev, all_counters + (flash_attention,))
     phase_levers(torch, dev, flash_attention)
     phase_long_sequence(torch, dev, all_counters + (flash_attention,))
@@ -4836,7 +4920,9 @@ def main() -> int:
                 launches[row] = launches.get(row, 0) + n
     launches[f"{FLASH} scalar f32 qwen3-14b"] = phase_reference_serve(
         torch, dev)
-    times, floor = phase_times(torch, dev)
+    # the CMS draws: the main path's runs (phase 9) and run (b)'s
+    launches[f"{CMS} d={D_WIDTH}"] = sum(r[CMS] for r in wd.values())
+    times, floor = phase_times(torch, dev, spec.total)
 
     b1 = ("adaptive_update.cu", "src/repro/kernels/adaptive_update.py:188")
     b2 = ("ota_channel.cu", "src/repro/kernels/ota_channel.py:222")
@@ -4873,6 +4959,9 @@ def main() -> int:
             (f"{UPD} d={d}", b1), (f"{CHAN} {n}x{d}", b2),
             (f"{TX} {n}x{d}", b3c), (f"{RX} 1x{d}", b4)))
         + ((f"{UPD} d={D_F}", b1), (f"{CHAN} 2x{D_F}", b2)))
+    cms = ("cms_draws.cu", "src/repro/core/ota.py:103")
+    rows += ((CMS, *cms, err_draws[D_MAIN]),
+             (f"{CMS} d={D_WIDTH}", *cms, err_draws[D_WIDTH]))
     rows += tuple((f"{B3A} {n}x{d}", "ota_transmit_stream.cu",
                    "src/repro/kernels/ota_channel.py:419",
                    err_b3a[f"{B3A} {n}x{d}"]) for n, d in B3A_PATH_SHAPES)

@@ -67,11 +67,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.channel import (CMS_E_FLOOR, CMS_U_BOUND,
-                                      OTAChannelConfig, gaussian_from_normal,
+from repro_torch.core.channel import (OTAChannelConfig, gaussian_from_normal,
                                       power_control, rayleigh_from_uniform)
 from repro_torch.core.slab import SlabSpec
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels.cms_draws import cms_draws_slab
 from repro_torch.spans import span
 
 _TINY = torch.finfo(torch.float32).tiny
@@ -130,19 +130,6 @@ def sample_fading(cfg: OTAChannelConfig, n: int,
     if cfg.power_control:
         h = power_control(h, cfg.pc_threshold)
     return h
-
-
-def cms_slab_inputs(spec: SlabSpec, generator: torch.Generator):
-    """(u, e) over the whole slab; padding gets the fixed point (0, 1)."""
-    dev = generator.device
-    pad = spec.padded - spec.total
-    u = torch.rand((spec.total,), generator=generator, device=dev)
-    u = u * (2.0 * CMS_U_BOUND) - CMS_U_BOUND
-    r = torch.rand((spec.total,), generator=generator, device=dev)
-    e = (-torch.log(r.clamp_min_(_TINY))).clamp_min_(CMS_E_FLOOR)
-    u = torch.nn.functional.pad(u, (0, pad))
-    e = torch.nn.functional.pad(e, (0, pad), value=1.0)
-    return u, e
 
 
 def participation_mask(n_clients: int, sample_rate: float,
@@ -219,7 +206,9 @@ class TorchDraws:
         h = sample_fading(self.cfg, self.n_clients, self.generator)
         padded = self.spec.padded
         if self.cfg.interference:
-            u, e = cms_slab_inputs(self.spec, self.generator)
+            # (0, 1) on the padding; one launch on the card, the
+            # plain version (kernels.ref.cms_draws_ref) on the CPU
+            u, e = cms_draws_slab(self.spec, self.generator)
         else:
             u = torch.zeros((padded,), device=self.device)
             e = torch.ones((padded,), device=self.device)

@@ -4,6 +4,8 @@ adaptive_update -- fused Delta/v/w server update (one pass)
 ota_channel     -- fused fading reduction + CMS alpha-stable interference,
                    the quantized wire's transmit / receive pair
 flash_attention -- blocked causal / sliding-window GQA attention
+cms_draws       -- the round's CMS inputs (u, e) in one launch, on the
+                   generator's own Philox stream
 ops             -- the public wrappers (fused_server_update,
                    fused_ota_aggregate, causal_flash_attention)
 

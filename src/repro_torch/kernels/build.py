@@ -13,9 +13,9 @@ as built. Nothing is built at import time:
 Flags: every source gets ``NVCC_FLAGS``, ``-O3`` with precise math (no
 ``--use_fast_math``: the CMS transform, the fractional powers and the
 softmax keep ``sinf``/``cosf``/``powf``/``expf`` at full accuracy), and
-its own flags from ``SOURCE_FLAGS``. The update and OTA kernels add
-``--fmad=false`` (no mul+add contraction), so each computes the same f32
-operations as its plain version. The two flash-attention kernels do
+its own flags from ``SOURCE_FLAGS``. The update, OTA and CMS-draw kernels
+add ``--fmad=false`` (no mul+add contraction), so each computes the same
+f32 operations as its plain version. The two flash-attention kernels do
 not: their tiers against the plain version are tolerances (their sums
 run in another order than the plain ``einsum`` anyway), so they keep
 nvcc's default contraction into fused multiply-adds. The Hopper one
@@ -41,8 +41,8 @@ EXACT = ("--fmad=false",)
 # source -> its flags on top of NVCC_FLAGS
 SOURCE_FLAGS = {"adaptive_update.cu": EXACT, "ota_channel.cu": EXACT,
                 "ota_transmit.cu": EXACT, "ota_transmit_stream.cu": EXACT,
-                "ota_receive.cu": EXACT, "flash_attention.cu": (),
-                "flash_attention_sm90.cu": ()}
+                "ota_receive.cu": EXACT, "cms_draws.cu": EXACT,
+                "flash_attention.cu": (), "flash_attention_sm90.cu": ()}
 SOURCES = tuple(SOURCE_FLAGS)
 HEADERS = ("ota_common.cuh", "ota_ring.cuh")
 ARCH = "arch=compute_90a,code=sm_90a"
@@ -134,6 +134,10 @@ def load_library() -> ctypes.CDLL:
     lib.repro_ota_receive.restype = i
     lib.repro_ota_receive_blocks_per_sm.argtypes = [i, i]
     lib.repro_ota_receive_blocks_per_sm.restype = i
+    lib.repro_cms_draws.argtypes = ([i] + [vp] * 5
+                                    + [ctypes.c_ulonglong, f, f, f, vp, vp,
+                                       ll, ll, vp])
+    lib.repro_cms_draws.restype = i
     lib.repro_flash_attention.argtypes = [i] + [vp] * 4 + [i] * 8 + [f, vp]
     lib.repro_flash_attention.restype = i
     lib.repro_flash_attention_sm90.argtypes = [vp] * 4 + [i] * 8 + [f, vp]

@@ -2,7 +2,9 @@
 
 Counterparts of ``repro.kernels.ref`` (``adaptive_update_ref``,
 ``ota_channel_ref``, ``ota_transmit_ref``, ``ota_receive_ref``,
-``flash_attention_ref``) and of
+``flash_attention_ref``), the round's CMS draws (``cms_draws_ref``,
+the JAX package's ``repro.core.ota._cms_slab_inputs`` on a
+``torch.Generator``) and of
 the sign-wire packing of ``repro.kernels.ota_channel`` (``sign_words``,
 ``pack_sign_slab``, ``unpack_sign_slab``). ``log_moment_stats`` lives in
 ``core.tail_index`` and is re-exported here. They are the CPU path of
@@ -27,6 +29,7 @@ from repro_torch.core.tail_index import log_moment_stats
 
 LANE = 128       # per-block scale width of the quantized wire
 INT8_MAX = 127.0
+_TINY = torch.finfo(torch.float32).tiny
 
 
 def adaptive_update_ref(g: torch.Tensor, delta, nu, w: torch.Tensor, *,
@@ -279,6 +282,23 @@ def ota_receive_ref(payload: torch.Tensor, scales: torch.Tensor,
     if pilot_stats:
         return out, log_moment_stats(scale * xi)
     return out
+
+
+def cms_draws_ref(spec, generator: torch.Generator
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(u, e) over the whole (padded,) slab of ``spec``, drawn from
+    ``generator``: u = 2B r1 - B (B = CMS_U_BOUND) and e = Exp(1) =
+    -log(r2) floored at CMS_E_FLOOR, r1 and r2 two ``torch.rand((total,))``
+    calls in that order; the padding gets the fixed point (0, 1)."""
+    dev = generator.device
+    pad = spec.padded - spec.total
+    u = torch.rand((spec.total,), generator=generator, device=dev)
+    u = u * (2.0 * CMS_U_BOUND) - CMS_U_BOUND
+    r = torch.rand((spec.total,), generator=generator, device=dev)
+    e = (-torch.log(r.clamp_min_(_TINY))).clamp_min_(CMS_E_FLOOR)
+    u = torch.nn.functional.pad(u, (0, pad))
+    e = torch.nn.functional.pad(e, (0, pad), value=1.0)
+    return u, e
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
