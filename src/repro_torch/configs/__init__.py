@@ -5,7 +5,9 @@ PyTorch counterpart of ``repro.configs``, with the same modules as data.
 the reduced same-family variant (2 layers, d_model 128, <= 4 experts)
 that the CPU tests run; ``preset_config`` the serve / train CLI presets
 (the JAX package keeps it in ``repro.launch.train``). The port builds
-every arch's family (``models.model.build_model``).
+every arch's family (``models.model.build_model``). ``ARCHS`` mirrors
+the JAX package's list; ``PORT_ARCHS`` are the port's own (a family the
+JAX package lacks), which the lookups and the training CLI take too.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ ARCHS: List[str] = [
     "hymba-1.5b",
     "qwen3-moe-235b-a22b",
 ]
+PORT_ARCHS: List[str] = ["deepseek-v2-lite"]
 
 _MODULES: Dict[str, str] = {
     "starcoder2-15b": "starcoder2_15b",
@@ -40,12 +43,14 @@ _MODULES: Dict[str, str] = {
     "llama-3.2-vision-11b": "llama32_vision_11b",
     "hymba-1.5b": "hymba_1_5b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "deepseek-v2-lite": "deepseek_v2_lite",
 }
 
 
 def get_config(arch: str) -> ModelConfig:
     if arch not in _MODULES:
-        raise KeyError(f"unknown arch {arch!r}; options: {ARCHS}")
+        raise KeyError(f"unknown arch {arch!r}; options: "
+                       f"{ARCHS + PORT_ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.CONFIG
 
@@ -72,11 +77,13 @@ def smoke_config(arch: str) -> ModelConfig:
         updates["n_heads"] = 4          # head_dim = 32
         updates["rwkv_lora_rank"] = 16
         updates["rwkv_chunk"] = 16
-    if cfg.family == "mla":
-        updates.update(q_lora_rank=48, kv_lora_rank=32, qk_nope_head_dim=16,
-                       qk_rope_head_dim=8, v_head_dim=16)
+    if cfg.family in ("mla", "mla_moe"):
+        updates.update(q_lora_rank=cfg.q_lora_rank and 48, kv_lora_rank=32,
+                       qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16)
     if cfg.n_experts:
         updates.update(n_experts=4, top_k=2)
+    if cfg.expert_d_ff:
+        updates["expert_d_ff"] = 64
     if cfg.family == "vlm":
         updates["n_layers"] = cfg.cross_attn_period * 2   # 2 groups
     if cfg.n_meta_tokens:

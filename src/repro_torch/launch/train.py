@@ -66,7 +66,8 @@ import torch
 import torch.distributed as dist
 
 import repro_torch.checkpoint as ckpt
-from repro_torch.configs import ARCHS, get_config, preset_config
+from repro_torch.configs import (ARCHS, PORT_ARCHS, get_config,
+                                 preset_config)
 from repro_torch.core.adaptive import AdaptiveConfig
 from repro_torch.core.channel import OTAChannelConfig, UplinkConfig
 from repro_torch.core.draws import TorchDraws
@@ -91,7 +92,7 @@ def build_parser() -> argparse.ArgumentParser:
     to ``pallas`` and ``--device`` added (``--sign-pack``'s help drops
     the JAX text's note of when its int8 container came in)."""
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=ARCHS, default="qwen3-14b")
+    ap.add_argument("--arch", choices=ARCHS + PORT_ARCHS, default="qwen3-14b")
     ap.add_argument("--preset", choices=["tiny", "100m", "full"],
                     default="tiny")
     ap.add_argument("--rounds", type=int, default=100)

@@ -189,10 +189,13 @@ def rope_frequencies(head_dim: int, theta: float = 10000.0,
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float = 10000.0) -> torch.Tensor:
-    """Rotate pairs. x: (B, S, H, D), positions: (B, S) or (S,)."""
+               theta: float = 10000.0,
+               freqs: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Rotate pairs. x: (B, S, H, D), positions: (B, S) or (S,);
+    ``freqs`` (D/2,) in place of the plain frequencies of ``theta``."""
     d = x.shape[-1]
-    freqs = rope_frequencies(d, theta, device=x.device)   # (D/2,)
+    if freqs is None:
+        freqs = rope_frequencies(d, theta, device=x.device)   # (D/2,)
     if positions.dim() == 1:
         positions = positions[None, :]
     angles = positions[..., None].float() * freqs          # (B,S,D/2)

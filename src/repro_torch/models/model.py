@@ -2,10 +2,15 @@
 
 PyTorch counterpart of ``repro.models.model``. ``ModelConfig`` mirrors
 the JAX package's field for field, with ``n_params`` and
-``n_active_params``. ``build_model(cfg)`` returns a ``Model`` for all
-seven families: dense (Qwen3, Qwen2.5, StarCoder2), moe (Qwen3-MoE,
-Kimi-K2), mla (MiniCPM3), rwkv (RWKV-6), hybrid (Hymba), vlm
-(Llama-3.2-Vision) and encdec (Whisper):
+``n_active_params``, and adds the fields ``PORT_ONLY_FIELDS`` names,
+whose defaults leave every JAX family as it is. ``build_model(cfg)``
+returns a ``Model`` for the JAX package's seven families: dense (Qwen3,
+Qwen2.5, StarCoder2), moe (Qwen3-MoE, Kimi-K2), mla (MiniCPM3), rwkv
+(RWKV-6), hybrid (Hymba), vlm (Llama-3.2-Vision) and encdec (Whisper);
+and for the port's mla_moe (DeepSeek-V2-Lite: ``n_dense_layers`` leading
+mla layers stacked as ``dense_blocks``, then the MLA + MoE layers as
+``blocks``, each layer holding the expert share ``experts_held`` from
+``first_expert``):
 
     init(seed=0, device=None)          -- random parameters on the device
     forward(params, batch)             -- full-sequence logits
@@ -48,6 +53,7 @@ values from the cached embeddings every step, as the JAX package does.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -67,7 +73,7 @@ from repro_torch.models.ssm import SSMConfig
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch: str
-    family: str                     # dense | mla | moe | rwkv | hybrid | encdec | vlm
+    family: str                     # dense | mla | moe | rwkv | hybrid | encdec | vlm | mla_moe
     n_layers: int
     d_model: int
     n_heads: int
@@ -93,7 +99,7 @@ class ModelConfig:
     scan_unroll: bool = False       # unroll layer scans (cost calibration)
     param_dtype: str = "bfloat16"
     # MLA
-    q_lora_rank: int = 768
+    q_lora_rank: Optional[int] = 768   # None: the direct query projection
     kv_lora_rank: int = 256
     qk_nope_head_dim: int = 64
     qk_rope_head_dim: int = 32
@@ -118,6 +124,20 @@ class ModelConfig:
     n_img_tokens: int = 1601        # vlm patch embeddings (stub input)
     n_meta_tokens: int = 0          # hymba learnable meta tokens
     notes: str = ""
+    # The port's own (PORT_ONLY_FIELDS): DeepSeek-V2's MoE and YaRN.
+    expert_d_ff: int = 0            # expert width; 0 -> d_ff
+    n_dense_layers: int = 0         # leading dense layers (first_k_dense_replace)
+    experts_held: int = 0           # the expert-parallel share; 0 -> all
+    first_expert: int = 0           # the share's first expert id
+    normalize_topk: bool = True     # renormalise the top-k gates
+    aux_loss_weight: float = 0.01   # the load-balance loss's weight
+    seq_aux: bool = False           # DeepSeek-V2's sequence-wise balance loss
+    yarn_factor: float = 0.0        # YaRN rope scaling; 0 -> plain rotary
+    yarn_original_len: int = 0
+    yarn_beta_fast: float = 32.0
+    yarn_beta_slow: float = 1.0
+    yarn_mscale: float = 1.0
+    yarn_mscale_all_dim: float = 0.0
 
     @property
     def dtype(self) -> torch.dtype:
@@ -141,13 +161,25 @@ class ModelConfig:
             q_lora_rank=self.q_lora_rank, kv_lora_rank=self.kv_lora_rank,
             qk_nope_head_dim=self.qk_nope_head_dim,
             qk_rope_head_dim=self.qk_rope_head_dim,
-            v_head_dim=self.v_head_dim, rope_theta=self.rope_theta)
+            v_head_dim=self.v_head_dim, rope_theta=self.rope_theta,
+            yarn=(None if not self.yarn_factor else
+                  (self.yarn_factor, self.yarn_original_len,
+                   self.yarn_beta_fast, self.yarn_beta_slow,
+                   self.yarn_mscale, self.yarn_mscale_all_dim)))
 
     def moe_config(self) -> MoEConfig:
+        # mla_moe stores its router in the parameters' dtype, as
+        # DeepSeek-V2's checkpoint does (the logits are f32 either way)
         return MoEConfig(
             d_model=self.d_model, n_experts=self.n_experts, top_k=self.top_k,
-            d_ff=self.d_ff, n_shared_experts=self.n_shared_experts,
-            capacity_factor=self.capacity_factor)
+            d_ff=self.expert_d_ff or self.d_ff,
+            n_shared_experts=self.n_shared_experts,
+            capacity_factor=self.capacity_factor,
+            normalize_topk=self.normalize_topk,
+            aux_loss_weight=self.aux_loss_weight, seq_aux=self.seq_aux,
+            n_held=self.experts_held, first_expert=self.first_expert,
+            router_dtype=(self.dtype if self.family == "mla_moe"
+                          else torch.float32))
 
     def ssm_config(self) -> SSMConfig:
         return SSMConfig(d_model=self.d_model,
@@ -171,14 +203,29 @@ class ModelConfig:
             return sum(t.numel() for t in tree_flatten(params)[0])
 
     def n_active_params(self) -> int:
-        """Active params per token (MoE: top_k + shared of n_experts)."""
+        """Active params per token (MoE: top_k + shared of n_experts; of
+        an expert share, the held experts' expected part of the top_k,
+        top_k * held / n_experts)."""
         if not self.n_experts:
             return self.n_params()
         total = self.n_params()
-        expert_block = 3 * self.d_model * self.d_ff   # gate/up/down per expert
-        moe_total = self.n_layers * self.n_experts * expert_block
-        moe_active = self.n_layers * self.top_k * expert_block
+        # gate/up/down per expert
+        expert_block = 3 * self.d_model * (self.expert_d_ff or self.d_ff)
+        held = self.experts_held or self.n_experts
+        n_moe = self.n_layers - self.n_dense_layers
+        moe_total = n_moe * held * expert_block
+        moe_active = n_moe * self.top_k * held * expert_block \
+            // self.n_experts
         return total - moe_total + moe_active
+
+
+# The fields the port's ModelConfig adds to the JAX package's, each at a
+# default that leaves the JAX families as they are.
+PORT_ONLY_FIELDS = ("expert_d_ff", "n_dense_layers", "experts_held",
+                    "first_expert", "normalize_topk", "aux_loss_weight",
+                    "seq_aux", "yarn_factor", "yarn_original_len",
+                    "yarn_beta_fast", "yarn_beta_slow", "yarn_mscale",
+                    "yarn_mscale_all_dim")
 
 
 class Model(NamedTuple):
@@ -193,13 +240,28 @@ class Model(NamedTuple):
 
 _BLOCKS = {"dense": tfm.dense_block, "mla": tfm.mla_block,
            "moe": tfm.moe_block, "rwkv": tfm.rwkv_block,
-           "hybrid": tfm.hybrid_block, "vlm": tfm.vlm_group}
+           "hybrid": tfm.hybrid_block, "vlm": tfm.vlm_group,
+           "mla_moe": functools.partial(tfm.mla_block, moe=True)}
+# the blocks of a family's leading dense layers (``n_dense_layers``)
+_DENSE_BLOCKS = {"mla_moe": tfm.mla_block}
 
 
-def _block_fns(cfg: ModelConfig) -> tuple:
-    if cfg.family in _BLOCKS:
-        return _BLOCKS[cfg.family](cfg)
-    raise ValueError(f"unknown family {cfg.family}")
+def _stacks(cfg: ModelConfig) -> list:
+    """The layer stacks in the order they run: (parameters' key, cache's
+    key, the block's functions, depth). One stack ``blocks`` unless the
+    family leads with ``n_dense_layers`` dense layers (``dense_blocks``)."""
+    if cfg.family not in _BLOCKS:
+        raise ValueError(f"unknown family {cfg.family}")
+    n = (cfg.n_layers // cfg.cross_attn_period if cfg.family == "vlm"
+         else cfg.n_layers - cfg.n_dense_layers)
+    main = ("blocks", "layers", _BLOCKS[cfg.family](cfg), n)
+    if not cfg.n_dense_layers:
+        return [main]
+    if cfg.family not in _DENSE_BLOCKS:
+        raise ValueError(f"the {cfg.family} family has no leading dense "
+                         f"layers (n_dense_layers={cfg.n_dense_layers})")
+    return [("dense_blocks", "dense_layers",
+             _DENSE_BLOCKS[cfg.family](cfg), cfg.n_dense_layers), main]
 
 
 def _needs(batch: dict, key: str, cfg: ModelConfig) -> torch.Tensor:
@@ -213,19 +275,17 @@ def _needs(batch: dict, key: str, cfg: ModelConfig) -> torch.Tensor:
 def build_model(cfg: ModelConfig) -> Model:
     if cfg.family == "encdec":
         return _build_encdec(cfg)
-    b_init, b_fwd, b_decode, b_cache, b_pfl = _block_fns(cfg)
+    stacks = _stacks(cfg)
     vlm = cfg.family == "vlm"
-    n_stack = cfg.n_layers // cfg.cross_attn_period if vlm else cfg.n_layers
 
     def init(seed: int = 0, device: DeviceLike = None):
         dev = resolve_device(device)
         gen = torch.Generator(device=dev).manual_seed(seed)
-        p = {
-            "embed": embed_init(gen, cfg.vocab, cfg.d_model, cfg.dtype),
-            "blocks": tfm.stack_init(b_init, gen, n_stack),
-            "final_norm": tfm._norm_init(cfg.norm, cfg.d_model, dev),
-            "unembed": dense_init(gen, cfg.d_model, (cfg.vocab,), cfg.dtype),
-        }
+        p = {"embed": embed_init(gen, cfg.vocab, cfg.d_model, cfg.dtype)}
+        for key, _, fns, n in stacks:
+            p[key] = tfm.stack_init(fns[0], gen, n)
+        p["final_norm"] = tfm._norm_init(cfg.norm, cfg.d_model, dev)
+        p["unembed"] = dense_init(gen, cfg.d_model, (cfg.vocab,), cfg.dtype)
         if cfg.n_meta_tokens:
             p["meta_tokens"] = normal(gen, (cfg.n_meta_tokens, cfg.d_model),
                                       0.02, cfg.dtype)
@@ -248,10 +308,10 @@ def build_model(cfg: ModelConfig) -> Model:
         forward (attention on the plain path, ``cfg.remat`` honoured)."""
         x = _embed(params, batch["tokens"])
         extras = (_image(batch), positions) if vlm else (positions,)
-        x, aux = tfm.stack_apply(b_fwd, params["blocks"], x,
-                                 torch.zeros((), dtype=torch.float32,
-                                             device=x.device), extras,
-                                 remat=cfg.remat and positions is not None)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for key, _, fns, _ in stacks:
+            x, aux = tfm.stack_apply(fns[1], params[key], x, aux, extras,
+                                     remat=cfg.remat and positions is not None)
         x = tfm._norm(cfg.norm, params["final_norm"], x)
         return dense(params["unembed"], x[:, cfg.n_meta_tokens:]), aux
 
@@ -275,9 +335,10 @@ def build_model(cfg: ModelConfig) -> Model:
 
     def init_cache(batch_size: int, length: int, device: DeviceLike = None):
         dev = resolve_device(device)
-        one = b_cache(batch_size, length, dev)
-        cache = {"layers": tree_map(lambda a: torch.stack([a] * n_stack),
-                                    one)}
+        cache = {}
+        for _, ckey, fns, n in stacks:
+            one = fns[3](batch_size, length, dev)
+            cache[ckey] = tree_map(lambda a: torch.stack([a] * n), one)
         if vlm:
             cache["image_embed"] = torch.zeros(
                 (batch_size, cfg.n_img_tokens, cfg.d_model), dtype=cfg.dtype,
@@ -292,12 +353,14 @@ def build_model(cfg: ModelConfig) -> Model:
         length = length or tokens.shape[1]
         x = _embed(params, tokens)
         img = _image(batch)
-        pfl = ((lambda lp, xx: b_pfl(lp, xx, length, img)) if vlm else
-               (lambda lp, xx: b_pfl(lp, xx, length)))
-        x, layers = tfm.stack_prefill(pfl, params["blocks"], x)
+        cache = {}
+        for key, ckey, fns, _ in stacks:
+            b_pfl = fns[4]
+            pfl = ((lambda lp, xx: b_pfl(lp, xx, length, img)) if vlm else
+                   (lambda lp, xx: b_pfl(lp, xx, length)))
+            x, cache[ckey] = tfm.stack_prefill(pfl, params[key], x)
         x = tfm._norm(cfg.norm, params["final_norm"],
                       x[:, cfg.n_meta_tokens:])
-        cache = {"layers": layers}
         if vlm:
             cache["image_embed"] = img
         return dense(params["unembed"], x[:, -1:]), cache
@@ -309,12 +372,14 @@ def build_model(cfg: ModelConfig) -> Model:
         pos = pos + cfg.n_meta_tokens
         x = embed(params["embed"], token, cfg.dtype)
         img = cache.get("image_embed")
-        dec = ((lambda lp, ch, xx: b_decode(lp, ch, xx, pos, img)) if vlm
-               else (lambda lp, ch, xx: b_decode(lp, ch, xx, pos)))
-        x, layers = tfm.stack_decode(dec, params["blocks"], cache["layers"],
-                                     x)
+        out = dict(cache)
+        for key, ckey, fns, _ in stacks:
+            b_decode = fns[2]
+            dec = ((lambda lp, ch, xx: b_decode(lp, ch, xx, pos, img)) if vlm
+                   else (lambda lp, ch, xx: b_decode(lp, ch, xx, pos)))
+            x, out[ckey] = tfm.stack_decode(dec, params[key], cache[ckey], x)
         x = tfm._norm(cfg.norm, params["final_norm"], x)
-        return dense(params["unembed"], x), {**cache, "layers": layers}
+        return dense(params["unembed"], x), out
 
     return Model(cfg, init, forward, loss_fn, prefill, decode_step,
                  init_cache)

@@ -1,7 +1,8 @@
 """Mixture-of-Experts layer: top-k routing, capacity-bounded sort-based
-dispatch through an (E, C, d) buffer, batched expert SwiGLU,
-Switch-style load-balance auxiliary loss, optional always-on shared
-expert (Kimi-K2 style).
+dispatch through an (E, C, d) buffer, batched expert SwiGLU, a
+load-balance auxiliary loss (Switch-style, or DeepSeek-V2's
+sequence-wise one), optional always-on shared experts (Kimi-K2's one,
+DeepSeek-V2's two, computed as one MLP of their summed width).
 
 PyTorch counterpart of ``repro.models.moe`` for one device. It keeps
 the JAX package's semantics exactly, its drops included:
@@ -24,6 +25,19 @@ runs it. JAX's shard_map expert-parallel path (``set_moe_sharding`` /
 ``_moe_apply_sharded``) is not ported: ``ModelConfig.moe_config()``
 leaves out ``moe_sharded``, so the port computes the plain path, as JAX
 does when no mesh is set.
+
+An expert-parallel share (``n_held`` < ``n_experts``, which the JAX
+package does not have): the layer holds experts ``[first_expert,
+first_expert + n_held)`` and routes over all ``n_experts``, with the
+capacity of the whole layer; it computes the slots that land on its
+experts through an (n_held, C, d) buffer, and a slot routed elsewhere
+adds exactly zero, as a dropped one does. What the other shares' experts
+would add is left out; the shared experts and the balance loss are
+computed by every share alike. The router's logits, softmax and top-k,
+the ranks and the keep mask, and the balance loss run in the span
+``moe.route``; dispatch, the held experts' products and the combine in
+``moe.experts``; the shared experts in ``moe.shared``
+(``repro_torch.spans``).
 """
 
 from __future__ import annotations
@@ -37,6 +51,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import (dense_init, swiglu, swiglu_init,
                                        truncated_normal)
+from repro_torch.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,13 +64,21 @@ class MoEConfig:
     capacity_factor: float = 1.25
     normalize_topk: bool = True    # renormalise the k gates to sum to 1
     aux_loss_weight: float = 0.01
+    seq_aux: bool = False          # DeepSeek-V2's sequence-wise balance loss
+    n_held: int = 0                # experts held here; 0: all
+    first_expert: int = 0          # the first held expert's id
+    router_dtype: torch.dtype = torch.float32
+
+    @property
+    def held(self) -> int:
+        return self.n_held or self.n_experts
 
 
 def moe_init(gen: torch.Generator, cfg: MoEConfig,
              dtype=torch.bfloat16) -> dict:
-    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    e, d, f = cfg.held, cfg.d_model, cfg.d_ff
     p = {
-        "router": dense_init(gen, d, (e,), torch.float32),
+        "router": dense_init(gen, d, (cfg.n_experts,), cfg.router_dtype),
         "gate": truncated_normal(gen, (e, d, f), 1.0 / math.sqrt(d), dtype),
         "up": truncated_normal(gen, (e, d, f), 1.0 / math.sqrt(d), dtype),
         "down": truncated_normal(gen, (e, f, d), 1.0 / math.sqrt(f), dtype),
@@ -111,7 +134,8 @@ def _under_transform(t: torch.Tensor) -> bool:
 def _route(p: dict, cfg: MoEConfig, xt: torch.Tensor
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """f32 router logits, softmax and top-k: (probs (T, E), gates (T, k),
-    expert ids (T, k)), the gates renormalised to sum to 1."""
+    expert ids (T, k)), the gates renormalised to sum to 1 under
+    ``normalize_topk``."""
     logits = xt.float() @ p["router"]["kernel"].float()
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_idx = torch.topk(probs, cfg.top_k, dim=-1)
@@ -135,44 +159,74 @@ def _slots(cfg: MoEConfig, expert_idx: torch.Tensor) -> tuple:
             torch.clamp_max(pos, capacity - 1), capacity)
 
 
+def _balance_loss(cfg: MoEConfig, probs: torch.Tensor,
+                  expert_idx: torch.Tensor, e_flat: torch.Tensor,
+                  keep: torch.Tensor, b: int) -> torch.Tensor:
+    """The load-balance loss. Switch-style: E * sum_e f_e * P_e, f_e the
+    kept slots' share. Sequence-wise (DeepSeek-V2's ``seq_aux``): per
+    sequence, each expert's top-k selections before any drop over their
+    even share S k / E, times its mean probability, summed over the
+    experts, then the mean over the sequences."""
+    e = cfg.n_experts
+    t, k = expert_idx.shape
+    if cfg.seq_aux:
+        s = t // b
+        ids = expert_idx.reshape(b, s * k)
+        ce = torch.zeros((b, e), dtype=torch.float32, device=probs.device
+                         ).scatter_add(1, ids, torch.ones_like(
+                             ids, dtype=torch.float32)) / (s * k / e)
+        p_seq = torch.mean(probs.reshape(b, s, e), dim=1)
+        return cfg.aux_loss_weight * torch.mean(torch.sum(ce * p_seq, dim=1))
+    f_e = torch.zeros(e, dtype=torch.float32, device=probs.device).index_add(
+        0, e_flat, keep.float()) / max(t * k, 1)
+    p_e = torch.mean(probs, dim=0)
+    return cfg.aux_loss_weight * e * torch.sum(f_e * p_e)
+
+
 def moe_apply(p: dict, cfg: MoEConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (out (B, S, d), aux_loss scalar f32)."""
     b, s, d = x.shape
-    t, k, e = b * s, cfg.top_k, cfg.n_experts
+    t, k = b * s, cfg.top_k
     xt = x.reshape(t, d)
-    probs, gate_vals, expert_idx = _route(p, cfg, xt)
+    with span("moe.route"):
+        probs, gate_vals, expert_idx = _route(p, cfg, xt)
+        e_flat, tok_flat, keep, pos_c, capacity = _slots(cfg, expert_idx)
+        aux = _balance_loss(cfg, probs, expert_idx, e_flat, keep, b)
+        e_buf = e_flat
+        if cfg.held < cfg.n_experts:
+            # the share: a slot routed to another share's expert adds
+            # zero, to a slot of a held expert
+            local = e_flat - cfg.first_expert
+            keep = keep & (local >= 0) & (local < cfg.held)
+            e_buf = torch.clamp(local, 0, cfg.held - 1)
 
-    e_flat, tok_flat, keep, pos_c, capacity = _slots(cfg, expert_idx)
+    with span("moe.experts"):
+        # Dispatch: (held, C, d) buffer; a dropped slot adds zero (to a
+        # slot of its expert's last row), so every add is exact.
+        vals = xt[tok_flat] * keep[:, None].to(x.dtype)
+        buf = torch.zeros((cfg.held, capacity, d), dtype=x.dtype,
+                          device=x.device
+                          ).index_put((e_buf, pos_c), vals, accumulate=True)
 
-    # Dispatch: (E, C, d) buffer; a dropped slot adds zero (to a slot of
-    # its expert's last row), so every add is exact.
-    vals = xt[tok_flat] * keep[:, None].to(x.dtype)
-    buf = torch.zeros((e, capacity, d), dtype=x.dtype, device=x.device
-                      ).index_put((e_flat, pos_c), vals, accumulate=True)
+        # Expert SwiGLU, batched over the held experts, f32 results.
+        g = F.silu(_expert_product(buf, p["gate"]))
+        u = _expert_product(buf, p["up"])
+        h = (g * u).to(x.dtype)
+        out_buf = _expert_product(h, p["down"])          # (held, C, d) f32
 
-    # Expert SwiGLU, batched over E, f32 results.
-    g = F.silu(_expert_product(buf, p["gate"]))
-    u = _expert_product(buf, p["up"])
-    h = (g * u).to(x.dtype)
-    out_buf = _expert_product(h, p["down"])                  # (E, C, d) f32
-
-    # Combine: each slot's result, gated, summed over k in f32 in k order.
-    slot_out = (out_buf[e_flat, pos_c] * keep[:, None]
-                * gate_vals.reshape(t * k, 1)).reshape(t, k, d)
-    y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
-    for j in range(k):
-        y = y + slot_out[:, j]
-    y = y.to(x.dtype).reshape(b, s, d)
+        # Combine: each slot's result, gated, summed over k in f32 in k
+        # order.
+        slot_out = (out_buf[e_buf, pos_c] * keep[:, None]
+                    * gate_vals.reshape(t * k, 1)).reshape(t, k, d)
+        y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
+        for j in range(k):
+            y = y + slot_out[:, j]
+        y = y.to(x.dtype).reshape(b, s, d)
 
     if cfg.n_shared_experts:
-        y = y + swiglu(p["shared"], x)
-
-    # Switch-style load-balance loss: E * sum_e f_e * P_e.
-    f_e = torch.zeros(e, dtype=torch.float32, device=x.device).index_add(
-        0, e_flat, keep.float()) / max(t * k, 1)
-    p_e = torch.mean(probs, dim=0)
-    aux = cfg.aux_loss_weight * e * torch.sum(f_e * p_e)
+        with span("moe.shared"):
+            y = y + swiglu(p["shared"], x)
     return y, aux
 
 

@@ -5,6 +5,9 @@ families:
 
   dense  -- pre-norm GQA attention + (SwiGLU | GeLU) MLP
   mla    -- pre-norm MLA attention + SwiGLU MLP (MiniCPM3; ``models.mla``)
+  mla_moe -- DeepSeek-V2: leading mla layers (``n_dense_layers``), then
+            pre-norm MLA attention + the MoE FFN with shared experts,
+            holding one expert-parallel share (the port only)
   moe    -- pre-norm GQA attention + top-k MoE FFN (+ shared expert;
             ``models.moe``)
   rwkv   -- RWKV-6 time mix + channel mix (``models.rwkv``)
@@ -290,33 +293,46 @@ def dense_block(cfg) -> tuple:
     return init, fwd, decode, init_cache, pfl
 
 
-def mla_block(cfg) -> tuple:
+def mla_block(cfg, moe: bool = False) -> tuple:
+    """Pre-norm MLA + SwiGLU MLP (MiniCPM3; DeepSeek-V2's leading dense
+    layers), or with ``moe`` pre-norm MLA + the MoE layer (DeepSeek-V2's
+    other layers: its expert share and shared experts, ``mla_moe``)."""
     mcfg = cfg.mla_config()
+    ecfg = cfg.moe_config() if moe else None
     norm, mlpk = cfg.norm, cfg.mlp
 
     def init(gen):
+        ffn = ({"moe": moe_mod.moe_init(gen, ecfg, cfg.dtype)} if moe else
+               {"mlp": _mlp_init(mlpk, gen, cfg.d_model, cfg.d_ff,
+                                 cfg.dtype)})
         return {
             "ln1": _norm_init(norm, cfg.d_model, gen.device),
             "attn": mla_mod.mla_init(gen, mcfg, cfg.dtype),
             "ln2": _norm_init(norm, cfg.d_model, gen.device),
-            "mlp": _mlp_init(mlpk, gen, cfg.d_model, cfg.d_ff, cfg.dtype),
+            **ffn,
         }
+
+    def _ffn(p, x):
+        """x plus the MLP or the MoE of its norm, and the aux loss."""
+        h = _norm(norm, p["ln2"], x)
+        if moe:
+            y, aux = moe_mod.moe_apply(p["moe"], ecfg, h)
+            return x + y, aux
+        return (x + _mlp(mlpk, p["mlp"], h),
+                torch.zeros((), dtype=torch.float32, device=x.device))
 
     def fwd(p, x, positions=None):
         # MLA is plain torch on every path (no flash kernel)
         pos = _positions(x) if positions is None else positions
         x = x + mla_mod.mla_self_attention(p["attn"], mcfg,
                                            _norm(norm, p["ln1"], x), pos)
-        x = x + _mlp(mlpk, p["mlp"], _norm(norm, p["ln2"], x))
-        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+        return _ffn(p, x)
 
     def decode(p, cache, x, pos):
         y, kv = mla_mod.mla_decode_step(p["attn"], mcfg,
                                         _norm(norm, p["ln1"], x),
                                         cache["kv"], pos)
-        x = x + y
-        x = x + _mlp(mlpk, p["mlp"], _norm(norm, p["ln2"], x))
-        return x, {**cache, "kv": kv}
+        return _ffn(p, x + y)[0], {**cache, "kv": kv}
 
     def init_cache(batch, length, device=None):
         return {"kv": mla_mod.init_mla_cache(batch, length, mcfg, cfg.dtype,
@@ -326,9 +342,7 @@ def mla_block(cfg) -> tuple:
         y, kv = mla_mod.mla_prefill(p["attn"], mcfg,
                                     _norm(norm, p["ln1"], x), _positions(x),
                                     length)
-        x = x + y
-        x = x + _mlp(mlpk, p["mlp"], _norm(norm, p["ln2"], x))
-        return x, {"kv": kv}
+        return _ffn(p, x + y)[0], {"kv": kv}
 
     return init, fwd, decode, init_cache, pfl
 

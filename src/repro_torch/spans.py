@@ -22,6 +22,19 @@ the span the host was in meanwhile. The spans:
     server     the tracked alpha, the storage-dtype round trip, the update
     readback   ``run_rounds_slab``: the metrics read back to the host
 
+and inside a client's forward, in each MoE layer (``models/moe.py``):
+
+    moe.route    the router's logits, softmax and top-k, the slots'
+                 ranks and keep mask, the balance loss
+    moe.experts  the dispatch, the held experts' SwiGLU, the combine
+    moe.shared   the shared experts' MLP
+
+These open inside ``clients`` (and, under remat, inside the backward's
+recompute of each layer), so a reduction that charges each operation to
+the innermost span (``bench/span_report.py``) takes the MoE's forward
+and recompute work out of ``clients``; the backward's own operations
+stay in ``clients``.
+
 A span exists only while a profiler records: otherwise ``span`` returns
 one shared no-op context manager, at the cost of one flag check.
 

@@ -27,7 +27,7 @@ import torch
 
 import repro.launch.train as j_train
 from repro.configs import get_config as j_get_config
-from repro_torch.configs import get_config, preset_config
+from repro_torch.configs import PORT_ARCHS, get_config, preset_config
 from repro_torch.launch import train
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -80,6 +80,10 @@ def test_flags_defaults_and_choices_are_the_jax_clis(monkeypatch):
     want["sign_pack"] = tuple(sign_pack)
     assert set(got) - set(want) == {"device"}
     assert set(want) - set(got) == set()
+    # --arch: the JAX CLI's choices, then the port's own archs
+    arch = list(want["arch"])
+    arch[3] = arch[3] + tuple(PORT_ARCHS)
+    want["arch"] = tuple(arch)
     for dest in want:
         if dest == "backend":
             continue

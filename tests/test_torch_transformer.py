@@ -42,7 +42,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models import transformer as ttfm
-from repro_torch.models.model import ModelConfig, build_model
+from repro_torch.models.model import PORT_ONLY_FIELDS, ModelConfig, build_model
 
 DENSE = ["qwen3-14b", "qwen2.5-14b", "starcoder2-15b"]
 
@@ -415,20 +415,34 @@ def _fields(cfg):
 
 
 def test_model_config_fields_mirror_jax():
+    """Every JAX field, with its default; beyond them exactly the port's
+    own, ``PORT_ONLY_FIELDS`` (the mla_moe family's, which the JAX
+    package lacks)."""
     mine = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
     theirs = {f.name: f.default for f in dataclasses.fields(JModelConfig)}
-    assert mine == theirs
+    assert {k: mine.get(k, "missing") for k in theirs} == theirs
+    assert tuple(k for k in mine if k not in theirs) == PORT_ONLY_FIELDS
+
+
+def _jax_fields(cfg):
+    """The JAX package's fields of a port config, after asserting the
+    port's own fields at their defaults."""
+    defaults = {f.name: f.default for f in dataclasses.fields(ModelConfig)}
+    out = _fields(cfg)
+    for k in PORT_ONLY_FIELDS:
+        assert out.pop(k) == defaults[k], (cfg.arch, k)
+    return out
 
 
 @pytest.mark.parametrize("arch", jconfigs.ARCHS)
 def test_configs_match_jax(arch):
     assert tconfigs.ARCHS == jconfigs.ARCHS
-    assert _fields(tconfigs.get_config(arch)) == \
+    assert _jax_fields(tconfigs.get_config(arch)) == \
         _fields(jconfigs.get_config(arch))
-    assert _fields(tconfigs.smoke_config(arch)) == \
+    assert _jax_fields(tconfigs.smoke_config(arch)) == \
         _fields(jconfigs.smoke_config(arch))
     for preset in ("tiny", "100m", "full"):
-        assert _fields(tconfigs.preset_config(arch, preset)) == \
+        assert _jax_fields(tconfigs.preset_config(arch, preset)) == \
             _fields(j_preset_config(arch, preset))
     t, j = tconfigs.get_config(arch), jconfigs.get_config(arch)
     assert t.resolved_head_dim == j.resolved_head_dim
