@@ -1481,8 +1481,10 @@ def phase_kernel_stream(torch, dev, total):
     """The accumulating transmit (B3b; B3a through it) against its plain
     version; where the rows split across blocks (S > 1), also bitwise
     against the kernel's summation order written out in torch
-    (ota_transmit_split_model) and against itself run to run; one chunk
-    with no carry against the channel kernel."""
+    (ota_transmit_split_model) and against itself run to run; with the
+    clean carry (clean=, mask=) its faded sum bitwise the same call's
+    without and its clean sum bitwise the split model's clean order,
+    every S; one chunk with no carry against the channel kernel."""
     from repro_torch.kernels.ota_channel import (ota_channel_slab,
                                                  ota_transmit_slab,
                                                  ota_transmit_split_model,
@@ -1498,8 +1500,9 @@ def phase_kernel_stream(torch, dev, total):
               (37, 4097, 38, carry_all, False),
               (CHUNK_MILLION, D_MILLION, 0, carry_all + (64, 1999), False),
               (2001, 4100, 0, (None, 64), True),
-              (5, D_MILLION, 0, (None,), True)]
-    worst, cases, splits, seen = 0.0, 0, 0, []
+              (5, D_MILLION, 0, (None,), True),
+              (2, D_MAIN, D_MAIN - total, (None, 1), True)]
+    worst, cases, splits, seen, cleans = 0.0, 0, 0, [], 0
     for n, d, pad, chunks, split_only in shapes:
         if n == CHUNK_MILLION:
             grads, h = _million_rows(torch, dev)
@@ -1542,6 +1545,23 @@ def phase_kernel_stream(torch, dev, total):
                       f"summation order by {float((got - model).abs().max())}")
                 check(torch.equal(got, again), f"{what}: differs run to run")
                 splits += 1
+            # the clean carry: a 0/1 mask, a random carry
+            clean = torch.randn(d, generator=gen, device=dev)
+            mask = (torch.rand(n, generator=gen, device=dev) < 0.5).float()
+            c0 = ota_transmit_slab.clean_launches
+            fused, clean_out = ota_transmit_slab(grads, h, clean=clean,
+                                                 mask=mask, **kw)
+            _, clean_model = ota_transmit_split_model(
+                grads, h, n_seg=n_seg, clean=clean, mask=mask, **kw)
+            torch.cuda.synchronize()
+            check(ota_transmit_slab.clean_launches == c0 + 1,
+                  f"{what}: the clean carry's launch was not counted")
+            check(torch.equal(fused, got), f"{what}: the clean carry moved "
+                  f"the faded sum by {float((fused - got).abs().max())}")
+            check(torch.equal(clean_out, clean_model), f"{what}: clean sum "
+                  f"differs from its order by "
+                  f"{float((clean_out - clean_model).abs().max())}")
+            cleans += 1
             worst, cases = max(worst, float(err.max())), cases + 1
             if kw.get("acc") is not None:
                 seen.append(f"{n}x{d} rc={kw['row_chunk']}: S={n_seg}")
@@ -1592,7 +1612,10 @@ def phase_kernel_stream(torch, dev, total):
           f"would like): max_abs_err={worst:.3e} (tol 1e-6 rel + 1e-6 of "
           f"scale); padding exact; the {splits} split cases bitwise their "
           f"summation order (ota_transmit_split_model) and themselves run "
-          f"to run; the bulk-copy ring and plain loads bitwise equal at "
+          f"to run; the {cleans} cases with the clean carry (and 2x{D_MAIN}"
+          f" row_chunk None/1, the few-row schedule) bitwise the faded sum "
+          f"without it and the split model's clean order; the bulk-copy "
+          f"ring and plain loads bitwise equal at "
           f"{CHUNK_MILLION}x{D_MILLION}; no carry bitwise the "
           f"channel kernel's faded sum at {', '.join(bitwise)}; ok")
     print(f"[kernel ota_transmit_slab stream] segments S on {sms} SMs, "

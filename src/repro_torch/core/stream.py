@@ -5,8 +5,10 @@ all N client gradients into one (N, d) slab before the MAC. Here the
 round walks the client population in chunks of ``FLConfig.client_chunk``
 rows instead: each chunk's gradients are computed, faded and folded into
 the running (d,) partial by the accumulating transmit kernel
-(``ota_transmit_slab(..., acc=...)``), and only the completed partial
-crosses the channel. Peak memory is O(chunk * d) whatever N is.
+(``ota_transmit_slab(..., acc=...)``, which in the serial loop also
+carries the participants' clean sum from the same read of the stack),
+and only the completed partial crosses the channel. Peak memory is
+O(chunk * d) whatever N is.
 
 Two wireless extensions ride on the same stage, both folded into the
 EFFECTIVE fading next to power control:
@@ -243,8 +245,10 @@ def streamed_round_parts(draws: RoundDraws, channel_cfg: OTAChannelConfig,
         loss_sum = torch.zeros((), dtype=f32, device=dev)
         for c in range(n_chunks):
             g_stack, h_c, m_c, losses = produce(c)
-            acc = ota_transmit_slab(g_stack, h_c, n_total=n_div, acc=acc)
-            clean = clean + torch.sum(m_c[:, None] * g_stack, dim=0)
+            # one read of the stack for both carries (out of place: acc
+            # and clean start as the one zeros tensor)
+            acc, clean = ota_transmit_slab(g_stack, h_c, n_total=n_div,
+                                           acc=acc, clean=clean, mask=m_c)
             loss_sum = loss_sum + torch.sum(m_c * losses)
 
     n_part = torch.sum(mask)

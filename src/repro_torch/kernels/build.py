@@ -126,7 +126,7 @@ def load_library() -> ctypes.CDLL:
     lib.repro_ota_transmit.argtypes = ([i] + [vp] * 7
                                        + [ctypes.c_ulonglong, i, ll, f, vp])
     lib.repro_ota_transmit.restype = i
-    lib.repro_ota_transmit_stream.argtypes = ([vp] * 6
+    lib.repro_ota_transmit_stream.argtypes = ([vp] * 9
                                               + [i, ll, i, i, i, f, vp])
     lib.repro_ota_transmit_stream.restype = i
     lib.repro_ota_receive.argtypes = ([i, i] + [vp] * 8 + [i, ll, f]

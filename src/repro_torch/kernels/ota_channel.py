@@ -14,7 +14,9 @@ PyTorch counterpart of ``repro.kernels.ota_channel``:
   optionally accumulated into a running (d,) carry ``acc`` over client
   row chunks (``row_chunk``): the streamed client axis's transmitter.
   Its kernel splits the rows into ``row_split`` segments across blocks
-  and folds them in a fixed order (``ota_transmit_split_model``);
+  and folds them in a fixed order (``ota_transmit_split_model``). With
+  ``clean=`` and ``mask=`` the same launch also carries the round's
+  unfaded masked sum;
 * ``ota_receive_slab`` — the server's front end: dequantizes and sums R
   payload rows (the int8 container, or the packed sign words of
   ``pack_sign_slab``) and adds the CMS interference.
@@ -31,7 +33,8 @@ a CPU tensor it runs the plain version in ``kernels.ref``. Nothing else
 selects between the two. ``ota_transmit_slab`` counts its two kernels
 apart: ``launches`` for the quantize-on-write kernel, ``stream_launches``
 for the f32 (accumulating) one, of which ``nocarry_launches`` are the
-calls without a carry (the TPU package's separate no-carry kernel, B3a).
+calls without a carry (the TPU package's separate no-carry kernel, B3a)
+and ``clean_launches`` the calls that carry the clean sum.
 ``ota_receive_slab.stats_launches`` counts its launches that fold the
 pilot statistics.
 """
@@ -142,6 +145,11 @@ def receive_blocks(d: int) -> int:
     return -(-d // RECEIVE_THREADS)
 
 
+def _ptr(t: Optional[torch.Tensor]):
+    """A C entry point's pointer argument: None for an absent operand."""
+    return None if t is None else t.data_ptr()
+
+
 def _check_operand(name: str, t: torch.Tensor, shape, dtype, dev,
                    align: int) -> None:
     if t.device != dev or tuple(t.shape) != tuple(shape):
@@ -162,7 +170,9 @@ def ota_transmit_slab(grads: torch.Tensor, h: torch.Tensor, *,
                       ef: Optional[torch.Tensor] = None,
                       return_residual: bool = False,
                       acc: Optional[torch.Tensor] = None,
-                      row_chunk: Optional[int] = None):
+                      row_chunk: Optional[int] = None,
+                      clean: Optional[torch.Tensor] = None,
+                      mask: Optional[torch.Tensor] = None):
     """Transmit stage: the faded partial sum ``(1/n_total) sum_n h[n]
     grads[n]`` of grads (N, d) stacked client gradients and h (N,)
     effective fading.
@@ -172,6 +182,9 @@ def ota_transmit_slab(grads: torch.Tensor, h: torch.Tensor, *,
     (client rows per chunk, default all) make it the streamed
     transmitter: ``acc + sum_chunks (sum_{n in chunk} h[n] grads[n]) /
     n_total``, each chunk divided as it lands. Both are f32 only.
+    ``clean`` (a (d,) f32 carry) with ``mask`` (N,) adds the carried
+    unfaded sum ``clean + sum_n mask[n] grads[n]`` from the same read of
+    grads, and the call returns ``(partial, clean_out)``; f32 only.
 
     ``quantize=True`` needs d a multiple of 128 and returns
     ``(payload int8 (d,), scales f32 (d // 128,) [, residual f32 (d,)])``
@@ -192,7 +205,10 @@ def ota_transmit_slab(grads: torch.Tensor, h: torch.Tensor, *,
         raise ValueError(f"grads must be (N, d), got {tuple(grads.shape)}")
     n, d = grads.shape
     if not quantize:
-        return _transmit_f32(grads, h, n, d, n_total, acc, row_chunk)
+        return _transmit_f32(grads, h, n, d, n_total, acc, row_chunk, clean,
+                             mask)
+    if clean is not None or mask is not None:
+        raise ValueError("clean=/mask= (the carried clean sum) is f32 only")
     if acc is not None or row_chunk is not None:
         raise ValueError(
             "quantize=True cannot stream/accumulate (acc=/row_chunk=): the "
@@ -256,16 +272,13 @@ def ota_transmit_slab(grads: torch.Tensor, h: torch.Tensor, *,
         quant = _QUANT[("int8", "rtn" if not sr else
                         "kernel" if sr_seed is not None else "host")]
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     lib = build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         code = lib.repro_ota_transmit(
             quant, grads.data_ptr(), h.data_ptr(),
-            ptr(r) if quant == 0 else None, ptr(ef), q.data_ptr(),
-            s.data_ptr(), ptr(resid), int(sr_seed or 0), n, d,
+            _ptr(r) if quant == 0 else None, _ptr(ef), q.data_ptr(),
+            s.data_ptr(), _ptr(resid), int(sr_seed or 0), n, d,
             float(n_total), stream)
     build.check(code, "ota_transmit_slab")
     ota_transmit_slab.launches += 1
@@ -275,6 +288,7 @@ def ota_transmit_slab(grads: torch.Tensor, h: torch.Tensor, *,
 ota_transmit_slab.launches = 0
 ota_transmit_slab.stream_launches = 0
 ota_transmit_slab.nocarry_launches = 0
+ota_transmit_slab.clean_launches = 0
 
 
 # The accumulating kernel (csrc/ota_transmit_stream.cu): a block owns
@@ -335,15 +349,19 @@ def ota_transmit_split_model(grads: torch.Tensor, h: torch.Tensor, *,
                              n_total: Optional[int] = None,
                              acc: Optional[torch.Tensor] = None,
                              row_chunk: Optional[int] = None,
-                             n_seg: int = 1) -> torch.Tensor:
+                             n_seg: int = 1,
+                             clean: Optional[torch.Tensor] = None,
+                             mask: Optional[torch.Tensor] = None):
     """The accumulating kernel's summation order, one f32 operation at a
     time (csrc/ota_transmit_stream.cu, its header): each piece (a row
     chunk within a segment) summed row by row from 0 and divided by
     n_total as it lands; with one segment onto the carry, with several
     onto the segment's partial, the partials then added in segment order
-    and the carry last. A model for the tests and the card check, not a
-    route of the wrapper (that is ``ota_transmit_ref`` on the CPU): it
-    loops over the rows."""
+    and the carry last. ``clean`` with ``mask`` adds the clean sum in the
+    same pieces and segments, with no division, and returns ``(out,
+    clean_out)``. A model for the tests and the card check, not a route
+    of the wrapper (that is ``ota_transmit_ref`` on the CPU): it loops
+    over the rows."""
     n, d = grads.shape
     if n_total is None:
         n_total = n
@@ -354,23 +372,36 @@ def ota_transmit_split_model(grads: torch.Tensor, h: torch.Tensor, *,
     # a full divisor: elementwise IEEE division, as the kernel divides
     div = torch.full((d,), float(n_total), dtype=f32, device=grads.device)
     g, hf = grads.float(), h.float()
+    with_clean = clean is not None
+    mf = mask.float() if with_clean else None
     carry = zeros if acc is None else acc.float()
-    total = zeros
+    ccarry = clean.float() if with_clean else zeros
+    total, ctotal = zeros, zeros
     for s in range(n_seg):
         r0, r1 = s * seg_rows, min(n, (s + 1) * seg_rows)
         seg, part = (carry if n_seg == 1 else zeros), zeros
+        cseg, cpart = (ccarry if n_seg == 1 else zeros), zeros
         nxt = min(r1, (r0 // rc + 1) * rc)
         for r in range(r0, r1):
             if r == nxt:
                 seg, part = seg + part / div, zeros
+                if with_clean:
+                    cseg, cpart = cseg + cpart, zeros
                 nxt = min(r1, nxt + rc)
             part = part + hf[r] * g[r]
+            if with_clean:
+                cpart = cpart + mf[r] * g[r]
         if r1 > r0:
             seg = seg + part / div
+            if with_clean:
+                cseg = cseg + cpart
         if n_seg == 1:
-            return seg
+            return (seg, cseg) if with_clean else seg
         total = total + seg
-    return carry + total
+        if with_clean:
+            ctotal = ctotal + cseg
+    out = carry + total
+    return (out, ccarry + ctotal) if with_clean else out
 
 
 @functools.lru_cache(maxsize=None)
@@ -397,22 +428,30 @@ def _tile_counters(dev: torch.device, stream: int) -> torch.Tensor:
     return _TILE_COUNTERS[key]
 
 
-def _transmit_f32(grads, h, n, d, n_total, acc, row_chunk):
+def _transmit_f32(grads, h, n, d, n_total, acc, row_chunk, clean, mask):
     """The f32 route of ``ota_transmit_slab``: the accumulating kernel
     (one row chunk and a zero carry when neither is given), its rows
     split into ``row_split`` segments across blocks. The kernel reads G
     through bulk copies when d % 4 == 0 and G is 16-byte aligned, else
-    with plain loads; both compute the same value."""
+    with plain loads; with the clean carry, at few rows and one segment,
+    with 16-byte loads of whole column groups instead (the kernel picks
+    from the shape and alignment); all compute the same value."""
     if row_chunk is not None and row_chunk < 1:
         raise ValueError(f"row_chunk must be >= 1, got {row_chunk}")
     if acc is not None and tuple(acc.shape) != (d,):
         raise ValueError(f"acc must be the ({d},) running partial sum, got "
                          f"{tuple(acc.shape)}")
+    if (clean is None) != (mask is None):
+        raise ValueError("pass clean= and mask= together")
+    if clean is not None and (tuple(clean.shape) != (d,)
+                              or tuple(mask.shape) != (n,)):
+        raise ValueError(f"clean must be ({d},) and mask ({n},), got "
+                         f"{tuple(clean.shape)} and {tuple(mask.shape)}")
     if n_total is None:
         n_total = n
     if grads.device.type == "cpu":
         return ota_transmit_ref(grads, h, n_total=n_total, acc=acc,
-                                row_chunk=row_chunk)
+                                row_chunk=row_chunk, clean=clean, mask=mask)
     if grads.device.type != "cuda":
         raise ValueError(f"ota_transmit_slab takes cuda or cpu tensors, got "
                          f"{grads.device}")
@@ -422,28 +461,35 @@ def _transmit_f32(grads, h, n, d, n_total, acc, row_chunk):
     _check_operand("h", h, (n,), f32, dev, 4)
     if acc is not None:
         _check_operand("acc", acc, (d,), f32, dev, 4)
+    with_clean = clean is not None
+    if with_clean:
+        _check_operand("clean", clean, (d,), f32, dev, 4)
+        _check_operand("mask", mask, (n,), f32, dev, 4)
     rc = _row_chunks(n, row_chunk)[0]
     n_seg = row_split(n, d, row_chunk, acc is not None, sm_count(dev.index))
     seg = segment_rows(n, row_chunk, n_seg)
     out = torch.empty((d,), dtype=f32, device=dev)
+    clean_out = (torch.empty((d,), dtype=f32, device=dev) if with_clean
+                 else None)
     lib = build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         partials = counters = None
         if n_seg > 1:
-            partials = torch.empty((n_seg, -(-d // 4) * 4), dtype=f32,
-                                   device=dev)
+            partials = torch.empty(((1 + with_clean) * n_seg,
+                                    -(-d // 4) * 4), dtype=f32, device=dev)
             counters = _tile_counters(dev, stream)
         code = lib.repro_ota_transmit_stream(
-            grads.data_ptr(), h.data_ptr(),
-            None if acc is None else acc.data_ptr(), out.data_ptr(),
-            None if partials is None else partials.data_ptr(),
-            None if counters is None else counters.data_ptr(), n, d, rc,
-            seg, n_seg, float(n_total), stream)
+            grads.data_ptr(), h.data_ptr(), _ptr(acc), out.data_ptr(),
+            _ptr(mask), _ptr(clean), _ptr(clean_out), _ptr(partials),
+            _ptr(counters), n, d, rc, seg, n_seg, float(n_total), stream)
     build.check(code, "ota_transmit_slab")
     ota_transmit_slab.stream_launches += 1
     if acc is None:
         ota_transmit_slab.nocarry_launches += 1
+    if with_clean:
+        ota_transmit_slab.clean_launches += 1
+        return out, clean_out
     return out
 
 

@@ -108,7 +108,9 @@ def ota_transmit_ref(grads: torch.Tensor, h: torch.Tensor, *,
                      ef: Optional[torch.Tensor] = None,
                      return_residual: bool = False,
                      acc: Optional[torch.Tensor] = None,
-                     row_chunk: Optional[int] = None):
+                     row_chunk: Optional[int] = None,
+                     clean: Optional[torch.Tensor] = None,
+                     mask: Optional[torch.Tensor] = None):
     """Transmit stage: the faded partial sum ``(1/n_total) sum_n h[n]
     grads[n]``, optionally quantized per 128-block.
 
@@ -126,6 +128,10 @@ def ota_transmit_ref(grads: torch.Tensor, h: torch.Tensor, *,
     faded partial divided by ``n_total`` as it lands. f32 only, like
     the kernel.
 
+    ``clean`` (a (d,) f32 carry) with ``mask`` (N,) also returns the
+    carried unfaded sum ``clean + sum(mask[:, None] * grads, 0)``, as
+    ``(partial, clean_out)``; f32 only.
+
     Returns (d,) f32, or ``(payload int8 (d,), scales f32 (d // 128,)
     [, residual f32 (d,)])`` when ``quantize=True``. Agreement with a
     kernel that sums in another order is one quantization step per
@@ -140,6 +146,10 @@ def ota_transmit_ref(grads: torch.Tensor, h: torch.Tensor, *,
         raise ValueError("quantize=True cannot stream/accumulate "
                          "(acc=/row_chunk=); quantize the completed f32 "
                          "partial in a separate single-row call")
+    if (clean is None) != (mask is None):
+        raise ValueError("pass clean= and mask= together")
+    if clean is not None and quantize:
+        raise ValueError("clean= (the carried clean sum) is f32 only")
     h2 = h.reshape(n, 1).float()
     if streamed:
         rc = n if row_chunk is None else min(row_chunk, n)
@@ -151,8 +161,10 @@ def ota_transmit_ref(grads: torch.Tensor, h: torch.Tensor, *,
         for s in range(0, n, rc):
             agg = agg + torch.sum(h2[s:s + rc] * gf[s:s + rc],
                                   dim=0) / n_total
-        return agg
-    agg = torch.sum(h2 * grads.float(), dim=0) / n_total
+    else:
+        agg = torch.sum(h2 * grads.float(), dim=0) / n_total
+    if clean is not None:
+        return agg, clean + torch.sum(mask[:, None] * grads, dim=0)
     if not quantize:
         return agg
     if d % LANE != 0:
