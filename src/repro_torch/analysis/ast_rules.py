@@ -78,7 +78,8 @@ _ZERO_TAIL_SUFFIXES = ("repro_torch/core/ota.py", "repro_torch/core/shard.py",
                        "repro_torch/core/stream.py")
 # Modules whose function bodies are round bodies (draw-in-round), beside
 # the kernel modules.
-_ROUND_SCOPE_SUFFIXES = ("repro_torch/core/fl.py",) + _ZERO_TAIL_SUFFIXES
+_ROUND_SCOPE_SUFFIXES = ("repro_torch/core/fl.py",
+                         "repro_torch/core/round.py") + _ZERO_TAIL_SUFFIXES
 
 _RECEIVE_FNS = {"ota_receive_slab", "ota_receive_ref"}
 _LOADER = "load_library"

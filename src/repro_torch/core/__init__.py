@@ -1,7 +1,9 @@
 """Core ADOTA-FL library of the port: slabs (``slab``), channel configs
 and transforms (``channel``), the draws seam (``draws``), server
 optimizers (``adaptive``), resident state (``slab_state``), the MAC
-(``ota``), the streamed client axis (``stream``) and the round (``fl``).
+(``ota``), the streamed client axis (``stream``), the parts of the round
+both engines share (``round``), the round (``fl``) and the sharded
+engine (``shard``).
 
 Import from the submodules. This package file imports nothing when it
 is imported, so the kernels can import ``core.channel`` without a

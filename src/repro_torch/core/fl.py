@@ -48,9 +48,8 @@ is the per-leaf collective round (``core.ota.ota_psum``).
 
 from __future__ import annotations
 
-import dataclasses
 import math
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,103 +64,18 @@ from repro_torch.core.channel import OTAChannelConfig
 from repro_torch.core.draws import RoundDraws
 from repro_torch.core.ota import (downlink_quantize_slab, ota_aggregate_slab,
                                   ota_psum, psum_axes)
+from repro_torch.core.round import (FLConfig, LossFn, PyTree, RoundMetrics,
+                                    check_state, client_update, fill,
+                                    make_server_step, round_inputs,
+                                    round_metrics, storage_round_trip)
+from repro_torch.core.shard import (make_shard_slab_runner,
+                                    make_shard_slab_step, shard_round_step)
 from repro_torch.core.slab import (make_slab_spec, slab_to_tree,
-                                   tree_flatten, tree_map, tree_to_slab)
+                                   tree_flatten, tree_map)
 from repro_torch.core.slab_state import SlabTrainState
 from repro_torch.core.stream import client_weight_array, streamed_round_parts
-from repro_torch.core.tail_index import effective_alpha, update_alpha_ema
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.spans import span
-
-PyTree = Any
-LossFn = Callable[[PyTree, Any], torch.Tensor]   # (params, batch) -> scalar
-
-
-@dataclasses.dataclass(frozen=True)
-class FLConfig:
-    """Fields, defaults and checks as in ``repro.core.fl.FLConfig``.
-
-    ``client_chunk`` streams the client axis in chunks of that many
-    rows; ``sample_rate < 1`` samples the participants each round (the
-    mask comes with the draws); ``client_weights`` weights each client's
-    contribution; ``double_buffer`` issues chunk c's client compute
-    before folding chunk c-1 (needs ``client_chunk``)."""
-
-    n_clients: int = 50
-    local_steps: int = 1          # k; 1 == Algorithm 1 (one grad per round)
-    local_lr: float = 0.05        # local SGD lr when local_steps > 1
-    client_chunk: Optional[int] = None
-    sample_rate: float = 1.0
-    client_weights: Optional[Tuple[float, ...]] = None
-    double_buffer: bool = False
-
-    def __post_init__(self):
-        if not 0.0 < self.sample_rate <= 1.0:
-            raise ValueError(f"sample_rate must be in (0, 1], got "
-                             f"{self.sample_rate}; a rate of 0 means no "
-                             "client ever participates (every round would "
-                             "be a dead round)")
-        if self.client_chunk is not None and self.client_chunk < 1:
-            raise ValueError(f"client_chunk must be >= 1, got "
-                             f"{self.client_chunk}")
-        if self.double_buffer and self.client_chunk is None:
-            raise ValueError(
-                "double_buffer pipelines the STREAMED client scan; set "
-                "client_chunk (the resident round has no chunk schedule "
-                "to double-buffer)")
-        if self.client_weights is not None:
-            w = tuple(float(x) for x in self.client_weights)
-            if len(w) != self.n_clients:
-                raise ValueError(f"client_weights must have one entry per "
-                                 f"client: got {len(w)} for "
-                                 f"{self.n_clients} clients")
-            if not all(math.isfinite(x) and x >= 0.0 for x in w):
-                raise ValueError("client_weights must be finite and >= 0")
-            if sum(w) <= 0.0:
-                raise ValueError("client_weights must sum to > 0")
-            object.__setattr__(self, "client_weights", w)
-
-    @property
-    def dynamic_norm(self) -> bool:
-        return self.sample_rate < 1.0 or self.client_weights is not None
-
-    @property
-    def dynamic_round(self) -> bool:
-        return self.client_chunk is not None or self.dynamic_norm
-
-
-class RoundMetrics(NamedTuple):
-    loss: torch.Tensor             # mean client loss before the update
-    grad_norm: torch.Tensor        # L2 norm of the clean aggregated gradient
-    noisy_grad_norm: torch.Tensor  # L2 norm of g_t after the channel
-    fading_mean: torch.Tensor      # mean of this round's h draw
-    alpha_hat: torch.Tensor        # the tail index the server update used
-    n_participants: torch.Tensor   # f32 count of clients in the aggregate
-
-
-def _client_update(loss_fn: LossFn, fl_cfg: FLConfig
-                   ) -> Callable[[PyTree, Any], Tuple[PyTree, torch.Tensor]]:
-    """Build CLIENTUPDATE: (params, client_batch) -> (grad-like, loss)."""
-
-    if fl_cfg.local_steps == 1:
-        def one(params, batch):
-            return grad_and_value(loss_fn)(params, batch)
-        return one
-
-    def multi(params, batches):
-        # batches: leaves with a leading axis k (one micro-batch per step).
-        w, losses = params, []
-        for i in range(fl_cfg.local_steps):
-            g, loss = grad_and_value(loss_fn)(
-                w, tree_map(lambda x: x[i], batches))
-            w = tree_map(lambda p, gi: p - fl_cfg.local_lr * gi, w, g)
-            losses.append(loss)
-        denom = fl_cfg.local_lr * fl_cfg.local_steps
-        pseudo = tree_map(lambda a, b: (a - b) / denom, params, w)
-        # Mean over the k local steps, as the JAX package reports it.
-        return pseudo, torch.mean(torch.stack(losses))
-
-    return multi
 
 
 def _check_covered(channel_cfg: OTAChannelConfig,
@@ -198,29 +112,6 @@ def _check_covered(channel_cfg: OTAChannelConfig,
                          "(FLConfig.client_chunk); the resident path "
                          "consumes materialised client_batches")
     state_slab_rows(adaptive_cfg)    # unknown optimizer names raise here
-
-
-def _fill(x: float, dev: torch.device) -> torch.Tensor:
-    """A 0-dim f32 metric: a fill on the device, not a copy from the host
-    (no sync)."""
-    return torch.full((), x, dtype=torch.float32, device=dev)
-
-
-def _round_metrics(losses: torch.Tensor, clean_slab: torch.Tensor,
-                   g_slab: torch.Tensor, h: torch.Tensor,
-                   alpha_hat: torch.Tensor, n_participants: torch.Tensor
-                   ) -> RoundMetrics:
-    """The metrics of a resident (all-client) round, from its slabs
-    (``clean_slab`` the clients' mean gradient): slab norms are tree
-    norms, the padding tail being zero."""
-    return RoundMetrics(
-        loss=torch.mean(losses),
-        grad_norm=torch.sqrt(torch.sum(torch.square(clean_slab))),
-        noisy_grad_norm=torch.sqrt(torch.sum(torch.square(g_slab))),
-        fading_mean=torch.mean(h),
-        alpha_hat=alpha_hat,
-        n_participants=n_participants,
-    )
 
 
 def make_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
@@ -267,14 +158,10 @@ def make_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
             "across rounds and no slab broadcast to quantize")
     _check_covered(channel_cfg, adaptive_cfg, fl_cfg, backend, None, mesh)
     if backend == "pallas_sharded":
-        # repro-lint: lazy-import (cycle: core.shard imports core.fl)
-        from repro_torch.core.shard import shard_round_step
         return shard_round_step(loss_fn, channel_cfg, adaptive_cfg, fl_cfg,
                                 mesh, device)
     dev = resolve_device(device)
-    client_fn = vmap(_client_update(loss_fn, fl_cfg), in_dims=(None, 0))
-    alpha = float(adaptive_cfg.alpha)
-    n_clients = float(fl_cfg.n_clients)
+    client_fn = vmap(client_update(loss_fn, fl_cfg), in_dims=(None, 0))
 
     def round_step(params, opt_state: ServerOptState, draws: RoundDraws,
                    client_batches):
@@ -282,12 +169,7 @@ def make_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
         if leaf.device != dev:
             raise ValueError(f"params live on {leaf.device}, the round on "
                              f"{dev}")
-        draws = draws.to(dev)
-        if draws.mask is not None:
-            raise ValueError("draws.mask is set but the round config is "
-                             "resident (FLConfig.sample_rate is 1)")
-        batches = tree_map(lambda x: torch.as_tensor(x, device=dev),
-                           client_batches)
+        draws, batches = round_inputs(dev, fl_cfg, draws, client_batches)
         grads, losses = client_fn(params, batches)
         spec = make_slab_spec(params)
         # The MAC, then the fused server update with g_t still a slab.
@@ -295,10 +177,9 @@ def make_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
             draws, channel_cfg, grads, spec)
         new_params, new_state = apply_slab_update(adaptive_cfg, spec, g_slab,
                                                   opt_state, params)
-        return new_params, new_state, _round_metrics(
+        return new_params, new_state, round_metrics(
             losses, torch.mean(grads_slab, dim=0), g_slab, h,
-            _fill(alpha, dev),
-            _fill(n_clients, dev))
+            fill(adaptive_cfg.alpha, dev), fill(fl_cfg.n_clients, dev))
 
     return round_step
 
@@ -338,164 +219,82 @@ def make_slab_round_step(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
     _check_covered(channel_cfg, adaptive_cfg, fl_cfg, backend, batch_gen,
                    mesh)
     if backend == "pallas_sharded":
-        # repro-lint: lazy-import (cycle: core.shard imports core.fl)
-        from repro_torch.core.shard import make_shard_slab_step
         return make_shard_slab_step(loss_fn, channel_cfg, adaptive_cfg,
                                     fl_cfg, mesh, device)
     dev = resolve_device(device)
-    client_fn = vmap(_client_update(loss_fn, fl_cfg), in_dims=(None, 0))
+    client_fn = vmap(client_update(loss_fn, fl_cfg), in_dims=(None, 0))
     track = adaptive_cfg.track_alpha
     use_ef = channel_cfg.uplink.error_feedback
     dl_int8 = channel_cfg.downlink == "int8"
-    n_metric = float(fl_cfg.n_clients)
-    static_alpha = None if track else float(adaptive_cfg.alpha)
+    streamed = fl_cfg.dynamic_round
     weights = client_weight_array(fl_cfg, dev)
+    server_step = make_server_step(adaptive_cfg, dev, slab_update_slabs)
 
-    def broadcast_slab(state: SlabTrainState, draws: RoundDraws):
-        """The weight slab the CLIENTS see: the f32 master, or its int8
-        reconstruction under the int8 downlink."""
-        if not dl_int8:
-            return state.w
-        return downlink_quantize_slab(state.w,
-                                      draws.wire("r_dl", state.spec.padded))
-
-    def check_state(state: SlabTrainState) -> None:
-        if state.w.device != dev:
-            raise ValueError(f"state lives on {state.w.device}, the round "
-                             f"on {dev}")
-        if use_ef and state.ef is None:
-            raise ValueError(
-                "UplinkConfig.error_feedback=True but the SlabTrainState "
-                "carries no residual rows; build it with "
-                "init_train_state(..., error_feedback=True)")
-
-    def server_half(state, params, g_slab, stats):
-        """The tracked alpha's EMA and the server update; returns
-        (alpha_hat, alpha_metric, new_opt, w_new)."""
-        spec = state.spec
-        if track:
-            alpha_hat = update_alpha_ema(state.alpha_hat, stats,
-                                         adaptive_cfg.alpha_ema)
-            alpha_arg = effective_alpha(alpha_hat)
-            alpha_metric = alpha_hat
-        else:
-            alpha_hat = state.alpha_hat
-            alpha_arg = None
-            alpha_metric = _fill(static_alpha, dev)
-        w_in = state.w
-        if any(dt != torch.float32 for dt in spec.dtypes):
-            # Non-f32 leaves round-trip through their storage dtype each
-            # round, as in the JAX package; under the int8 downlink the
-            # cast applies to the master, never to the broadcast.
-            w_in = tree_to_slab(spec, params if not dl_int8
-                                else slab_to_tree(spec, state.w))
-        # The server update on the resident slabs (a tracked alpha goes
-        # in as a device operand).
-        new_opt, w_new = slab_update_slabs(adaptive_cfg, g_slab, state.opt,
-                                           w_in, alpha=alpha_arg)
-        return alpha_hat, alpha_metric, new_opt, w_new
-
-    def to_dev(client_batches):
-        def move(x):
-            if dev.type == "cuda" and not (isinstance(x, torch.Tensor)
-                                           and x.device.type == "cuda"):
-                spans.host_syncs += 1    # a blocking copy from the host
-            return torch.as_tensor(x, device=dev)
-        return tree_map(move, client_batches)
-
-    if fl_cfg.dynamic_round:
-        can_skip = fl_cfg.dynamic_norm
-
-        def dynamic_step(state: SlabTrainState, draws: RoundDraws,
-                         client_batches=None):
-            check_state(state)
-            spec = state.spec
-            with span("h2d"):
-                draws = draws.to(dev)
-                batches = (None if client_batches is None
-                           else to_dev(client_batches))
-            with span("broadcast"):
-                params = slab_to_tree(spec, broadcast_slab(state, draws))
-            with span("mac"):    # each chunk's clients in a span of theirs
-                parts = streamed_round_parts(
-                    draws, channel_cfg, fl_cfg, spec, client_fn, params,
-                    client_batches=batches, batch_gen=batch_gen,
-                    pilot_stats=track, ef=state.ef[0] if use_ef else None,
-                    weights=weights)
-            with span("server"):
-                a_new, alpha_metric, new_opt, w_new = server_half(
-                    state, params, parts.g_slab, parts.stats)
-                ef_next = parts.ef_new[None] if use_ef else state.ef
-                alpha_hat = a_new
-                if can_skip:
-                    # Dead round: nobody transmitted, so the server state
-                    # carries over (only the round counter advances).
-                    # Only a dynamic normaliser can give one; with the
-                    # static 1/N the selects are left out.
-                    ok = parts.norm > 0.0
-                    w_new = torch.where(ok, w_new, state.w)
-                    new_opt = tuple(torch.where(ok, a, b)
-                                    for a, b in zip(new_opt, state.opt))
-                    if track:
-                        alpha_hat = torch.where(ok, a_new, state.alpha_hat)
-                        alpha_metric = alpha_hat
-                    if use_ef:
-                        # the residual of a transmission that never
-                        # happened must not replace the carried one
-                        ef_next = torch.where(ok, ef_next, state.ef)
-            with span("metrics"):
-                nf = torch.clamp_min(parts.n_participants, 1.0)
-                metrics = RoundMetrics(
-                    loss=parts.loss_sum / nf,
-                    grad_norm=torch.sqrt(torch.sum(torch.square(
-                        parts.clean_slab / nf))),
-                    noisy_grad_norm=torch.sqrt(torch.sum(torch.square(
-                        parts.g_slab))),
-                    fading_mean=torch.mean(parts.h),
-                    alpha_hat=alpha_metric,
-                    n_participants=parts.n_participants,
-                )
-            return SlabTrainState(state.step + 1, w_new, new_opt, alpha_hat,
-                                  spec, ef_next), metrics
-
-        return dynamic_step
-
-    def step(state: SlabTrainState, draws: RoundDraws, client_batches):
-        check_state(state)
-        spec = state.spec
-        with span("h2d"):
-            draws = draws.to(dev)
-            if draws.mask is not None:
-                raise ValueError("draws.mask is set but the round config is "
-                                 "resident (FLConfig.sample_rate is 1)")
-            batches = to_dev(client_batches)
-        # Model broadcast: the one pytree the round materialises.
-        with span("broadcast"):
-            params = slab_to_tree(spec, broadcast_slab(state, draws))
+    # Either uplink returns (g_slab, h, stats, ef_new, clean, loss,
+    # n_participants, ok): ``clean`` the clients' mean gradient and
+    # ``loss`` their losses (resident; no count: every client took part),
+    # or the participants' sums and count (streamed); ``ok`` the
+    # dead-round guard where a dynamic normaliser can give one.
+    def resident_uplink(draws, spec, params, batches, ef):
+        """Every client's gradient resident, then the MAC: one channel
+        launch (f32) or transmit + receive (quantized; the carried
+        residual joins the transmit quantizer and the fresh one comes
+        back from the same launch)."""
         with span("clients"):
             grads, losses = client_fn(params, batches)
-        # The MAC: one channel launch (f32) or transmit + receive
-        # (quantized; the carried residual joins the transmit quantizer
-        # and the fresh one comes back from the same launch).
         with span("mac"):
             g_slab, h, grads_slab, stats, ef_new = ota_aggregate_slab(
-                draws, channel_cfg, grads, spec, pilot_stats=track,
-                ef=state.ef[0] if use_ef else None)
+                draws, channel_cfg, grads, spec, pilot_stats=track, ef=ef)
         # The client gradients, in both forms, are the round's largest
         # buffers (4 x 4 GB at a billion parameters): reduce them to the
-        # metric and let them go before the server update allocates.
+        # metric here; they go when this returns, before the server
+        # update allocates.
         with span("metrics"):
-            clean_slab = torch.mean(grads_slab, dim=0)
-        del grads, grads_slab
+            return (g_slab, h, stats, ef_new, torch.mean(grads_slab, dim=0),
+                    losses, None, None)
+
+    def streamed_uplink(draws, spec, params, batches, ef):
+        with span("mac"):    # each chunk's clients in a span of theirs
+            p = streamed_round_parts(
+                draws, channel_cfg, fl_cfg, spec, client_fn, params,
+                client_batches=batches, batch_gen=batch_gen,
+                pilot_stats=track, ef=ef, weights=weights)
+        # with the static 1/N no round is dead: the selects are left out
+        return (p.g_slab, p.h, p.stats, p.ef_new, p.clean_slab, p.loss_sum,
+                p.n_participants, p.norm > 0.0 if fl_cfg.dynamic_norm
+                else None)
+
+    uplink = streamed_uplink if streamed else resident_uplink
+
+    def step(state: SlabTrainState, draws: RoundDraws, client_batches=None):
+        check_state(state, dev, use_ef)
+        spec = state.spec
+        with span("h2d"):
+            draws, batches = round_inputs(dev, fl_cfg, draws, client_batches)
+        # Model broadcast: the one pytree the round materialises; under
+        # the int8 downlink the clients see the slab's int8
+        # reconstruction, while the server keeps the f32 master.
+        with span("broadcast"):
+            params = slab_to_tree(spec, state.w if not dl_int8 else
+                                  downlink_quantize_slab(
+                                      state.w, draws.wire("r_dl",
+                                                          spec.padded)))
+        g_slab, h, stats, ef_new, clean, loss, n_part, ok = uplink(
+            draws, spec, params, batches, state.ef[0] if use_ef else None)
         with span("server"):
-            alpha_hat, alpha_metric, new_opt, w_new = server_half(
-                state, params, g_slab, stats)
+            w_in = state.w
+            if any(dt != torch.float32 for dt in spec.dtypes):
+                w_in = storage_round_trip(spec, params,
+                                          state.w if dl_int8 else None)
+            alpha_hat, alpha_metric, opt, w, ef = server_step(
+                state, g_slab, stats, w_in, ef_new, ok)
         with span("metrics"):
-            metrics = _round_metrics(losses, clean_slab, g_slab, h,
-                                     alpha_metric, _fill(n_metric, dev))
-        return SlabTrainState(state.step + 1, w_new, new_opt, alpha_hat,
-                              spec, ef_new[None] if use_ef else state.ef
-                              ), metrics
+            if n_part is None:
+                n_part = fill(fl_cfg.n_clients, dev)
+            metrics = round_metrics(loss, clean, g_slab, h, alpha_metric,
+                                    n_part, summed=streamed)
+        return SlabTrainState(state.step + 1, w, opt, alpha_hat, spec,
+                              ef), metrics
 
     return step
 
@@ -518,8 +317,6 @@ def make_slab_round_runner(loss_fn: LossFn, channel_cfg: OTAChannelConfig,
     if backend == "pallas_sharded":
         _check_covered(channel_cfg, adaptive_cfg, fl_cfg, backend, batch_gen,
                        mesh)
-        # repro-lint: lazy-import (cycle: core.shard imports core.fl)
-        from repro_torch.core.shard import make_shard_slab_runner
         return make_shard_slab_runner(loss_fn, channel_cfg, adaptive_cfg,
                                       fl_cfg, mesh, device)
     step = make_slab_round_step(loss_fn, channel_cfg, adaptive_cfg, fl_cfg,

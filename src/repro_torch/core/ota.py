@@ -53,7 +53,7 @@ from repro_torch.kernels.ota_channel import (INT8_MAX, LANE, ota_channel_slab,
 PyTree = Any
 
 
-def _interference_slab_inputs(draws: RoundDraws, cfg: OTAChannelConfig,
+def interference_slab_inputs(draws: RoundDraws, cfg: OTAChannelConfig,
                               spec: SlabSpec
                               ) -> Tuple[torch.Tensor, torch.Tensor, float]:
     """(u, e, scale) of the interference-injection stage; the disabled
@@ -188,7 +188,7 @@ def mac_slab(draws: RoundDraws, cfg: OTAChannelConfig, spec: SlabSpec,
     round passes its N client rows; the streamed round its completed
     partial as one row with h = 1 and ``n_total=1``.
     """
-    u, e, scale = _interference_slab_inputs(draws, cfg, spec)
+    u, e, scale = interference_slab_inputs(draws, cfg, spec)
     stats = None
     up = cfg.uplink
     if not up.quantized:

@@ -70,7 +70,6 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
-import torch.nn.functional as F
 from torch.distributed.device_mesh import DeviceMesh
 from torch.func import vmap
 
@@ -78,19 +77,21 @@ from repro_torch.core.adaptive import AdaptiveConfig, slab_update_slabs
 from repro_torch.core.channel import (OTAChannelConfig, cms_transform,
                                       cms_transform_fast)
 from repro_torch.core.draws import RoundDraws
-from repro_torch.core.fl import FLConfig, RoundMetrics, _client_update
-from repro_torch.core.ota import (_interference_slab_inputs,
-                                  downlink_quantize_slab,
+from repro_torch.core.ota import (downlink_quantize_slab,
+                                  interference_slab_inputs,
                                   linear_shard_index, psum_axes,
                                   restore_zero_tail)
+from repro_torch.core.round import (FLConfig, RoundMetrics, check_state,
+                                    client_update, fill, make_server_step,
+                                    round_inputs, storage_round_trip)
 from repro_torch.core.slab import (SlabSpec, make_slab_spec, slab_to_tree,
-                                   stack_to_slab, tree_map, tree_to_slab)
+                                   stack_to_slab, tree_map)
 from repro_torch.core.slab_state import (SlabTrainState, pack_train_state,
                                          unpack_train_state)
-from repro_torch.core.stream import (_f32_matmul, client_weight_array,
-                                     round_participation)
-from repro_torch.core.tail_index import (effective_alpha, log_moment_stats,
-                                         update_alpha_ema)
+from repro_torch.core.stream import (client_weight_array, f32_matmul,
+                                     fold_chunks, round_participation,
+                                     take_rows)
+from repro_torch.core.tail_index import log_moment_stats
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.ota_channel import (LANE, ota_receive_slab,
                                              ota_transmit_slab,
@@ -323,7 +324,7 @@ def _exchange_and_receive(channel_cfg: OTAChannelConfig, q_noisy, s_noisy,
     payload, scales = _bucketed_exchange([payload, scales],
                                          channel_cfg.comm_buckets, mesh,
                                          axes, axis_sizes)
-    u, e, xi_scale = _interference_slab_inputs(draws, channel_cfg, spec)
+    u, e, xi_scale = interference_slab_inputs(draws, channel_cfg, spec)
     u, e = u[off:off + shard_len], e[off:off + shard_len]
     stats = None
     g_slice = ota_receive_slab(
@@ -376,7 +377,7 @@ def _bucketed_mac_f32(g_stack: torch.Tensor, coeff: torch.Tensor,
     blocks = g_stack.reshape(n_loc, n_shards, comm_buckets, sub)
     issued = []
     for b in range(comm_buckets):
-        with _f32_matmul():
+        with f32_matmul():
             part = coeff @ blocks[:, :, b, :].reshape(n_loc, n_shards * sub)
         issued.append(_issue_reduce_scatter(part, mesh, axes[0], 1))
     outs = _reduce_scatter_chain(_wait(issued), mesh, axes[1:], dim=1)
@@ -468,7 +469,8 @@ def _make_round_body(loss_fn, channel_cfg: OTAChannelConfig,
     shard_len = spec.shard_len
     idx = linear_shard_index(mesh, axes)
     off = idx * shard_len
-    client_fn = vmap(_client_update(loss_fn, fl_cfg), in_dims=(None, 0))
+    local = slice(idx * n_local, (idx + 1) * n_local)
+    client_fn = vmap(client_update(loss_fn, fl_cfg), in_dims=(None, 0))
     has_cast = any(dt != torch.float32 for dt in spec.dtypes)
     uplink = channel_cfg.uplink
     use_ef = uplink.error_feedback
@@ -476,27 +478,34 @@ def _make_round_body(loss_fn, channel_cfg: OTAChannelConfig,
     track = adaptive_cfg.track_alpha
     dynamic = fl_cfg.dynamic_round
     dynamic_norm = fl_cfg.dynamic_norm
-    # client_chunk bounds the resident client rows of a rank: its n_local
-    # clients stream through the accumulating transmit in chunks (a
-    # chunk that does not divide n_local leaves a ragged last chunk of
-    # zero-gain rows, core.stream's contract)
-    chunk = min(fl_cfg.client_chunk or n_local, n_local)
-    n_chunks = -(-n_local // chunk)
-    ragged = n_chunks * chunk != n_local
     bcast, _ = _make_bcast_fn(channel_cfg, spec, mesh, axes, idx)
+    server_step = make_server_step(adaptive_cfg, dev, slab_update_slabs)
     f32 = torch.float32
 
     def psum(x):
         return psum_axes(x, mesh, axes)
 
-    def fill(x):
-        return torch.full((), float(x), dtype=f32, device=dev)
+    def f32_finish(draws, acc, clean, norm_safe=None):
+        """The f32 wire's superposition of the rank's faded partial and
+        clean sum: a reduce-scatter (bucketed on the overlap engine)
+        hands each rank its slice, which takes the participation norm,
+        if any, and the interference: (g_slice, clean_slice, stats)."""
+        rows = torch.stack([acc, clean])
+        if overlap:
+            both = _bucketed_psum_scatter(rows, comm_buckets, mesh, axes,
+                                          axis_sizes)
+        else:
+            both = psum_scatter_slab(rows, mesh, axes, dim=1)
+        g_slice = both[0] if norm_safe is None else both[0] / norm_safe
+        g_slice, stats = _interference(channel_cfg, draws, off, shard_len,
+                                       g_slice, track, overlap)
+        return g_slice, both[1], stats
 
     def resident_mac(params, batches, draws, ef):
         """Steps 2-4 with every local client resident: (g_slice,
         clean_slice, stats, ef_new, loss_in)."""
         grads, losses = client_fn(params, batches)
-        h_loc = draws.h[idx * n_local:(idx + 1) * n_local]
+        h_loc = draws.h[local]
         g_stack = stack_to_slab(spec, grads)
         del grads
         stats = ef_new = None
@@ -512,118 +521,57 @@ def _make_round_body(loss_fn, channel_cfg: OTAChannelConfig,
                                            shard_len, g_slice, track, True)
         else:
             # B3a: the faded partial over the local rows, no carry
-            partial = ota_transmit_slab(g_stack, h_loc, n_total=n)
-            clean_part = torch.sum(g_stack, dim=0)
-            both = psum_scatter_slab(torch.stack([partial, clean_part]),
-                                     mesh, axes, dim=1)
-            g_slice, clean_slice = both[0], both[1]
-            g_slice, stats = _interference(channel_cfg, draws, off,
-                                           shard_len, g_slice, track, False)
+            g_slice, clean_slice, stats = f32_finish(
+                draws, ota_transmit_slab(g_stack, h_loc, n_total=n),
+                torch.sum(g_stack, dim=0))
         return g_slice, clean_slice, stats, ef_new, torch.mean(losses)
 
     def streamed_mac(params, batches, draws, ef, mask, gain, norm_safe):
-        """Steps 2-4 with the local clients streamed in chunks:
-        (g_slice, clean_slice, stats, ef_new, loss_sum)."""
+        """Steps 2-4 with the local clients streamed in chunks
+        (``core.stream.fold_chunks`` over the rank's rows), ``norm_safe``
+        the participation norm (None under the static 1/N): (g_slice,
+        clean_slice, stats, ef_new, loss_sum)."""
         h_eff = draws.h * gain if dynamic_norm else draws.h
-        n_div = 1 if dynamic_norm else n
-        h_loc = h_eff[idx * n_local:(idx + 1) * n_local]
-        m_loc = mask[idx * n_local:(idx + 1) * n_local]
-        if ragged:
-            # zero-gain rows past the local population; their batch rows
-            # re-read local row n_local-1 and fold in exactly 0
-            h_loc = F.pad(h_loc, (0, n_chunks * chunk - n_local))
-            m_loc = F.pad(m_loc, (0, n_chunks * chunk - n_local))
-
-        def produce(c):
-            start = c * chunk
-            if ragged:
-                rows = torch.clamp_max(
-                    torch.arange(start, start + chunk, device=dev),
-                    n_local - 1)
-                batch = tree_map(lambda b: b.index_select(0, rows), batches)
-            else:
-                batch = tree_map(lambda b: b[start:start + chunk], batches)
-            grads, losses = client_fn(params, batch)
-            return (stack_to_slab(spec, grads), h_loc[start:start + chunk],
-                    m_loc[start:start + chunk], losses)
-
-        def fold(acc, clean, loss_sum, slot):
-            # the double-buffered fold: one (2, chunk) @ (chunk, d)
-            # product a slot (core.stream's tolerance tier)
-            g_stack, h_c, m_c, losses = slot
-            coeff = torch.stack([h_c * (1.0 / n_div), m_c])
-            with _f32_matmul():
-                both = coeff @ g_stack
-            return (acc + both[0], clean + both[1],
-                    loss_sum + torch.sum(m_c * losses))
-
-        zeros = torch.zeros((spec.padded,), dtype=f32, device=dev)
-        loss_sum = torch.zeros((), dtype=f32, device=dev)
-        if n_chunks == 1:
-            # one chunk, no carry: the no-carry transmit (B3a)
-            g_stack, h_c, m_c, losses = produce(0)
-            acc = ota_transmit_slab(g_stack, h_c, n_total=n_div)
-            clean = torch.sum(m_c[:, None] * g_stack, dim=0)
-            loss_sum = torch.sum(m_c * losses)
-        elif fl_cfg.double_buffer:
-            acc, clean = zeros, zeros
-            slot = produce(0)
-            for c in range(1, n_chunks):
-                new_slot = produce(c)
-                acc, clean, loss_sum = fold(acc, clean, loss_sum, slot)
-                slot = new_slot
-            acc, clean, loss_sum = fold(acc, clean, loss_sum, slot)
-        else:
-            acc, clean = zeros, zeros
-            for c in range(n_chunks):
-                g_stack, h_c, m_c, losses = produce(c)
-                acc = ota_transmit_slab(g_stack, h_c, n_total=n_div, acc=acc)
-                clean = clean + torch.sum(m_c[:, None] * g_stack, dim=0)
-                loss_sum = loss_sum + torch.sum(m_c * losses)
-
+        acc, clean, loss_sum = fold_chunks(
+            client_fn, params, spec, lambda rows: take_rows(batches, rows),
+            h_eff[local], mask[local], 1 if dynamic_norm else n, fl_cfg)
         stats = ef_new = None
         if uplink.quantized:
             # the noisy partial pre-divided by the participation norm
             # before quantization; the clean one stays raw
-            noisy = acc / norm_safe if dynamic_norm else acc
+            noisy = acc if norm_safe is None else acc / norm_safe
             one = torch.ones((1,), dtype=f32, device=dev)
             g_slice, clean_slice, stats, ef_new = _int8_uplink(
                 channel_cfg, noisy[None], one, 1, draws, idx, spec, mesh,
                 axes, axis_sizes, pilot_stats=track, ef=ef,
                 clean_rows=clean[None])
         else:
-            rows = torch.stack([acc, clean])
-            if overlap:
-                both = _bucketed_psum_scatter(rows, comm_buckets, mesh, axes,
-                                              axis_sizes)
-            else:
-                both = psum_scatter_slab(rows, mesh, axes, dim=1)
-            g_slice, clean_slice = both[0], both[1]
-            if dynamic_norm:
-                g_slice = g_slice / norm_safe
-            g_slice, stats = _interference(channel_cfg, draws, off,
-                                           shard_len, g_slice, track,
-                                           overlap)
+            g_slice, clean_slice, stats = f32_finish(draws, acc, clean,
+                                                     norm_safe)
         return g_slice, clean_slice, stats, ef_new, loss_sum
 
     def body(state: SlabTrainState, draws: RoundDraws, batches,
              w_full=None):
-        w_orig, opt_orig, alpha_orig = state.w, state.opt, state.alpha_hat
         ef = state.ef[0] if use_ef else None
         # 1. model broadcast: slices -> full slab -> parameter views
         if w_full is None:
             w_full = bcast(state.w, draws)
         params = slab_to_tree(spec, w_full)
+        ok = None
         if not dynamic:
             g_slice, clean_slice, stats, ef_new, loss_in = resident_mac(
                 params, batches, draws, ef)
-            loss_div = fill(n_shards)
-            den = n_part = fill(n)
+            loss_div = fill(n_shards, dev)
+            den = n_part = fill(n, dev)
         else:
             mask, gain = round_participation(draws, fl_cfg, weights)
             n_part = torch.sum(mask)
-            norm = torch.sum(gain) if dynamic_norm else n_part
-            norm_safe = torch.where(norm > 0.0, norm, torch.ones_like(norm))
+            norm_safe = None
+            if dynamic_norm:
+                norm = torch.sum(gain)
+                # a round nobody took part in leaves the state as it was
+                ok = norm > 0.0
+                norm_safe = torch.where(ok, norm, torch.ones_like(norm))
             g_slice, clean_slice, stats, ef_new, loss_in = streamed_mac(
                 params, batches, draws, ef, mask, gain, norm_safe)
             den = loss_div = torch.clamp_min(n_part, 1.0)
@@ -645,39 +593,17 @@ def _make_round_body(loss_fn, channel_cfg: OTAChannelConfig,
             loss_sum = psum(loss_in)
             if track:
                 stats = psum(stats)
-        if track:
-            alpha_hat = update_alpha_ema(state.alpha_hat, stats,
-                                         adaptive_cfg.alpha_ema)
-            alpha_arg = effective_alpha(alpha_hat)
-            alpha_metric = alpha_hat
-        else:
-            alpha_hat, alpha_arg = state.alpha_hat, None
-            alpha_metric = fill(adaptive_cfg.alpha)
 
-        # 5. the server update on the rank's resident slices
+        # 5. the server update on the rank's resident slices; non-f32
+        # leaves round-trip through their storage dtype (under the int8
+        # downlink the master, regathered, never the broadcast)
         w_in = state.w
         if has_cast:
-            # non-f32 leaves round-trip through their storage dtype each
-            # round, as on every other engine (under the int8 downlink
-            # the master, regathered, never the broadcast)
-            src = (params if not dl_int8
-                   else slab_to_tree(spec, all_gather_slab(w_orig, mesh,
-                                                           axes)))
-            w_in = tree_to_slab(spec, src)[off:off + shard_len]
-        new_opt, w_new = slab_update_slabs(adaptive_cfg, g_slice, state.opt,
-                                           w_in, alpha=alpha_arg)
-        ef_out = ef_new[None] if use_ef else state.ef
-        if dynamic_norm:
-            # a round nobody took part in leaves the state as it was
-            ok = norm > 0.0
-            w_new = torch.where(ok, w_new, w_orig)
-            new_opt = tuple(torch.where(ok, a, b)
-                            for a, b in zip(new_opt, opt_orig))
-            if use_ef:
-                ef_out = torch.where(ok, ef_out, state.ef)
-            if track:
-                alpha_hat = torch.where(ok, alpha_hat, alpha_orig)
-                alpha_metric = alpha_hat
+            w_in = storage_round_trip(
+                spec, params, all_gather_slab(state.w, mesh, axes)
+                if dl_int8 else None)[off:off + shard_len]
+        alpha_hat, alpha_metric, opt, w, ef = server_step(
+            state, g_slice, stats, w_in, ef_new, ok)
         metrics = RoundMetrics(
             loss=loss_sum / loss_div,
             grad_norm=torch.sqrt(psum(clean_sq) if not overlap
@@ -687,8 +613,8 @@ def _make_round_body(loss_fn, channel_cfg: OTAChannelConfig,
             fading_mean=torch.mean(draws.h),
             alpha_hat=alpha_metric,
             n_participants=n_part)
-        return SlabTrainState(state.step + 1, w_new, tuple(new_opt),
-                              alpha_hat, spec, ef_out), metrics
+        return SlabTrainState(state.step + 1, w, opt, alpha_hat, spec,
+                              ef), metrics
 
     return body
 
@@ -752,15 +678,7 @@ def _check_rank_state(state: SlabTrainState, use_ef: bool, n_shards: int,
             f"SlabTrainState.w has shape {tuple(state.w.shape)}, a rank's "
             f"slice is ({state.spec.shard_len},): pass the rank's slices "
             "(shard_train_state)")
-    if state.w.device != dev:
-        raise ValueError(f"state lives on {state.w.device}, the round on "
-                         f"{dev}")
-    if use_ef and state.ef is None:
-        raise ValueError(
-            "UplinkConfig.error_feedback=True but the SlabTrainState "
-            "carries no residual rows; build it with "
-            f"init_train_state(..., shards={n_shards}, "
-            "error_feedback=True)")
+    check_state(state, dev, use_ef)
     if use_ef and tuple(state.ef.shape) != (1, state.spec.padded):
         raise ValueError(
             f"SlabTrainState.ef has shape {tuple(state.ef.shape)}; a rank "
@@ -796,13 +714,6 @@ def gather_train_state(state: SlabTrainState, mesh) -> SlabTrainState:
                                                          axes))
 
 
-def _local_rows(client_batches, idx: int, n_local: int, dev: torch.device):
-    """This rank's clients' rows of global (N, ...) batch leaves, on the
-    device (sliced before they move)."""
-    return tree_map(lambda x: torch.as_tensor(
-        x[idx * n_local:(idx + 1) * n_local], device=dev), client_batches)
-
-
 def make_shard_slab_step(loss_fn, channel_cfg: OTAChannelConfig,
                          adaptive_cfg: AdaptiveConfig, fl_cfg: FLConfig,
                          mesh, device: DeviceLike = None):
@@ -831,13 +742,12 @@ def make_shard_slab_step(loss_fn, channel_cfg: OTAChannelConfig,
             bodies[state.spec] = _make_round_body(
                 loss_fn, channel_cfg, adaptive_cfg, fl_cfg, mesh, axes,
                 axis_sizes, state.spec, dev, weights)
-        draws = draws.to(dev)
-        if draws.mask is not None and not fl_cfg.dynamic_round:
-            raise ValueError("draws.mask is set but the round config is "
-                             "resident (FLConfig.sample_rate is 1)")
-        return bodies[state.spec](
-            state, draws, _local_rows(client_batches, idx, n_local, dev),
-            w_full)
+        # the rank's clients' rows, sliced before they move
+        draws, batches = round_inputs(
+            dev, fl_cfg, draws,
+            tree_map(lambda x: x[idx * n_local:(idx + 1) * n_local],
+                     client_batches))
+        return bodies[state.spec](state, draws, batches, w_full)
 
     return step
 

@@ -106,8 +106,8 @@ class StreamParts(NamedTuple):
 
 
 @contextlib.contextmanager
-def _f32_matmul():
-    """Full-f32 matrix products for the double-buffered fold: TF32 (or
+def f32_matmul():
+    """Full-f32 matrix products for a fold written as a GEMM: TF32 (or
     bf16 passes on the CPU) would move it by ~1e-3, whatever the caller
     set globally."""
     prev = torch.get_float32_matmul_precision()
@@ -119,6 +119,87 @@ def _f32_matmul():
         yield
     finally:
         torch.set_float32_matmul_precision(prev)
+
+
+def take_rows(batches: PyTree, rows) -> PyTree:
+    """Rows of per-client batch leaves: ``rows`` a ``slice`` (views) or
+    an int64 index tensor on the device."""
+    if isinstance(rows, slice):
+        return tree_map(lambda b: b[rows], batches)
+    return tree_map(lambda b: b.index_select(0, rows), batches)
+
+
+def fold_chunks(client_fn: Callable, params: PyTree, spec: SlabSpec,
+                batch_rows: Callable, h_eff: torch.Tensor,
+                mask: torch.Tensor, n_div: int, fl_cfg):
+    """The streamed client axis over R rows (all N clients, or a rank's
+    own) in chunks of ``fl_cfg.client_chunk``: each chunk's gradients,
+    faded by its rows of ``h_eff``, fold into the running partial in the
+    accumulating transmit, which carries the masked clean sum from the
+    same read of the stack. Returns ``(acc, clean, loss_sum)``: the faded
+    partial (over ``n_div``), the participants' clean sum and summed loss.
+
+    ``batch_rows(rows)`` is the batch of ``rows``: a ``slice``, or for a
+    ragged last chunk an index tensor whose rows past R re-read row R-1
+    (their zero fading and mask fold in exactly 0). One chunk feeds the
+    no-carry transmit once, in the channel kernel's row order.
+    ``fl_cfg.double_buffer`` issues chunk c's clients before folding
+    chunk c-1 as one (2, chunk) @ (chunk, d) product (its tolerance
+    tier)."""
+    n = h_eff.shape[0]
+    dev = h_eff.device
+    chunk = min(fl_cfg.client_chunk or n, n)
+    n_chunks = -(-n // chunk)
+    ragged = n_chunks * chunk != n
+    if ragged:
+        # the draws were taken at full width before this padding
+        h_eff = F.pad(h_eff, (0, n_chunks * chunk - n))
+        mask = F.pad(mask, (0, n_chunks * chunk - n))
+
+    def produce(c):
+        """Chunk c's client compute and per-row operands: one slot of
+        the double-buffered pipeline."""
+        start = c * chunk
+        with span("clients"):
+            rows = slice(start, start + chunk)
+            if ragged:
+                rows = torch.clamp_max(
+                    torch.arange(start, start + chunk, device=dev), n - 1)
+            grads, losses = client_fn(params, batch_rows(rows))
+        return (stack_to_slab(spec, grads), h_eff[start:start + chunk],
+                mask[start:start + chunk], losses)
+
+    def fold(acc, clean, loss_sum, slot):
+        g_stack, h_c, m_c, losses = slot
+        coeff = torch.stack([h_c * (1.0 / n_div), m_c])
+        with f32_matmul():
+            both = coeff @ g_stack
+        return (acc + both[0], clean + both[1],
+                loss_sum + torch.sum(m_c * losses))
+
+    if n_chunks == 1:
+        g_stack, h_c, m_c, losses = produce(0)
+        return (ota_transmit_slab(g_stack, h_c, n_total=n_div),
+                torch.sum(m_c[:, None] * g_stack, dim=0),
+                torch.sum(m_c * losses))
+    acc = clean = torch.zeros((spec.padded,), dtype=torch.float32,
+                              device=dev)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
+    if fl_cfg.double_buffer:
+        slot = produce(0)
+        for c in range(1, n_chunks):
+            new_slot = produce(c)
+            acc, clean, loss_sum = fold(acc, clean, loss_sum, slot)
+            slot = new_slot
+        return fold(acc, clean, loss_sum, slot)
+    for c in range(n_chunks):
+        g_stack, h_c, m_c, losses = produce(c)
+        # one read of the stack for both carries (out of place: acc and
+        # clean start as the one zeros tensor)
+        acc, clean = ota_transmit_slab(g_stack, h_c, n_total=n_div,
+                                       acc=acc, clean=clean, mask=m_c)
+        loss_sum = loss_sum + torch.sum(m_c * losses)
+    return acc, clean, loss_sum
 
 
 def streamed_round_parts(draws: RoundDraws, channel_cfg: OTAChannelConfig,
@@ -141,16 +222,14 @@ def streamed_round_parts(draws: RoundDraws, channel_cfg: OTAChannelConfig,
     client rows ``idx`` (an int64 tensor on the device), for populations
     too large to hold. Exactly one of the two.
 
-    A chunk that does not divide N leaves a ragged final chunk: its rows
-    past N re-read row N-1, and their zero fading and mask fold exactly
-    0 into every sum. ``ef`` is the carried (padded,) error-feedback
-    residual: it joins the completed partial before the finish stage's
-    quantizer (quantized uplink only); the fresh one comes back as
-    ``ef_new``. ``weights`` as in ``round_participation``.
+    The chunks (a ragged last one included) are ``fold_chunks``'. ``ef``
+    is the carried (padded,) error-feedback residual: it joins the
+    completed partial before the finish stage's quantizer (quantized
+    uplink only); the fresh one comes back as ``ef_new``. ``weights`` as
+    in ``round_participation``.
     """
     cfg = channel_cfg
     n = fl_cfg.n_clients
-    chunk = min(fl_cfg.client_chunk or n, n)
     if (client_batches is None) == (batch_gen is None):
         raise ValueError("pass exactly one of client_batches / batch_gen")
     if ef is not None and not cfg.uplink.quantized:
@@ -164,92 +243,20 @@ def streamed_round_parts(draws: RoundDraws, channel_cfg: OTAChannelConfig,
 
     mask, gain = round_participation(draws, fl_cfg, weights)
     dynamic_norm = fl_cfg.dynamic_norm
+    if batch_gen is not None:
+        def batch_rows(rows):
+            if isinstance(rows, slice):
+                rows = torch.arange(rows.start, rows.stop, device=dev)
+            return batch_gen(draws, rows)
+    else:
+        def batch_rows(rows):
+            return take_rows(client_batches, rows)
     # With neither sampling nor weights, h_eff is h and the static 1/N
     # divisor stays in the kernel.
-    h_eff = h * gain if dynamic_norm else h
-    n_div = 1 if dynamic_norm else n
-    # Ragged final chunk: zero rows pad the per-row operands; the draws
-    # were taken at full (N,) before padding.
-    n_chunks = -(-n // chunk)
-    n_padded = n_chunks * chunk
-    ragged = n_padded != n
-    if ragged:
-        h_sched = F.pad(h_eff, (0, n_padded - n))
-        mask_sched = F.pad(mask, (0, n_padded - n))
-    else:
-        h_sched, mask_sched = h_eff, mask
-
-    def produce(c):
-        """Chunk c's client compute and per-row operands: one slot of
-        the double-buffered pipeline."""
-        start = c * chunk
-        with span("clients"):
-            if batch_gen is not None or ragged:
-                idx = torch.arange(start, start + chunk, device=dev)
-                if ragged:
-                    # padding rows re-read row N-1 (with zero gain and mask)
-                    idx = torch.clamp_max(idx, n - 1)
-            if batch_gen is not None:
-                batch = batch_gen(draws, idx)
-            elif ragged:
-                batch = tree_map(lambda b: b.index_select(0, idx),
-                                 client_batches)
-            else:
-                batch = tree_map(lambda b: b[start:start + chunk],
-                                 client_batches)
-            grads, losses = client_fn(params, batch)
-        g_stack = stack_to_slab(spec, grads)
-        return (g_stack, h_sched[start:start + chunk],
-                mask_sched[start:start + chunk], losses)
-
-    def fold(acc, clean, loss_sum, slot):
-        """Double-buffered fold: the faded and clean partials of a
-        completed slot reduce together as one (2, chunk) @ (chunk, d)
-        product (one read of the gradient stack), which reassociates the
-        chunk's sum: the tolerance tier of ``FLConfig.double_buffer``."""
-        g_stack, h_c, m_c, losses = slot
-        coeff = torch.stack([h_c * (1.0 / n_div), m_c])
-        with _f32_matmul():
-            both = coeff @ g_stack
-        return (acc + both[0], clean + both[1],
-                loss_sum + torch.sum(m_c * losses))
-
-    zeros = torch.zeros((spec.padded,), dtype=f32, device=dev)
-    if n == chunk:
-        # A single chunk: the resident compute feeding the transmit
-        # kernel once, with no slicing and no carry (0 + x == x), so the
-        # kernel sums the rows in the channel kernel's order.
-        with span("clients"):
-            batch = (batch_gen(draws, torch.arange(n, device=dev))
-                     if batch_gen is not None else client_batches)
-            grads, losses = client_fn(params, batch)
-        g_stack = stack_to_slab(spec, grads)
-        acc = ota_transmit_slab(g_stack, h_eff, n_total=n_div)
-        clean = torch.sum(mask[:, None] * g_stack, dim=0)
-        loss_sum = torch.sum(mask * losses)
-    elif fl_cfg.double_buffer:
-        # Chunk 0 fills the slot; then produce(c) is issued before
-        # fold(c - 1), and the last slot drains after the loop. Same
-        # draws, chunks and batches as the serial loop: only the order
-        # of the accumulation moves.
-        acc, clean = zeros, zeros
-        loss_sum = torch.zeros((), dtype=f32, device=dev)
-        slot = produce(0)
-        for c in range(1, n_chunks):
-            new_slot = produce(c)
-            acc, clean, loss_sum = fold(acc, clean, loss_sum, slot)
-            slot = new_slot
-        acc, clean, loss_sum = fold(acc, clean, loss_sum, slot)
-    else:
-        acc, clean = zeros, zeros
-        loss_sum = torch.zeros((), dtype=f32, device=dev)
-        for c in range(n_chunks):
-            g_stack, h_c, m_c, losses = produce(c)
-            # one read of the stack for both carries (out of place: acc
-            # and clean start as the one zeros tensor)
-            acc, clean = ota_transmit_slab(g_stack, h_c, n_total=n_div,
-                                           acc=acc, clean=clean, mask=m_c)
-            loss_sum = loss_sum + torch.sum(m_c * losses)
+    acc, clean, loss_sum = fold_chunks(
+        client_fn, params, spec, batch_rows,
+        h * gain if dynamic_norm else h, mask,
+        1 if dynamic_norm else n, fl_cfg)
 
     n_part = torch.sum(mask)
     norm = torch.sum(gain) if dynamic_norm else n_part

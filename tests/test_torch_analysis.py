@@ -36,6 +36,7 @@ ROOT = Path(__file__).resolve().parents[1]
 # Fixture paths chosen to land in each rule's scope.
 OTA = "src/repro_torch/core/ota.py"
 FL = "src/repro_torch/core/fl.py"
+ROUND = "src/repro_torch/core/round.py"
 KERNEL = "src/repro_torch/kernels/ota_channel.py"
 REF = "src/repro_torch/kernels/ref.py"
 BUILD = "src/repro_torch/kernels/build.py"
@@ -166,7 +167,7 @@ DRAW_SRC = ("import torch\n"
 
 
 def test_draw_in_round_fires_inside_round_bodies():
-    for path in (OTA, FL, KERNEL):
+    for path in (OTA, FL, ROUND, KERNEL):
         hits = rules_of(analyze_one(path, DRAW_SRC), "draw-in-round")
         assert [f.line for f in hits] == [4, 5, 6, 7], path
         assert all(f.severity == "error" for f in hits)

@@ -92,7 +92,7 @@ def test_logreg_channel_variants_match_jax(channel):
 
 
 def test_local_steps_pseudo_gradient_matches_jax():
-    """The k > 1 branch of _client_update (FedAvg-style local SGD)."""
+    """The k > 1 branch of client_update (FedAvg-style local SGD)."""
     ch = OTAChannelConfig()
     ad = AdaptiveConfig(optimizer="adagrad_ota", lr=0.05)
     fl = FLConfig(n_clients=N, local_steps=2, local_lr=0.1)

@@ -34,6 +34,7 @@ from repro.core.slab_state import init_train_state as j_init
 from repro.launch.mesh import make_client_mesh as j_make_client_mesh
 from repro.launch.shard_check import _loss_fn as j_quadratic_loss
 from repro_torch.core import shard
+from repro_torch.core import stream as tstream
 from repro_torch.core.adaptive import AdaptiveConfig
 from repro_torch.core.channel import OTAChannelConfig, UplinkConfig
 from repro_torch.core.draws import RoundDraws, TorchDraws
@@ -321,6 +322,8 @@ class _Calls:
             raise AssertionError("the sharded round launched B2")
 
         monkeypatch.setattr(shard, "ota_transmit_slab", transmit)
+        # the streamed rounds' chunks fold in core.stream's chunk loop
+        monkeypatch.setattr(tstream, "ota_transmit_slab", transmit)
         monkeypatch.setattr(shard, "ota_receive_slab", receive)
         monkeypatch.setattr(shard, "slab_update_slabs", update)
         import repro_torch.core.ota as ota

@@ -6,7 +6,8 @@ Without a profiler ``span`` is one shared no-op and never reaches
 ``record_function``; under a CPU profiler the spans nest as the round
 runs them; the round's state and metrics are the same bits with the
 profiler on and off; ``host_syncs`` counts the five read backs a chunk
-and, on a card only, one copy a batch leaf that comes from the host.
+and, on a card only, one copy a batch leaf that comes from the host, on
+the slab runner and on the per-round API.
 """
 
 import numpy as np
@@ -19,8 +20,10 @@ from repro_torch import spans
 from repro_torch.core.adaptive import AdaptiveConfig
 from repro_torch.core.channel import OTAChannelConfig
 from repro_torch.core.draws import TorchDraws
-from repro_torch.core.fl import (FLConfig, make_slab_round_runner,
+from repro_torch.core.fl import (FLConfig, init_server, make_round_step,
+                                 make_slab_round_runner, run_rounds,
                                  run_rounds_slab)
+from repro_torch.core.slab import slab_to_tree
 from repro_torch.core.slab_state import init_train_state
 from repro_torch.models import vision as tvision
 
@@ -140,19 +143,40 @@ def test_host_syncs_counts_the_read_backs_and_no_cpu_copy(case):
     assert spans.host_syncs - before == 2 * 5
 
 
+def _run_round_api(device, leaf, n_rounds=2):
+    """The per-round pytree API (``make_round_step`` + ``run_rounds``)
+    on the resident case's inputs."""
+    _, state, draws, batch_fn = _setup("resident", device=device, leaf=leaf)
+    ch = OTAChannelConfig(alpha=1.5, xi_scale=0.1)
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.05, alpha=1.5, beta2=0.3)
+    fl = FLConfig(n_clients=N)
+    step = make_round_step(tvision.logistic_regression(D, C).loss_fn, ch, ad,
+                           fl, device=device)
+    params = slab_to_tree(state.spec, state.w)
+    return run_rounds(step, params, init_server(params, ad), draws, batch_fn,
+                      n_rounds)
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["slab", "round_step"])
 @pytest.mark.parametrize("leaf", ["numpy", "cpu", "pinned", "cuda"])
-def test_host_syncs_counts_each_batch_leaf_from_the_host(leaf):
+def test_host_syncs_counts_each_batch_leaf_from_the_host(leaf, entry):
     """On the card: one count a batch leaf a round that is not already
-    on the card (two leaves), plus the five read backs."""
+    on the card (two leaves), on the slab runner plus its five read
+    backs, and on the per-round API."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     make = {"numpy": lambda x: x,
             "cpu": torch.as_tensor,
             "pinned": lambda x: torch.as_tensor(x).pin_memory(),
             "cuda": lambda x: torch.as_tensor(x, device="cuda")}[leaf]
+    copies = 0 if leaf == "cuda" else 2
+    if entry == "round_step":
+        before = spans.host_syncs
+        _run_round_api("cuda", make)
+        assert spans.host_syncs - before == 2 * copies
+        return
     for case in CHUNKS:
         before = spans.host_syncs
         _run(case, n_rounds=2, chunk=1, device="cuda", leaf=make)
-        copies = 0 if leaf == "cuda" else 2
         assert spans.host_syncs - before == 2 * (5 + copies)

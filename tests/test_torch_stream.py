@@ -39,9 +39,9 @@ from repro_torch.core import stream as tstream
 from repro_torch.core.adaptive import AdaptiveConfig
 from repro_torch.core.channel import OTAChannelConfig, UplinkConfig
 from repro_torch.core.draws import RoundDraws, TorchDraws
-from repro_torch.core.fl import (FLConfig, _client_update,
-                                 make_slab_round_runner, make_slab_round_step,
-                                 run_rounds_slab)
+from repro_torch.core.fl import (FLConfig, make_slab_round_runner,
+                                 make_slab_round_step, run_rounds_slab)
+from repro_torch.core.round import client_update
 from repro_torch.core.slab import make_slab_spec
 from repro_torch.core.slab_state import init_train_state
 from repro_torch.kernels import ota_channel as tkern
@@ -192,7 +192,7 @@ def test_streamed_round_parts_match_jax(loop, wire, use_kernels):
         ef=None if ef is None else jnp.asarray(ef))
     got = tstream.streamed_round_parts(
         ref_draws(key, ch, jspec, N, fl.sample_rate), ch, fl, spec,
-        vmap(_client_update(tmodel.loss_fn, fl), in_dims=(None, 0)),
+        vmap(client_update(tmodel.loss_fn, fl), in_dims=(None, 0)),
         params_from_numpy(params, "cpu"),
         client_batches={k: torch.from_numpy(v) for k, v in batch.items()},
         pilot_stats=True, ef=None if ef is None else torch.from_numpy(ef))

@@ -1,6 +1,7 @@
 """The streamed uplink's clean sum carried by the accumulating transmit.
 
-The serial loop of ``core/stream.py:streamed_round_parts`` folds each
+The serial chunk loop (``core/stream.py:fold_chunks``, which the
+single-device streamed round and the sharded engine both run) folds each
 chunk's unfaded masked sum ``clean + sum(m[:, None] * G, 0)`` into the
 same launch as the faded one (``ota_transmit_slab(..., clean=,
 mask=)``), from one read of the chunk's gradient stack.
@@ -9,7 +10,8 @@ On the CPU: ``ota_transmit_split_model(clean=, mask=)``, the kernel's
 clean order written out one f32 operation at a time, against the plain
 sum (the tier below), and bit for bit at 2 rows and one segment; the
 wrapper's CPU route bit for bit the plain version, counting no launch;
-a streamed serial round at chunk 2 whose ``StreamParts`` are bit for bit
+a streamed serial round at chunk 2 whose ``StreamParts`` (and a round
+of the sharded engine on the (1,)-mesh, over gloo) are bit for bit
 those of the unfused formula.
 
 Marked ``cuda`` (each test skips from a fixture where there is no CUDA
@@ -17,7 +19,8 @@ device or no nvcc): the fused launch bit for bit its split model on
 every schedule (the few-row walk, the bulk-copy ring with and without
 a row split, plain loads), its faded sum bit for bit a launch without
 the clean carry, its clean sum at 2 rows bit for bit torch's on the
-card, and the launches a streamed round counts. This file imports
+card, and the launches a streamed round counts, on one card and on the
+(1,)-mesh over NCCL. This file imports
 neither jax nor the JAX package:
 
     PYTHONPATH=src python -m pytest --noconftest -m cuda tests/test_torch_stream_clean.py
@@ -32,16 +35,19 @@ import torch
 from torch.func import vmap
 
 from repro_torch.convert import params_from_numpy
+from repro_torch.core import shard
 from repro_torch.core import stream as tstream
 from repro_torch.core.adaptive import AdaptiveConfig
 from repro_torch.core.channel import OTAChannelConfig
 from repro_torch.core.draws import TorchDraws
-from repro_torch.core.fl import FLConfig, _client_update, make_slab_round_step
+from repro_torch.core.fl import FLConfig, make_slab_round_step
+from repro_torch.core.round import client_update
 from repro_torch.core.slab import make_slab_spec
 from repro_torch.core.slab_state import init_train_state
 from repro_torch.kernels import build
 from repro_torch.kernels import ota_channel as tkern
 from repro_torch.kernels.ref import ota_transmit_ref
+from repro_torch.launch.mesh import run_on_mesh
 from repro_torch.models import vision as tvision
 
 SMS = 132                     # an H100's streaming multiprocessors
@@ -171,11 +177,32 @@ def _logreg(n, d=8, c=4, b=5, seed=0):
     return tvision.logistic_regression(d, c), params, batch
 
 
-@pytest.mark.parametrize("n, flkw", [
-    (8, {}), (8, dict(sample_rate=0.5)), (7, {}),
-], ids=["full", "sampled", "ragged"])
-def test_serial_round_at_chunk_2_keeps_clean_slab_bitwise(monkeypatch, n,
-                                                          flkw):
+def _shard_step(model, ch, fl, params, device):
+    """The sharded engine's step and a fresh state of the rank's slices,
+    on the (1,)-mesh given as the first argument."""
+    ad = AdaptiveConfig(optimizer="adam_ota", lr=0.05, alpha=1.5)
+
+    def build(mesh):
+        state = shard.shard_train_state(
+            init_train_state(ad, params, device=device), mesh)
+        return state, make_slab_round_step(
+            model.loss_fn, ch, ad, fl, device=device,
+            backend="pallas_sharded", mesh=mesh)
+    return build
+
+
+@pytest.mark.parametrize("engine, n, flkw", [
+    ("single", 8, {}), ("single", 8, dict(sample_rate=0.5)),
+    ("single", 7, {}),
+    ("shard", 8, {}), ("shard", 8, dict(sample_rate=0.5)), ("shard", 7, {}),
+], ids=["full", "sampled", "ragged", "shard-full", "shard-sampled",
+        "shard-ragged"])
+def test_serial_round_at_chunk_2_keeps_clean_slab_bitwise(monkeypatch,
+                                                          engine, n, flkw):
+    """The single-device streamed uplink's ``StreamParts``, or the
+    sharded engine's round on the (1,)-mesh (its state and metrics), bit
+    for bit those of the unfused formula: both walk the chunks in
+    ``core.stream.fold_chunks``."""
     model, params, batch = _logreg(n)
     ch = OTAChannelConfig(alpha=1.5, xi_scale=0.1)
     fl = FLConfig(n_clients=n, client_chunk=2, **flkw)
@@ -183,7 +210,7 @@ def test_serial_round_at_chunk_2_keeps_clean_slab_bitwise(monkeypatch, n,
     spec = make_slab_spec(p)
     draws = TorchDraws(ch, spec, n, seed=3, device="cpu",
                        sample_rate=fl.sample_rate)(0)
-    client = vmap(_client_update(model.loss_fn, fl), in_dims=(None, 0))
+    client = vmap(client_update(model.loss_fn, fl), in_dims=(None, 0))
     transmit = tstream.ota_transmit_slab
     calls = []
 
@@ -191,9 +218,27 @@ def test_serial_round_at_chunk_2_keeps_clean_slab_bitwise(monkeypatch, n,
         calls.append(kw)
         return transmit(g, h, **kw)
 
+    def unfused(g, h, *, n_total, acc, clean, mask):
+        out = transmit(g, h, n_total=n_total, acc=acc)
+        return out, clean + torch.sum(mask[:, None] * g, dim=0)
+
+    def single(_):
+        parts = tstream.streamed_round_parts(draws, ch, fl, spec, client, p,
+                                             client_batches=batch)
+        return {f: getattr(parts, f) for f in (
+            "g_slab", "h", "mask", "n_participants", "norm", "loss_sum",
+            "clean_slab")}
+
+    def sharded(mesh):
+        state, step = _shard_step(model, ch, fl, p, "cpu")(mesh)
+        new, metrics = step(state, draws, batch)
+        return {"w": new.w, "opt": torch.stack(new.opt),
+                "step": new.step, **metrics._asdict()}
+
     def run():
-        return tstream.streamed_round_parts(draws, ch, fl, spec, client, p,
-                                            client_batches=batch)
+        if engine == "single":
+            return single(None)
+        return run_on_mesh(sharded, (1,), "cpu")
 
     monkeypatch.setattr(tstream, "ota_transmit_slab", recorded)
     fused = run()
@@ -201,18 +246,13 @@ def test_serial_round_at_chunk_2_keeps_clean_slab_bitwise(monkeypatch, n,
     assert len(calls) == chunks
     assert all(kw["clean"] is not None and kw["mask"].shape == (2,)
                for kw in calls)
-
-    def unfused(g, h, *, n_total, acc, clean, mask):
-        out = transmit(g, h, n_total=n_total, acc=acc)
-        return out, clean + torch.sum(mask[:, None] * g, dim=0)
-
     monkeypatch.setattr(tstream, "ota_transmit_slab", unfused)
     parent = run()
-    for f in ("g_slab", "h", "mask", "n_participants", "norm", "loss_sum",
-              "clean_slab"):
-        assert torch.equal(getattr(fused, f), getattr(parent, f)), f
+    assert fused.keys() == parent.keys()
+    for f in fused:
+        assert torch.equal(fused[f], parent[f]), f
     if flkw:
-        assert float(fused.n_participants) < n      # the mask has zeros
+        assert float(fused["n_participants"]) < n      # the mask has zeros
 
 
 # ---------------------------------------------------------------------------
@@ -299,22 +339,33 @@ def test_two_row_clean_is_torchs_sum_on_the_card(cuda, d):
 
 
 @pytest.mark.cuda
-def test_a_streamed_round_counts_its_clean_launches(cuda):
+@pytest.mark.parametrize("engine", ["single", "shard"])
+def test_a_streamed_round_counts_its_clean_launches(cuda, engine):
     """32 clients at chunk 2: 16 transmit launches a round, each with the
-    clean carry."""
+    clean carry, on one card and on the (1,)-mesh over NCCL."""
     n = 32
     model, params, batch = _logreg(n)
     ch = OTAChannelConfig(alpha=1.5, xi_scale=0.1)
     ad = AdaptiveConfig(optimizer="adam_ota", lr=0.05, alpha=1.5)
     fl = FLConfig(n_clients=n, client_chunk=2)
-    state = init_train_state(ad, params_from_numpy(params, "cuda"),
-                             device="cuda")
-    step = make_slab_round_step(model.loss_fn, ch, ad, fl, device="cuda")
-    draws = TorchDraws(ch, state.spec, n, seed=4, device="cuda")
+    p = params_from_numpy(params, "cuda")
     batch = {k: v.to(cuda) for k, v in batch.items()}
-    counts = (tkern.ota_transmit_slab.stream_launches,
-              tkern.ota_transmit_slab.clean_launches)
-    step(state, draws(0), batch)
-    torch.cuda.synchronize()
-    assert (tkern.ota_transmit_slab.stream_launches - counts[0],
-            tkern.ota_transmit_slab.clean_launches - counts[1]) == (16, 16)
+
+    def counted(state, step):
+        draws = TorchDraws(ch, state.spec, n, seed=4, device="cuda")
+        counts = (tkern.ota_transmit_slab.stream_launches,
+                  tkern.ota_transmit_slab.clean_launches)
+        step(state, draws(0), batch)
+        torch.cuda.synchronize()
+        return (tkern.ota_transmit_slab.stream_launches - counts[0],
+                tkern.ota_transmit_slab.clean_launches - counts[1])
+
+    if engine == "single":
+        launched = counted(init_train_state(ad, p, device="cuda"),
+                           make_slab_round_step(model.loss_fn, ch, ad, fl,
+                                                device="cuda"))
+    else:
+        launched = run_on_mesh(
+            lambda mesh: counted(*_shard_step(model, ch, fl, p,
+                                              "cuda")(mesh)), (1,), cuda)
+    assert launched == (16, 16)
